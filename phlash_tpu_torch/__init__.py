@@ -1,0 +1,15 @@
+"""phlash_tpu_torch: the PyTorch + CUDA port of phlash_tpu.
+
+Bayesian PSMC by SVGD over a pair-coalescent HMM, for one NVIDIA H100: the
+structured SMC' likelihood and its adjoint run as hand-written CUDA kernels
+(phlash_tpu_torch/csrc, built with nvcc at first use), everything else is
+plain PyTorch.  On the CPU the kernels' plain PyTorch versions stand in, for
+testing.  The package imports torch, numpy and scipy, never JAX or
+phlash_tpu.
+"""
+
+from phlash_tpu_torch.mcmc import fit
+from phlash_tpu_torch.psmc import psmc
+from phlash_tpu_torch.size_history import DemographicModel, SizeHistory
+
+__all__ = ["fit", "psmc", "DemographicModel", "SizeHistory"]

@@ -1,0 +1,273 @@
+"""Structured SMC' forward and adjoint: plain PyTorch versions and CUDA kernels.
+
+Port of phlash_tpu/ops/pallas_smc.py.  Each (particle p, chunk s) pair is one
+HMM instance.  Per site the forward computes the O(M) form of alpha @ A,
+
+    v = b * S(alpha) + d * alpha + vv * P(u * alpha)
+
+(S, P: strict suffix / prefix sums over the M states), applies the
+emission factor (emis0 for hom, emis1 for het, 1 for missing; padding, -2 or
+past the row's end, freezes the state), and every NORM_EVERY sites
+rescales: c = max(sum alpha, TINY_NORM), alpha /= c, ll += log c.  The
+adjoint rebuilds each period from its boundary state and sweeps it in
+reverse (csrc/smc_backward.cu spells out the recursion).
+
+Shapes, shared by both versions:
+    params  6 tensors (B, M): b, d, u, vv, emis0, emis1 (per particle)
+    pi      (B, S, M)         initial state per instance
+    obs     (S, L) int8       the minibatch's observation rows
+    ll      (B, S); alpha (B, S, M); pstates (n_per, M, B, S) with
+    n_per = ceil(L / NORM_EVERY): the state at the start of every period
+    gradients: six (B, S, M) per instance (the caller sums over S) + dpi
+
+Dispatch: `forward` / `backward` launch the CUDA kernel for CUDA tensors
+and take the plain version for CPU tensors; there is no other path and no
+fallback.  Every wrapper counts what it ran (`.launches` on the CUDA
+wrappers, `.calls` on the plain versions); `reset_counts` zeroes them.
+
+Kernel design note (csrc/smc_forward.cu, csrc/smc_backward.cu).
+* Replaces: B1/B2 = pallas_smc.forward_structured (with_residuals False /
+  True, body _make_fwd_kernel) by one forward kernel whose residual store is
+  switched by a null pointer; B3 = pallas_smc.backward_structured (body
+  _make_bwd_kernel) by the adjoint kernel.
+* What bounds it on the H100: neither bytes nor FLOPs.  Per site each HMM
+  does ~10 M flops on a serial dependence chain (the two scans), and there
+  are only B * S independent chains: 2500 at the fit shape (500 particles x
+  5 chunks), i.e. 79 warps.  One thread per instance in blocks of 128
+  puts work on 20 of the 132 SMs, one warp per scheduler, so the kernels
+  are latency-bound with most of the card idle.
+* What the design does about it: for now, nothing beyond keeping the state
+  and parameters in registers (local memory for M >= 32 and for the
+  adjoint's 8-site cache) and reading the int8 rows directly, so no
+  packing pass runs on the host or the device.  A warp per instance with
+  the states on lanes and __shfl scans would put B * S * 32 threads on the
+  card; that is the starting point for later work.
+* The TPU layout (128-lane tiles, chunk-major packing, 2-bit observation
+  codes in SMEM, the 16-chunk split, the VMEM tile-block chooser) is not
+  carried over: each thread indexes its own particle row and chunk row.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NORM_EVERY = 8  # sites between rescalings (pallas_smc.NORM_EVERY)
+TINY_NORM = 1e-30  # normalizer clamp (pallas_smc.TINY_NORM)
+SUPPORTED_M = (8, 16, 32, 64)  # template instances of the CUDA kernels
+
+
+def n_periods(L: int) -> int:
+    return -(-L // NORM_EVERY)
+
+
+def _suffix(x: torch.Tensor) -> torch.Tensor:
+    "S(x)[j] = sum_{k > j} x[k] over the last axis."
+    zero = torch.zeros_like(x[..., :1])
+    return torch.cat([x[..., 1:].flip(-1).cumsum(-1).flip(-1), zero], -1)
+
+
+def _prefix(x: torch.Tensor) -> torch.Tensor:
+    "P(x)[j] = sum_{k < j} x[k] over the last axis."
+    zero = torch.zeros_like(x[..., :1])
+    return torch.cat([zero, x.cumsum(-1)[..., :-1]], -1)
+
+
+def _site(obs: torch.Tensor, t: int) -> torch.Tensor:
+    "(1, S, 1) codes of site t, to broadcast against (B, S, M)."
+    return obs[:, t].view(1, -1, 1)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (any dtype, any device)
+# ---------------------------------------------------------------------------
+
+
+def forward_structured(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool = True):
+    "Plain forward: (ll (B, S), alpha (B, S, M), pstates (n_per, M, B, S) or None)."
+    forward_structured.calls += 1
+    b, d, u, vv, e0, e1 = (x[:, None, :] for x in params)
+    one = torch.ones_like(e0)
+    L = obs.shape[1]
+    a = pi
+    ll = torch.zeros(pi.shape[:2], dtype=pi.dtype, device=pi.device)
+    pst = []
+    for q in range(n_periods(L)):
+        if with_residuals:
+            pst.append(a)
+        for t in range(q * NORM_EVERY, min((q + 1) * NORM_EVERY, L)):
+            ob = _site(obs, t)
+            v = b * _suffix(a) + d * a + vv * _prefix(u * a)
+            f = torch.where(ob == 0, e0, torch.where(ob == 1, e1, one))
+            a = torch.where(ob == -2, a, v * f)
+        c = torch.clamp_min(a.sum(-1, keepdim=True), TINY_NORM)
+        a = a / c
+        ll = ll + torch.log(c[..., 0])
+    pstates = torch.stack(pst).permute(0, 3, 1, 2).contiguous() if with_residuals else None
+    return ll, a, pstates
+
+
+def backward_structured(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torch.Tensor,
+                        abar0: torch.Tensor):
+    """Plain adjoint: gbar (B, S) cotangent of ll, abar0 (B, S, M) cotangent
+    of the final state.  Returns ((db, dd, du, dvv, de0, de1), dpi), each
+    (B, S, M) per instance."""
+    backward_structured.calls += 1
+    b, d, u, vv, e0, e1 = (x[:, None, :] for x in params)
+    one = torch.ones_like(e0)
+    L = obs.shape[1]
+    zero = torch.zeros_like(abar0)
+    db = dd = du = dvv = de0 = de1 = zero
+    ab = abar0
+    g = gbar[..., None]
+    for q in reversed(range(n_periods(L))):
+        a = pstates[q].permute(1, 2, 0)  # (B, S, M)
+        sites = []
+        for t in range(q * NORM_EVERY, min((q + 1) * NORM_EVERY, L)):
+            ob = _site(obs, t)
+            f = torch.where(ob == 0, e0, torch.where(ob == 1, e1, one))
+            sv, pv = _suffix(a), _prefix(u * a)
+            v = b * sv + d * a + vv * pv
+            sites.append((ob, f, a, sv, pv, v))
+            a = torch.where(ob == -2, a, v * f)
+        c = torch.clamp_min(a.sum(-1, keepdim=True), TINY_NORM)
+        ybar = (ab - (ab * (a / c)).sum(-1, keepdim=True) + g) / c
+        for ob, f, x, sv, pv, v in reversed(sites):
+            live = ob != -2
+            yb = torch.where(live, ybar, zero)
+            dfull = v * yb
+            de0 = de0 + torch.where(ob == 0, dfull, zero)
+            de1 = de1 + torch.where(ob == 1, dfull, zero)
+            vbar = f * yb
+            db = db + sv * vbar
+            dd = dd + x * vbar
+            dvv = dvv + pv * vbar
+            t1 = _suffix(vv * vbar)
+            du = du + x * t1
+            xbar = _prefix(b * vbar) + d * vbar + u * t1
+            ybar = torch.where(live, xbar, ybar)
+        ab = ybar
+    return (db, dd, du, dvv, de0, de1), ab
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _require_cuda(floats, ints8=()) -> torch.device:
+    "Validate what the kernels take: one CUDA device, contiguous f32 / int8."
+    dev = floats[0].device
+    for t in floats:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"the CUDA SMC kernels take contiguous float32 tensors on one CUDA device, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    for t in ints8:
+        if t.device != dev or t.dtype != torch.int8 or not t.is_contiguous():
+            raise ValueError(f"observation rows must be contiguous int8 on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA SMC kernels need CUDA tensors, got {dev}")
+    return dev
+
+
+def _check_shapes(params, obs, B: int, S: int, M: int, L: int) -> None:
+    if M not in SUPPORTED_M:
+        raise ValueError(f"the CUDA SMC kernels support M in {SUPPORTED_M}, got {M}")
+    if B * S == 0 or L == 0:
+        raise ValueError(f"empty launch: B={B}, S={S}, L={L}")
+    if any(tuple(p.shape) != (B, M) for p in params) or tuple(obs.shape) != (S, L):
+        raise ValueError("parameter rows must be (B, M) and observations (S, L)")
+
+
+def forward_cuda(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool = True):
+    "The forward kernel (B1 without residuals, B2 with); shapes as the plain version."
+    from phlash_tpu_torch.ops.build import check, load_library
+
+    B, S, M = pi.shape
+    L = obs.shape[1]
+    dev = _require_cuda([*params, pi], [obs])
+    _check_shapes(params, obs, B, S, M, L)
+    lib = load_library()
+    ll = torch.empty(B, S, dtype=torch.float32, device=dev)
+    alpha = torch.empty(B, S, M, dtype=torch.float32, device=dev)
+    pstates = None
+    if with_residuals:
+        pstates = torch.empty(n_periods(L), M, B, S, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lib.phlash_smc_forward(
+            *map(_ptr, params), _ptr(pi), _ptr(obs), B, S, L, M,
+            _ptr(ll), _ptr(alpha), _ptr(pstates), ctypes.c_void_p(stream),
+        )
+    check(lib, err, "smc_forward launch")
+    forward_cuda.launches += 1
+    return ll, alpha, pstates
+
+
+def backward_cuda(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torch.Tensor,
+                  abar0: torch.Tensor):
+    "The adjoint kernel (B3); shapes as the plain version."
+    from phlash_tpu_torch.ops.build import check, load_library
+
+    B, S, M = abar0.shape
+    L = obs.shape[1]
+    dev = _require_cuda([*params, pstates, gbar, abar0], [obs])
+    _check_shapes(params, obs, B, S, M, L)
+    if tuple(pstates.shape) != (n_periods(L), M, B, S) or tuple(gbar.shape) != (B, S):
+        raise ValueError("pstates must be (n_per, M, B, S) and gbar (B, S)")
+    lib = load_library()
+    grads = [torch.empty(B, S, M, dtype=torch.float32, device=dev) for _ in range(7)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lib.phlash_smc_backward(
+            *map(_ptr, params), _ptr(obs), _ptr(pstates), _ptr(gbar), _ptr(abar0),
+            B, S, L, M, *map(_ptr, grads), ctypes.c_void_p(stream),
+        )
+    check(lib, err, "smc_backward launch")
+    backward_cuda.launches += 1
+    return tuple(grads[:6]), grads[6]
+
+
+# ---------------------------------------------------------------------------
+# dispatch and counters
+# ---------------------------------------------------------------------------
+
+
+def forward(params, pi, obs, with_residuals: bool):
+    "CUDA tensors launch the kernel, CPU tensors take the plain version."
+    if obs.device.type == "cuda":
+        return forward_cuda(params, pi, obs, with_residuals)
+    if obs.device.type == "cpu":
+        return forward_structured(params, pi, obs, with_residuals)
+    raise ValueError(f"no SMC forward for device {obs.device}")
+
+
+def backward(params, obs, pstates, gbar, abar0):
+    "CUDA tensors launch the kernel, CPU tensors take the plain version."
+    if obs.device.type == "cuda":
+        return backward_cuda(params, obs, pstates, gbar, abar0)
+    if obs.device.type == "cpu":
+        return backward_structured(params, obs, pstates, gbar, abar0)
+    raise ValueError(f"no SMC adjoint for device {obs.device}")
+
+
+def reset_counts() -> None:
+    forward_cuda.launches = backward_cuda.launches = 0
+    forward_structured.calls = backward_structured.calls = 0
+
+
+def counts() -> dict:
+    return dict(
+        forward_cuda=forward_cuda.launches, backward_cuda=backward_cuda.launches,
+        forward_plain=forward_structured.calls, backward_plain=backward_structured.calls,
+    )
+
+
+reset_counts()

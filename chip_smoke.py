@@ -4,18 +4,31 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # the whole check (needs one card)
-    python3 chip_smoke.py --profile  # also print a torch.profiler table of SVGD steps
+    python3 chip_smoke.py --profile  # also print torch.profiler tables of SVGD steps
 
 Phases, each of which prints its own lines and aborts the run on failure:
 1. device: the card's name and `nvidia-smi` name / power limit;
-2. build: nvcc builds the kernels from phlash_tpu_torch/csrc;
-3. kernels against their plain PyTorch versions (float64 on the card), with
-   a missing block and a padded tail: at a ragged shape for every M, and at
-   the fit's likelihood (L=2000) and warm-up filter (L=500) shapes;
+2. build: nvcc builds the kernels from phlash_tpu_torch/csrc, one process
+   per source;
+3. the SMC' kernels (B1-B3) against their plain PyTorch versions (float64 on
+   the card), with a missing block and a padded tail: at a ragged shape for
+   every M, and at the fit's likelihood (L=2000) and warm-up filter (L=500)
+   shapes;
+3b. the packed kernels (B4, B5) against theirs, the same way, at a ragged
+   shape (B=37, S=3, L=1000) and the fit shape (B=500, S=5, L=2000), both
+   with seg_len=256;
 4. the slice: phlash_tpu_torch.psmc on a seeded .psmcfa at 500 particles,
-   S=5, chunks of 2000 + 500 overlap, 30 iterations, with the launch counters
-   showing that only the CUDA kernels ran; then ms per SVGD iteration;
-5. kernel and plain times at the fit shape B=500, S=5, L=2000.
+   S=5, chunks of 2000 + 500 overlap, 30 iterations (kernel_backend "smc"),
+   with the launch counters showing that only the SMC' CUDA kernels ran;
+4b. the same with kernel_backend="packed" and overlap 0: only the packed
+   CUDA kernels run;
+4c. ms per SVGD iteration of both paths, timed in turns (smc, packed,
+   packed, smc);
+5. SMC' kernel (B1, B2, B3) and plain times at the fit shape B=500, S=5,
+   L=2000;
+5b. packed kernel (B4, B5) and plain times at the same shape, then the
+   packed kernels on the packed fit's own inputs (its initial particle
+   cloud, and its particles after the timed steps).
 The last two lines are a JSON summary of the kernels and the result line.
 It exits non-zero, printing no result, without a CUDA device or when the
 package is not beside it.
@@ -33,9 +46,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20240601
-FWD_SRC = "phlash_tpu_torch/csrc/smc_forward.cu"
-BWD_SRC = "phlash_tpu_torch/csrc/smc_backward.cu"
+PEAK_FP32 = 67e12  # FLOP/s: H100 SXM float32 outside the tensor cores (data sheet, 700 W)
+PEAK_BYTES = 3.35e12  # B/s: H100 SXM HBM3
 PATTERNS = {8: "8*1", 16: "14*1+1*2", 32: "32*1", 64: "64*1"}
+SEG = 256  # the packed kernels' segment (checkpoint spacing), ops/packed.DEFAULT_SEG
+FIT_SHAPE = (500, 5, 2000)  # (B, S, L) of the fit's likelihood call, where phase 5 times
 
 
 def fail(msg: str) -> None:
@@ -67,6 +82,15 @@ def random_instances(torch, M, B, S, L, dev, gen):
 
 def max_rel(a, b, atol=1e-25):
     return float(((a.double() - b).abs() / (b.abs() + atol)).max())
+
+
+def max_abs(a, b):
+    return float((a.double() - b).abs().max())
+
+
+def normalized(a, b):
+    "max |a - b| / max |b|: the gradient gate's measure."
+    return max_abs(a, b) / (float(b.abs().max()) + 1e-12)
 
 
 # (B, S, L, Ms) of the phase-3 checks: a ragged shape (B*S within one block,
@@ -107,8 +131,7 @@ def check_kernels(torch, smc, dev):
                 fail(f"forward kernel disagrees with the plain version at {where}")
             fwd = errs["forward"]
             fwd["ll"], fwd["state"] = max(fwd["ll"], e_ll), max(fwd["state"], e_a, e_ps)
-            fwd["abs"] = max(fwd["abs"], float((ll_k.double() - ll_p).abs().max()),
-                             float((a_k.double() - a_p).abs().max()))
+            fwd["abs"] = max(fwd["abs"], max_abs(ll_k, ll_p), max_abs(a_k, a_p))
 
             gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
             abar0 = torch.randn(B, S, M, generator=gen, device=dev, dtype=torch.float64)
@@ -119,15 +142,72 @@ def check_kernels(torch, smc, dev):
             bwd = errs["backward"]
             worst = 0.0
             for name, a, b in zip(names, (*g_k, dpi_k), (*g_p, dpi_p)):
-                err = float((a.double() - b).abs().max())
-                norm = err / (float(b.abs().max()) + 1e-12)
+                norm = normalized(a, b)
                 worst = max(worst, norm)
-                bwd["abs"] = max(bwd["abs"], err)
+                bwd["abs"] = max(bwd["abs"], max_abs(a, b))
                 if not norm <= 2e-5:
                     fail(f"adjoint kernel disagrees on d{name} at {where}: "
                          f"normalized err {norm:.3e}")
             bwd["grad"] = max(bwd["grad"], worst)
             print(f"backward {where}: max normalized err over the 7 gradients {worst:.3e}")
+    return errs
+
+
+# (B, S, L) of the phase-3b checks: a ragged warp (37 * 3 half-warps) with L
+# not a multiple of the segment, and the fit shape; both with SEG.
+PACKED_SHAPES = ((37, 3, 1000), (500, 5, 2000))
+
+
+def check_packed_kernels(torch, packed, dev):
+    """Phase 3b: the packed forward (B4, with and without checkpoints) and
+    adjoint (B5) against their plain versions (float64 on the card), and the
+    plain forward against hmm.psmc_ll.  Errors as check_kernels returns them."""
+    from phlash_tpu_torch.hmm import psmc_ll
+    from phlash_tpu_torch.ops.packing import dense_transition
+    from phlash_tpu_torch.params import PSMCParams
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    errs = {"forward": {"abs": 0.0, "ll": 0.0, "ckpt": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
+    for B, S, L in PACKED_SHAPES:
+        where = f"B={B} S={S} L={L} seg_len={SEG}"
+        params, pi, obs = random_instances(torch, 16, B, S, L, dev, gen)
+        e0, e1 = params[4:]
+        A = dense_transition(PSMCParams(*params, pi=pi))
+        k_in = tuple(x.float().contiguous() for x in (A, e0, e1, pi))
+        ll_k, ck_k = packed.forward_packed_cuda(*k_in, obs, SEG, True)
+        ll_k0, no_ck = packed.forward_packed_cuda(*k_in, obs, SEG, False)
+        torch.cuda.synchronize()
+        ll_p, ck_p = packed.forward_packed(A, e0, e1, pi, obs, SEG, True)
+        _, ll_o = psmc_ll(PSMCParams(*(x[:, None, :] for x in params), pi=pi), obs)
+        e_o = max_rel(ll_p, ll_o)
+        e_ll, e_ck = max_rel(ll_k, ll_p), max_rel(ck_k, ck_p)
+        print(f"packed forward {where}: max rel err ll {e_ll:.3e} ckpt {e_ck:.3e}; "
+              f"plain vs psmc_ll {e_o:.3e}")
+        if not e_o <= 1e-10:
+            fail(f"the plain packed forward disagrees with hmm.psmc_ll at {where}")
+        if not (e_ll <= 1e-5 and e_ck <= 1e-4):
+            fail(f"packed forward kernel disagrees with the plain version at {where}")
+        if no_ck is not None or not torch.equal(ll_k0, ll_k):
+            fail(f"the packed forward without checkpoints differs at {where}")
+        fwd = errs["forward"]
+        fwd["ll"], fwd["ckpt"] = max(fwd["ll"], e_ll), max(fwd["ckpt"], e_ck)
+        fwd["abs"] = max(fwd["abs"], max_abs(ll_k, ll_p), max_abs(ck_k, ck_p))
+
+        gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
+        g_k = packed.backward_packed_cuda(*k_in[:3], obs, ck_k, gbar.float(), SEG)
+        torch.cuda.synchronize()
+        g_p = packed.backward_packed(A, e0, e1, obs, ck_p, gbar, SEG)
+        bwd = errs["backward"]
+        worst = 0.0
+        for name, a, b in zip(("A", "emis0", "emis1", "pi"), g_k, g_p):
+            norm = normalized(a, b)
+            worst = max(worst, norm)
+            bwd["abs"] = max(bwd["abs"], max_abs(a, b))
+            if not norm <= 2e-5:
+                fail(f"packed adjoint kernel disagrees on d{name} at {where}: "
+                     f"normalized err {norm:.3e}")
+        bwd["grad"] = max(bwd["grad"], worst)
+        print(f"packed backward {where}: max normalized err over the 4 gradients {worst:.3e}")
     return errs
 
 
@@ -144,23 +224,31 @@ def write_psmcfa(path: Path, n_contigs=4, windows=100_000):
                 f.write("".join(seq[lo: lo + 60]) + "\n")
 
 
-def run_slice(torch, smc, dev, path: Path):
-    "Phase 4: the fit path through the public entry point."
+def run_slice(torch, ops, dev, path: Path, backend: str, overlap: int):
+    """Phases 4 / 4b: the fit path through the public entry point with
+    `backend`; ops maps backend -> its ops module (launch counters).  Returns
+    this backend's counts."""
     import phlash_tpu_torch
 
-    kw = dict(num_particles=500, minibatch_size=5, chunk_size=2000, overlap=500)
-    smc.reset_counts()
+    kw = dict(num_particles=500, minibatch_size=5, chunk_size=2000, overlap=overlap)
+    for mod in ops.values():
+        mod.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    models = phlash_tpu_torch.psmc([str(path)], device="cuda", niter=30, **kw)
+    models = phlash_tpu_torch.psmc([str(path)], device="cuda", kernel_backend=backend,
+                                   niter=30, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = smc.counts()
-    print(f"slice: psmc(niter=30) took {wall:.2f} s; launch counts {counts}")
-    if counts["forward_cuda"] == 0 or counts["backward_cuda"] == 0:
-        fail("the fit did not launch both CUDA kernels")
-    if counts["forward_plain"] or counts["backward_plain"]:
-        fail("a plain version ran on the CUDA path")
+    counts = {name: mod.counts() for name, mod in ops.items()}
+    print(f"slice {backend}: psmc(niter=30, overlap={overlap}) took {wall:.2f} s; "
+          f"launch counts {counts}")
+    ours = counts[backend]
+    if ours["forward_cuda"] == 0 or ours["backward_cuda"] == 0:
+        fail(f"the {backend} fit did not launch both of its CUDA kernels")
+    if ours["forward_plain"] or ours["backward_plain"]:
+        fail(f"a plain version ran on the {backend} CUDA path")
+    if any(any(c.values()) for name, c in counts.items() if name != backend):
+        fail(f"the {backend} fit launched another backend's kernels")
     if len(models) != 500:
         fail(f"expected 500 models, got {len(models)}")
     for m in models:
@@ -168,41 +256,84 @@ def run_slice(torch, smc, dev, path: Path):
                 and (m.eta.c > 0).all() and m.rho == m.rho):
             fail("a returned model is not finite")
     Ne = torch.stack([0.5 / m.eta.c for m in models])
-    print(f"slice: 500 finite models; median Ne(t) over particles at M epochs: "
+    print(f"slice {backend}: 500 finite models; median Ne(t) over particles at M epochs: "
           f"{[f'{x:.4g}' for x in Ne.median(0).values.tolist()]}")
-    return counts
+    return ours
 
 
-def step_timing(torch, dev, path: Path, profile: bool):
-    "ms per SVGD iteration after warm-up, on the same data as the slice."
+# (kernel_backend, overlap) of the two fit paths that phase 4 drives
+PATHS = (("smc", 500), ("packed", 0))
+
+
+def build_program(torch, dev, path: Path, backend: str, overlap: int):
+    """One path's training program on the slice's data (the first contig
+    held out), and its chunks."""
     from phlash_tpu_torch.data import RawContig, init_mcmc_data
     from phlash_tpu_torch.training import build_training
 
     contigs = list(RawContig.from_psmcfa_iter(str(path), 100))[1:]
-    afs, chunks = init_mcmc_data(contigs, 100, 500, 2000)
+    afs, chunks = init_mcmc_data(contigs, 100, overlap, 2000)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    prog = build_training(chunks, afs, window_size=100, overlap=500, device=dev, generator=gen,
+    prog = build_training(chunks, afs, window_size=100, overlap=overlap, device=dev,
+                          generator=gen, kernel_backend=backend,
                           options=dict(num_particles=500, minibatch_size=5, niter=30))
+    return prog, chunks
+
+
+def packed_fit_inputs(torch, prog, chunks, dev):
+    """B4/B5 inputs as the packed fit makes them from its current particles,
+    on the first S = 5 of its chunks (2000 sites), float32."""
+    from phlash_tpu_torch.ops.packing import dense_transition
+    from phlash_tpu_torch.params import PSMCParams
+
+    with torch.no_grad():
+        pp = PSMCParams.from_dm(prog.init.unflatten(prog.state.particles).to_dm())
+        A = dense_transition(pp).contiguous()
+    pi = pp.pi[:, None, :].expand(-1, 5, -1).contiguous()
+    obs = torch.as_tensor(chunks[:5], dtype=torch.int8, device=dev)
+    return A, pp.emis0.contiguous(), pp.emis1.contiguous(), pi, obs
+
+
+def time_steps(torch, prog, n: int = 20):
+    """n SVGD iterations of `prog` after 3 of warm-up, host clock: (ms per
+    iteration to the final synchronize, ms per iteration to enqueue them)."""
     state = prog.state
     for _ in range(3):
         state = prog.step(state)
     torch.cuda.synchronize()
-    n = 20
     t0 = time.perf_counter()
     for _ in range(n):
         state = prog.step(state)
+    t_enqueued = time.perf_counter()
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / n * 1e3
-    print(f"svgd step: {ms:.3f} ms/iter (500 particles, S=5, chunk 2000 + 500, mean of {n})")
+    t1 = time.perf_counter()
+    prog.state = state
+    return (t1 - t0) / n * 1e3, (t_enqueued - t0) / n * 1e3
+
+
+def step_timing(torch, progs: dict, profile: bool) -> dict:
+    """Phase 4c: ms per SVGD iteration of each path's program, timed in
+    turns (smc, packed, packed, smc); the mean of the two turns per path."""
+    overlaps = dict(PATHS)
+    ms = {b: [] for b in progs}
+    for b in ("smc", "packed", "packed", "smc"):
+        total, enqueued = time_steps(torch, progs[b])
+        ms[b].append(total)
+        print(f"svgd step {b}: {total:.3f} ms/iter, enqueued in {enqueued:.3f} ms/iter "
+              f"(500 particles, S=5, chunk 2000 + {overlaps[b]}, mean of 20)")
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof
 
-        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            for _ in range(5):
-                state = prog.step(state)
-            torch.cuda.synchronize()
-        print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-    return ms
+        for b, prog in progs.items():
+            state = prog.state
+            with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                for _ in range(5):
+                    state = prog.step(state)
+                torch.cuda.synchronize()
+            print(f"profile of 5 SVGD steps, {b}:")
+            print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+            print(p.key_averages().table(sort_by="self_cpu_time_total", row_limit=12))
+    return {b: sum(v) / len(v) for b, v in ms.items()}
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -217,10 +348,38 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time for `flops` float32 operations and
+    `nbytes` of device-memory traffic, whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+# float32 operations per live site of one instance, counted from the kernels'
+# source at M states (a fused multiply-add counts as 2):
+#   smc_forward   S(a): M adds; per state b*S + d*a + vv*P: 5, P += u*a: 2;
+#                 emission: M; per 8-site period: sum, M divisions, log, add
+#   smc_backward  the period rebuild (as the forward) + per site in reverse:
+#                 S(x), u*x, P(.): 3M; per state v: 5, v*y, route, f*y: 3,
+#                 db/dd/dvv: 6; vv*vbar, S, b*vbar, P: 4M; du: 2M; xbar: 4M;
+#                 per period the boundary adjoint: ~7M
+#   packed_fwd    alpha A: 2M^2; emission M; sum M; division M; log, add: 2
+#   packed_bwd    the segment rebuild (2M^2 + 3M) + per site in reverse: u, c,
+#                 alpha: 3M; <abar, alpha>: 2M; ubar: 3M; w: M; w A^T: 2M^2;
+#                 dA += alpha_prev w: 2M^2; v*ubar, routed add: 2M
+def flops_per_site(name: str, M: int) -> float:
+    return {
+        "smc_forward": 9 * M + (2 * M + 3) / 8,
+        "smc_backward": 9 * M + (2 * M + 3) / 8 + 27 * M + 7 * M / 8,
+        "packed_forward": 2 * M * M + 3 * M + 2,
+        "packed_backward": (2 * M * M + 3 * M) + (4 * M * M + 12 * M),
+    }[name]
+
+
 def kernel_timing(torch, smc, dev):
-    "Phase 5: each kernel and its plain version at the fit shape, float32."
+    "Phase 5: each SMC' kernel and its plain version at the fit shape, float32."
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    B, S, L, M = 500, 5, 2000, 16
+    (B, S, L), M = FIT_SHAPE, 16
     params, pi, obs = random_instances(torch, M, B, S, L, dev, gen)
     obs[obs == -2] = 0  # the fit's rows carry no padding
     params = tuple(x.float().contiguous() for x in params)
@@ -236,15 +395,28 @@ def kernel_timing(torch, smc, dev):
         "bwd_plain": time_ms(
             torch, lambda: smc.backward_structured(params, obs, ps_p, gbar, abar0), 2),
     }
+    t["fwd_res"] = time_ms(torch, lambda: smc.forward_cuda(params, pi, obs, True), 20)
     t["fwd_grad"] = time_ms(torch, lambda: smc.backward_cuda(
         params, obs, smc.forward_cuda(params, pi, obs, True)[2], gbar, abar0), 20)
     t["fwd_grad_plain"] = time_ms(torch, lambda: smc.backward_structured(
         params, obs, smc.forward_structured(params, pi, obs, True)[2], gbar, abar0), 2)
     sites = B * S * L
+    live = B * float((obs != -2).sum())
+    f4 = 4 * B * S * M  # one float32 (B, S, M) tensor, in bytes
+    par = 6 * 4 * B * M  # the six (B, M) parameter rows
+    t["fwd_bound"] = bound(flops_per_site("smc_forward", M) * live,
+                           par + f4 + obs.numel() + 4 * B * S + f4)
+    t["fwd_res_bound"] = bound(flops_per_site("smc_forward", M) * live,
+                               par + f4 + obs.numel() + 4 * B * S + f4 + ps.numel() * 4)
+    t["bwd_bound"] = bound(flops_per_site("smc_backward", M) * live,
+                           par + obs.numel() + ps.numel() * 4 + 4 * B * S + f4 + 7 * f4)
     print(f"timing at B={B} S={S} L={L} M={M} (float32):")
     print(f"  forward alone     kernel {t['fwd']:.4f} ms   plain {t['fwd_plain']:.2f} ms"
-          f"   kernel {sites / t['fwd'] / 1e3:.1f} Msites/s")
-    print(f"  adjoint alone     kernel {t['bwd']:.4f} ms   plain {t['bwd_plain']:.2f} ms")
+          f"   kernel {sites / t['fwd'] / 1e3:.1f} Msites/s   bound {t['fwd_bound'][0]:.4f} ms")
+    print(f"  forward with residuals (B2) kernel {t['fwd_res']:.4f} ms   bound "
+          f"{t['fwd_res_bound'][0]:.4f} ms ({t['fwd_res_bound'][1]})")
+    print(f"  adjoint alone     kernel {t['bwd']:.4f} ms   plain {t['bwd_plain']:.2f} ms"
+          f"   bound {t['bwd_bound'][0]:.4f} ms")
     print(f"  forward + adjoint kernel {t['fwd_grad']:.4f} ms   plain {t['fwd_grad_plain']:.2f} ms"
           f"   kernel {sites / t['fwd_grad'] / 1e3:.1f} Msites/s")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -253,9 +425,81 @@ def kernel_timing(torch, smc, dev):
     return t
 
 
+def packed_timing(torch, packed, dev, fit_inputs: dict):
+    """Phase 5b: the packed kernels and their plain versions at the fit
+    shape, float32; then the kernels on `fit_inputs` (label -> inputs)."""
+    from phlash_tpu_torch.ops.packing import dense_transition
+    from phlash_tpu_torch.params import PSMCParams
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    (B, S, L), M = FIT_SHAPE, 16
+    params, pi, obs = random_instances(torch, M, B, S, L, dev, gen)
+    obs[obs == -2] = 0  # the fit's rows carry no padding
+    A, e0, e1, pi = (x.float().contiguous() for x in (
+        dense_transition(PSMCParams(*params, pi=pi)), *params[4:], pi))
+    gbar = torch.randn(B, S, generator=gen, device=dev)
+    _, ck = packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, True)
+    _, ck_p = packed.forward_packed(A, e0, e1, pi, obs, SEG, True)
+    t = {
+        "fwd": time_ms(torch, lambda: packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, False), 20),
+        "fwd_plain": time_ms(
+            torch, lambda: packed.forward_packed(A, e0, e1, pi, obs, SEG, False), 2),
+        "bwd": time_ms(torch, lambda: packed.backward_packed_cuda(A, e0, e1, obs, ck, gbar, SEG), 20),
+        "bwd_plain": time_ms(
+            torch, lambda: packed.backward_packed(A, e0, e1, obs, ck_p, gbar, SEG), 2),
+    }
+    t["fwd_ckpt"] = time_ms(torch, lambda: packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, True),
+                            20)
+    t["fwd_grad"] = time_ms(torch, lambda: packed.backward_packed_cuda(
+        A, e0, e1, obs, packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, True)[1], gbar, SEG), 20)
+    t["fwd_grad_plain"] = time_ms(torch, lambda: packed.backward_packed(
+        A, e0, e1, obs, packed.forward_packed(A, e0, e1, pi, obs, SEG, True)[1], gbar, SEG), 2)
+    sites = B * S * L
+    live = B * float((obs != -2).sum())
+    f4 = 4 * B * S * M
+    par = 4 * B * M * M + 2 * 4 * B * M  # A and the two emission rows
+    t["fwd_bound"] = bound(flops_per_site("packed_forward", M) * live,
+                           par + f4 + obs.numel() + 4 * B * S)
+    t["bwd_bound"] = bound(flops_per_site("packed_backward", M) * live,
+                           par + obs.numel() + ck.numel() * 4 + 4 * B * S
+                           + 4 * B * S * M * M + 3 * f4)
+    print(f"packed timing at B={B} S={S} L={L} M={M} seg_len={SEG} (float32):")
+    for key, what in (("fwd", "forward, no checkpoints"), ("bwd", "adjoint alone"),
+                      ("fwd_grad", "forward with checkpoints + adjoint")):
+        extra = f"   bound {t[key + '_bound'][0]:.4f} ms" if key + "_bound" in t else ""
+        print(f"  {what:<35} kernel {t[key]:.4f} ms ({sites / t[key] / 1e3:.1f} Msites/s)   "
+              f"plain {t[key + '_plain']:.2f} ms ({sites / t[key + '_plain'] / 1e3:.3f} Msites/s)"
+              f"{extra}")
+    print(f"  forward with checkpoints            kernel {t['fwd_ckpt']:.4f} ms")
+    print(f"  launch geometry: {B * S} half-warps = {-(-B * S // 2)} warps in "
+          f"{-(-B * S * 16 // 128)} blocks of 128")
+
+    # the same launches on the packed fit's own inputs, at its initial cloud
+    # and after the timed steps: the kernels' time depends on the data
+    for label, (A, e0, e1, pi, obs) in fit_inputs.items():
+        _, ck = packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, True)
+        t_fwd = time_ms(torch, lambda: packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, False),
+                        20)
+        t_bwd = time_ms(torch, lambda: packed.backward_packed_cuda(A, e0, e1, obs, ck, gbar, SEG),
+                        20)
+        print(f"  fit inputs, {label}: forward {t_fwd:.4f} ms, adjoint {t_bwd:.4f} ms; "
+              f"smallest checkpoint entry {float(ck[ck > 0].min()):.3e}")
+    return t
+
+
+def kernel_entry(name, route, source, replaces, launches, errs, gate, t):
+    "One kernel of the JSON summary line."
+    ms_bound, by = t["fwd_bound"] if name.endswith("forward") else t["bwd_bound"]
+    key = "fwd" if name.endswith("forward") else "bwd"
+    return {"name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": launches, **errs, "gate": gate, "ms": t[key],
+            "plain_ms": t[key + "_plain"], "bound_ms": ms_bound, "bound_by": by,
+            "library_ms": None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true", help="profile 5 SVGD steps")
+    ap.add_argument("--profile", action="store_true", help="profile 5 SVGD steps of each path")
     args = ap.parse_args()
     if not (ROOT / "phlash_tpu_torch" / "csrc").is_dir():
         fail(f"phlash_tpu_torch/ not found beside {Path(__file__).name}; run from a checkout")
@@ -274,7 +518,7 @@ def main() -> int:
     print(smi.stdout.strip())  # name, power limit
 
     # 2. build
-    from phlash_tpu_torch.ops import build, smc
+    from phlash_tpu_torch.ops import build, packed, smc
 
     lib = build.load_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.1f} s")
@@ -284,32 +528,50 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     errs = check_kernels(torch, smc, dev)
+    perrs = check_packed_kernels(torch, packed, dev)
 
-    # 4. the slice
+    # 4. the slice, once per hand-kernel backend
+    ops = {"smc": smc, "packed": packed}
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
         path = Path(tmp) / "smoke.psmcfa"
         write_psmcfa(path)
-        counts = run_slice(torch, smc, dev, path)
-        step_ms = step_timing(torch, dev, path, args.profile)
+        counts, pcounts = (run_slice(torch, ops, dev, path, b, ov) for b, ov in PATHS)
+        built = {b: build_program(torch, dev, path, b, ov) for b, ov in PATHS}
+        fit_inputs = {"initial cloud": packed_fit_inputs(torch, *built["packed"], dev)}
+        step_ms = step_timing(torch, {b: prog for b, (prog, _) in built.items()}, args.profile)
+        fit_inputs["after the timed steps"] = packed_fit_inputs(torch, *built["packed"], dev)
 
     # 5. kernel times at the fit shape
     t = kernel_timing(torch, smc, dev)
+    pt = packed_timing(torch, packed, dev, fit_inputs)
 
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:
         fail("JAX or phlash_tpu was imported")
-    print(f"svgd_step_ms_per_iter: {step_ms:.3f}")
+    print(f"svgd_step_ms_per_iter: smc {step_ms['smc']:.3f} packed {step_ms['packed']:.3f}")
+    src = "phlash_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
-        {"name": "smc_forward", "route": "cuda", "source": FWD_SRC,
-         "replaces": "phlash_tpu/ops/pallas_smc.py:358", "launches": counts["forward_cuda"],
-         "max_abs_err": errs["forward"]["abs"], "max_rel_err_ll": errs["forward"]["ll"],
-         "max_rel_err_alpha_pstates": errs["forward"]["state"],
-         "gate": "rel: ll 1e-5, alpha and pstates 1e-4",
-         "ms": t["fwd"], "plain_ms": t["fwd_plain"]},
-        {"name": "smc_backward", "route": "cuda", "source": BWD_SRC,
-         "replaces": "phlash_tpu/ops/pallas_smc.py:511", "launches": counts["backward_cuda"],
-         "max_abs_err": errs["backward"]["abs"], "max_normalized_err": errs["backward"]["grad"],
-         "gate": "max|err| / max|plain| per gradient 2e-5",
-         "ms": t["bwd"], "plain_ms": t["bwd_plain"]},
+        kernel_entry("smc_forward", "cuda", src + "smc_forward.cu",
+                     "phlash_tpu/ops/pallas_smc.py:358", counts["forward_cuda"],
+                     {"max_abs_err": errs["forward"]["abs"],
+                      "max_rel_err_ll": errs["forward"]["ll"],
+                      "max_rel_err_alpha_pstates": errs["forward"]["state"]},
+                     "rel: ll 1e-5, alpha and pstates 1e-4", t),
+        kernel_entry("smc_backward", "cuda", src + "smc_backward.cu",
+                     "phlash_tpu/ops/pallas_smc.py:511", counts["backward_cuda"],
+                     {"max_abs_err": errs["backward"]["abs"],
+                      "max_normalized_err": errs["backward"]["grad"]},
+                     "max|err| / max|plain| per gradient 2e-5", t),
+        kernel_entry("packed_forward", "cuda", src + "packed_forward.cu",
+                     "phlash_tpu/ops/pallas_hmm.py:162", pcounts["forward_cuda"],
+                     {"max_abs_err": perrs["forward"]["abs"],
+                      "max_rel_err_ll": perrs["forward"]["ll"],
+                      "max_rel_err_ckpt": perrs["forward"]["ckpt"]},
+                     "rel: ll 1e-5, ckpt 1e-4", pt),
+        kernel_entry("packed_backward", "cuda", src + "packed_backward.cu",
+                     "phlash_tpu/ops/pallas_hmm_vjp.py:155", pcounts["backward_cuda"],
+                     {"max_abs_err": perrs["backward"]["abs"],
+                      "max_normalized_err": perrs["backward"]["grad"]},
+                     "max|err| / max|plain| per gradient 2e-5", pt),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -11,8 +11,10 @@ chunk_size, minibatch_size, learning_rate, sigma, theta, mutation_rate,
 pattern, t1, tM, rho_over_theta, alpha, beta, elpd_cutoff, elpd_samples,
 return_final.  New in the port: device (default "cuda"; no
 card means an error, never a CPU fallback), seed (seeds the
-torch.Generator) and kernel_backend ("cuda", or "plain" for CPU tensors;
-with one backend per device type it only restates `device` for now).
+torch.Generator) and kernel_backend, the likelihood algorithm: "smc" (the
+default; phlash_tpu's "pallas"), "packed" (phlash_tpu's "pallas_mxu"; needs
+overlap=0) or "dense" (phlash_tpu's "dense"); see kernel.py.  The device
+decides between the hand CUDA kernels and their plain versions.
 Options of phlash_tpu.fit that this port does not implement raise
 NotImplementedError when set.
 """
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from phlash_tpu_torch.data import RawContig, chunk_het_matrix, init_mcmc_data
-from phlash_tpu_torch.kernel import get_kernel, resolve_device
+from phlash_tpu_torch.kernel import check_backend, get_kernel, resolve_device
 from phlash_tpu_torch.model import log_density_batched
 from phlash_tpu_torch.size_history import DemographicModel, SizeHistory
 from phlash_tpu_torch.training import TrainingProgram, build_training, resolve_minibatch_size
@@ -88,6 +90,7 @@ def fit(data: list[RawContig], test_data: RawContig = None, *, device="cuda", se
     are returned unless `return_final=True`.
     """
     _check_options(options)
+    kernel_backend = check_backend(kernel_backend, options.get("overlap", 500))
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     niter = options.get("niter", 1000)

@@ -34,7 +34,7 @@ def log_density_batched(
     c,  # (3,) weights: prior, HMM, AFS
     inds: torch.Tensor,  # (S,) minibatch chunk indices
     warmup: torch.Tensor,  # (S, overlap) int8 prefix observations
-    kern,  # SMCKernel
+    kern,  # a kernel of kernel.get_kernel
     afs: torch.Tensor | None,  # (n-1,) observed spectrum, or None
     afs_transform: torch.Tensor | None = None,
 ) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-`nvcc` compiles every source under phlash_tpu_torch/csrc/ into one shared
-library with a plain C interface, which `ctypes` loads (no PyTorch headers,
-so the build takes seconds).  The library lands in phlash_tpu_torch/_build/
-(ignored by git) under a name keyed on a hash of the sources and the flags:
-an edited kernel is rebuilt at first use, an unchanged one is reused.
+`nvcc` compiles every source under phlash_tpu_torch/csrc/ to an object,
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, which `ctypes` loads (no
+PyTorch headers, so the build takes seconds).  The library lands in
+phlash_tpu_torch/_build/ (ignored by git) under a name keyed on a hash of
+the sources and the flags: an edited kernel is rebuilt at first use, an
+unchanged one is reused.
 Nothing is built at import time.
 """
 
@@ -16,17 +18,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass(frozen=True)
@@ -63,29 +66,80 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_smc_forward.restype = I
     lib.phlash_smc_backward.argtypes = [P] * 10 + [I] * 4 + [P] * 8
     lib.phlash_smc_backward.restype = I
+    lib.phlash_packed_forward.argtypes = [P] * 5 + [I] * 4 + [P] * 3
+    lib.phlash_packed_forward.restype = I
+    lib.phlash_packed_backward.argtypes = [P] * 6 + [I] * 4 + [P] * 6
+    lib.phlash_packed_backward.restype = I
     lib.phlash_cuda_error_string.argtypes = [I]
     lib.phlash_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _run(procs) -> str:
+    "Wait for every nvcc process; their output, or RuntimeError if one failed."
+    outs = [(proc, *proc.communicate()) for proc in procs]
+    for proc, out, err in outs:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {proc.args}\n{out}{err}")
+    return "".join(out + err for _, out, err in outs)
+
+
+def _build(target: Path) -> str:
+    "Compile the sources in parallel, link them into `target`; the ptxas log."
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        log = _run([
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(_sources(), objs)
+        ])
+        lib = Path(tmp) / target.name
+        _run([subprocess.Popen([nvcc, *ARCH, "-shared", "-o", str(lib), *map(str, objs)],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
+        os.replace(lib, target)
+    return log
 
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> Library:
     "Build (if the sources changed) and load the kernel library, once per process."
     BUILD_DIR.mkdir(exist_ok=True)
-    target = BUILD_DIR / f"libphlash_smc_{_digest()}.so"
+    target = BUILD_DIR / f"libphlash_kernels_{_digest()}.so"
     seconds, log = 0.0, ""
     if not target.exists():
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(target)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        log = proc.stdout + proc.stderr
-        os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     _declare(lib)
     return Library(lib=lib, path=target, build_seconds=seconds, ptxas_log=log)
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    "A tensor's device address for a C entry point (null for None)."
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def require_cuda(floats, ints8=()) -> torch.device:
+    "Validate what the kernels take: one CUDA device, contiguous float32 / int8."
+    dev = floats[0].device
+    for t in floats:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"the CUDA kernels take contiguous float32 tensors on one CUDA device, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    for t in ints8:
+        if t.device != dev or t.dtype != torch.int8 or not t.is_contiguous():
+            raise ValueError(f"observation rows must be contiguous int8 on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels need CUDA tensors, got {dev}")
+    return dev
+
+
+def stream(dev: torch.device) -> ctypes.c_void_p:
+    "PyTorch's current stream on `dev`, for a launch."
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def check(lib: Library, err: int, what: str) -> None:

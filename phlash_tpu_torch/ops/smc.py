@@ -49,9 +49,9 @@ Kernel design note (csrc/smc_forward.cu, csrc/smc_backward.cu).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from phlash_tpu_torch.ops.build import check, load_library, ptr, require_cuda, stream
 
 NORM_EVERY = 8  # sites between rescalings (pallas_smc.NORM_EVERY)
 TINY_NORM = 1e-30  # normalizer clamp (pallas_smc.TINY_NORM)
@@ -156,27 +156,6 @@ def backward_structured(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: 
 # ---------------------------------------------------------------------------
 
 
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def _require_cuda(floats, ints8=()) -> torch.device:
-    "Validate what the kernels take: one CUDA device, contiguous f32 / int8."
-    dev = floats[0].device
-    for t in floats:
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(
-                f"the CUDA SMC kernels take contiguous float32 tensors on one CUDA device, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-    for t in ints8:
-        if t.device != dev or t.dtype != torch.int8 or not t.is_contiguous():
-            raise ValueError(f"observation rows must be contiguous int8 on {dev}")
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA SMC kernels need CUDA tensors, got {dev}")
-    return dev
-
-
 def _check_shapes(params, obs, B: int, S: int, M: int, L: int) -> None:
     if M not in SUPPORTED_M:
         raise ValueError(f"the CUDA SMC kernels support M in {SUPPORTED_M}, got {M}")
@@ -188,11 +167,9 @@ def _check_shapes(params, obs, B: int, S: int, M: int, L: int) -> None:
 
 def forward_cuda(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool = True):
     "The forward kernel (B1 without residuals, B2 with); shapes as the plain version."
-    from phlash_tpu_torch.ops.build import check, load_library
-
     B, S, M = pi.shape
     L = obs.shape[1]
-    dev = _require_cuda([*params, pi], [obs])
+    dev = require_cuda([*params, pi], [obs])
     _check_shapes(params, obs, B, S, M, L)
     lib = load_library()
     ll = torch.empty(B, S, dtype=torch.float32, device=dev)
@@ -201,10 +178,9 @@ def forward_cuda(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bo
     if with_residuals:
         pstates = torch.empty(n_periods(L), M, B, S, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lib.phlash_smc_forward(
-            *map(_ptr, params), _ptr(pi), _ptr(obs), B, S, L, M,
-            _ptr(ll), _ptr(alpha), _ptr(pstates), ctypes.c_void_p(stream),
+            *map(ptr, params), ptr(pi), ptr(obs), B, S, L, M,
+            ptr(ll), ptr(alpha), ptr(pstates), stream(dev),
         )
     check(lib, err, "smc_forward launch")
     forward_cuda.launches += 1
@@ -214,21 +190,18 @@ def forward_cuda(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bo
 def backward_cuda(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torch.Tensor,
                   abar0: torch.Tensor):
     "The adjoint kernel (B3); shapes as the plain version."
-    from phlash_tpu_torch.ops.build import check, load_library
-
     B, S, M = abar0.shape
     L = obs.shape[1]
-    dev = _require_cuda([*params, pstates, gbar, abar0], [obs])
+    dev = require_cuda([*params, pstates, gbar, abar0], [obs])
     _check_shapes(params, obs, B, S, M, L)
     if tuple(pstates.shape) != (n_periods(L), M, B, S) or tuple(gbar.shape) != (B, S):
         raise ValueError("pstates must be (n_per, M, B, S) and gbar (B, S)")
     lib = load_library()
     grads = [torch.empty(B, S, M, dtype=torch.float32, device=dev) for _ in range(7)]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lib.phlash_smc_backward(
-            *map(_ptr, params), _ptr(obs), _ptr(pstates), _ptr(gbar), _ptr(abar0),
-            B, S, L, M, *map(_ptr, grads), ctypes.c_void_p(stream),
+            *map(ptr, params), ptr(obs), ptr(pstates), ptr(gbar), ptr(abar0),
+            B, S, L, M, *map(ptr, grads), stream(dev),
         )
     check(lib, err, "smc_backward launch")
     backward_cuda.launches += 1

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from phlash_tpu_torch.afs import default_afs_transform
-from phlash_tpu_torch.kernel import get_kernel
+from phlash_tpu_torch.kernel import check_backend, get_kernel
 from phlash_tpu_torch.model import log_density_batched
 from phlash_tpu_torch.params import MCMCParams
 from phlash_tpu_torch.svgd import SVGD, AMSGrad, SVGDState
@@ -58,7 +58,9 @@ def batched_grad(init: MCMCParams) -> Callable:
 def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: int,
                    overlap: int, options: dict, device: torch.device,
                    generator: torch.Generator, kernel_backend: str = None) -> TrainingProgram:
-    "Assemble particles, kernel and the one-step function from chunked data."
+    """Assemble particles, kernel and the one-step function from chunked data.
+    kernel_backend: "smc" (default), "packed" (overlap 0 only) or "dense"."""
+    kernel_backend = check_backend(kernel_backend, overlap)
     niter = options.get("niter", 1000)
     mutation_rate = options.get("mutation_rate")
     dtype = torch.float32  # the particle cloud and the assembly run in float32

@@ -38,7 +38,7 @@ def psmcfa(tmp_path_factory):
 
 def test_psmc_cpu_plain(psmcfa):
     "8 particles, chunks of 400 + 50, 5 iterations: 8 finite models."
-    models = phlash_tpu_torch.psmc([psmcfa], device="cpu", kernel_backend="plain",
+    models = phlash_tpu_torch.psmc([psmcfa], device="cpu", kernel_backend="smc",
                                    num_particles=8, chunk_size=400, overlap=50, niter=5)
     assert len(models) == 8
     for m in models:
@@ -89,9 +89,10 @@ def test_cuda_requests_raise_without_a_card(psmcfa):
         phlash_tpu_torch.psmc([psmcfa], num_particles=4, chunk_size=400, overlap=50, niter=1)
 
 
-@pytest.mark.parametrize("device,backend", [("cpu", "cuda"), ("cpu", "dense")])
+@pytest.mark.parametrize("device,backend", [("cpu", "cuda"), ("cpu", "plain")])
 def test_backend_device_mismatch_raises(device, backend):
-    with pytest.raises(ValueError):
+    "A backend names an algorithm, not a device: the device names are refused."
+    with pytest.raises(ValueError, match="unknown kernel backend"):
         get_kernel(16, np.zeros((2, 16), np.int8), device=device, backend=backend)
 
 

@@ -10,10 +10,11 @@ Phases, each of which prints its own lines and aborts the run on failure:
 1. device: the card's name and `nvidia-smi` name / power limit;
 2. build: nvcc builds the kernels from phlash_tpu_torch/csrc, one process
    per source;
-3. the SMC' kernels (B1-B3) against their plain PyTorch versions (float64 on
-   the card), with a missing block and a padded tail: at a ragged shape for
-   every M, and at the fit's likelihood (L=2000) and warm-up filter (L=500)
-   shapes;
+3. the SMC' kernels (B1-B3) against their plain PyTorch versions (float64
+   on the card), with a missing block and a padded tail: at a ragged shape
+   for every M, at the fit's likelihood (L=2000) and warm-up filter (L=500)
+   shapes, and at a ragged row over three observation tiles (L=2501);
+   after phase 4c also on the smc fit's own late inputs;
 3b. the packed kernels (B4, B5) against theirs, the same way, at a ragged
    shape (B=37, S=3, L=1000) and the fit shape (B=500, S=5, L=2000), both
    with seg_len=256;
@@ -24,8 +25,10 @@ Phases, each of which prints its own lines and aborts the run on failure:
    CUDA kernels run;
 4c. ms per SVGD iteration of both paths, timed in turns (smc, packed,
    packed, smc);
-5. SMC' kernel (B1, B2, B3) and plain times at the fit shape B=500, S=5,
-   L=2000;
+5. SMC' kernel (B1, B2, B3) times with their launch geometry, and plain
+   times, at the fit shape B=500, S=5, L=2000, M=16; then B2 and B3 on the
+   smc fit's own inputs (its initial particle cloud, and its particles
+   after the timed steps);
 5b. packed kernel (B4, B5) and plain times at the same shape, then the
    packed kernels on the packed fit's own inputs (its initial particle
    cloud, and its particles after the timed steps).
@@ -93,11 +96,60 @@ def normalized(a, b):
     return max_abs(a, b) / (float(b.abs().max()) + 1e-12)
 
 
-# (B, S, L, Ms) of the phase-3 checks: a ragged shape (B*S within one block,
-# L a multiple of 8) for every M, then the fit's two shapes at M=16: the
-# likelihood (L=2000) and the warm-up filter (L=500, whose last period holds
-# 4 live sites), 2500 instances over 20 blocks.
-CHECK_SHAPES = ((37, 3, 1000, (8, 16, 32, 64)), (500, 5, 2000, (16,)), (500, 5, 500, (16,)))
+# (B, S, L, Ms) of the phase-3 checks: a ragged shape (37 particles, so the
+# last block of 8 holds 5 real instances and 3 clamped copies; L a multiple
+# of 8) for every M, then at M=16 the fit's two shapes: the likelihood
+# (L=2000) and the warm-up filter (L=500, whose last period holds 4 live
+# sites); and a ragged row longer than two observation tiles (1024 sites)
+# whose last period is partial (2501 = 312 * 8 + 5).
+CHECK_SHAPES = ((37, 3, 1000, (8, 16, 32, 64)), (500, 5, 2000, (16,)), (500, 5, 500, (16,)),
+                (37, 3, 2501, (16,)))
+
+
+def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs):
+    """The forward (B2, with residuals) and adjoint (B3) kernels against
+    their plain versions in float64 on the card; B1 (no residuals) must give
+    B2's ll and alpha;
+    the plain forward itself must agree with the per-site scan oracle
+    (hmm.psmc_ll).  Inputs float64; folds the errors into `errs` (as
+    check_kernels returns them) and returns the smallest positive
+    period-state entry."""
+    from phlash_tpu_torch.hmm import psmc_ll
+    from phlash_tpu_torch.params import PSMCParams
+
+    f32 = lambda xs: tuple(x.float().contiguous() for x in xs)  # noqa: E731
+    p32, pi32, g32, ab32 = f32(params), pi.float().contiguous(), gbar.float(), abar0.float()
+    ll_p, a_p, ps_p = smc.forward_structured(params, pi, obs, True)
+    a_o, ll_o = psmc_ll(PSMCParams(*(x[:, None, :] for x in params), pi=pi), obs)
+    e_o = max(max_rel(ll_p, ll_o), max_rel(a_p, a_o))
+    print(f"plain forward {where} vs psmc_ll: max rel err {e_o:.3e}")
+    if not e_o <= 1e-10:
+        fail(f"the plain forward disagrees with hmm.psmc_ll at {where}")
+    g_p, dpi_p = smc.backward_structured(params, obs, ps_p, gbar, abar0)
+    names = ("b", "d", "u", "v", "emis0", "emis1", "pi")
+    fwd, bwd = errs["forward"], errs["backward"]
+    ll_k, a_k, ps_k = smc.forward_cuda(p32, pi32, obs, True)
+    ll_1, a_1, _ = smc.forward_cuda(p32, pi32, obs, False)
+    g_k, dpi_k = smc.backward_cuda(p32, obs, ps_k, g32, ab32)
+    torch.cuda.synchronize()
+    e_ll, e_a, e_ps = max_rel(ll_k, ll_p), max_rel(a_k, a_p), max_rel(ps_k, ps_p)
+    worst = 0.0
+    for name, a, b in zip(names, (*g_k, dpi_k), (*g_p, dpi_p)):
+        norm = normalized(a, b)
+        worst = max(worst, norm)
+        bwd["abs"] = max(bwd["abs"], max_abs(a, b))
+        if not norm <= 2e-5:
+            fail(f"adjoint kernel disagrees on d{name} at {where}: normalized err {norm:.3e}")
+    print(f"{where}: max rel err ll {e_ll:.3e} alpha {e_a:.3e} pstates {e_ps:.3e}; "
+          f"max normalized err over the 7 gradients {worst:.3e}")
+    if not (e_ll <= 1e-5 and e_a <= 1e-4 and e_ps <= 1e-4):
+        fail(f"forward kernel disagrees with the plain version at {where}")
+    if not (torch.equal(ll_1, ll_k) and torch.equal(a_1, a_k)):
+        fail(f"the forward without residuals differs from the one with at {where}")
+    fwd["ll"], fwd["state"] = max(fwd["ll"], e_ll), max(fwd["state"], e_a, e_ps)
+    fwd["abs"] = max(fwd["abs"], max_abs(ll_k, ll_p), max_abs(a_k, a_p))
+    bwd["grad"] = max(bwd["grad"], worst)
+    return float(ps_p[ps_p > 0].min())
 
 
 def check_kernels(torch, smc, dev):
@@ -106,51 +158,31 @@ def check_kernels(torch, smc, dev):
     Returns, per kernel, the largest absolute error and the largest errors in
     the form their gates read (relative for the forward's ll and states,
     normalized for the adjoint's gradients)."""
-    from phlash_tpu_torch.hmm import psmc_ll
-    from phlash_tpu_torch.params import PSMCParams
-
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs = {"forward": {"abs": 0.0, "ll": 0.0, "state": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
     for B, S, L, Ms in CHECK_SHAPES:
         for M in Ms:
             where = f"M={M} B={B} S={S} L={L}"
             params, pi, obs = random_instances(torch, M, B, S, L, dev, gen)
-            f32 = lambda xs: tuple(x.float().contiguous() for x in xs)  # noqa: E731
-            ll_k, a_k, ps_k = smc.forward_cuda(f32(params), pi.float(), obs, True)
-            torch.cuda.synchronize()
-            ll_p, a_p, ps_p = smc.forward_structured(params, pi, obs, True)
-            pp = PSMCParams(*(x[:, None, :] for x in params), pi=pi)
-            a_o, ll_o = psmc_ll(pp, obs)
-            e_o = max(max_rel(ll_p, ll_o), max_rel(a_p, a_o))
-            e_ll, e_a, e_ps = max_rel(ll_k, ll_p), max_rel(a_k, a_p), max_rel(ps_k, ps_p)
-            print(f"forward {where}: max rel err ll {e_ll:.3e} alpha {e_a:.3e} "
-                  f"pstates {e_ps:.3e}; plain vs psmc_ll {e_o:.3e}")
-            if not e_o <= 1e-10:
-                fail(f"the plain forward disagrees with hmm.psmc_ll at {where}")
-            if not (e_ll <= 1e-5 and e_a <= 1e-4 and e_ps <= 1e-4):
-                fail(f"forward kernel disagrees with the plain version at {where}")
-            fwd = errs["forward"]
-            fwd["ll"], fwd["state"] = max(fwd["ll"], e_ll), max(fwd["state"], e_a, e_ps)
-            fwd["abs"] = max(fwd["abs"], max_abs(ll_k, ll_p), max_abs(a_k, a_p))
-
             gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
             abar0 = torch.randn(B, S, M, generator=gen, device=dev, dtype=torch.float64)
-            g_k, dpi_k = smc.backward_cuda(f32(params), obs, ps_k, gbar.float(), abar0.float())
-            torch.cuda.synchronize()
-            g_p, dpi_p = smc.backward_structured(params, obs, ps_p, gbar, abar0)
-            names = ("b", "d", "u", "v", "emis0", "emis1", "pi")
-            bwd = errs["backward"]
-            worst = 0.0
-            for name, a, b in zip(names, (*g_k, dpi_k), (*g_p, dpi_p)):
-                norm = normalized(a, b)
-                worst = max(worst, norm)
-                bwd["abs"] = max(bwd["abs"], max_abs(a, b))
-                if not norm <= 2e-5:
-                    fail(f"adjoint kernel disagrees on d{name} at {where}: "
-                         f"normalized err {norm:.3e}")
-            bwd["grad"] = max(bwd["grad"], worst)
-            print(f"backward {where}: max normalized err over the 7 gradients {worst:.3e}")
+            gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs)
     return errs
+
+
+def check_fit_inputs(torch, smc, dev, fit_inputs: dict, errs: dict):
+    """Phase 3, continued after the timed steps: B1/B2/B3 on the smc fit's
+    own inputs (`fit_inputs`, label -> (params, pi, obs) in float32), where
+    the states reach toward float32's smallest normal numbers."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for label, (params, pi, obs) in fit_inputs.items():
+        B, S, M = pi.shape
+        gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
+        abar0 = torch.randn(B, S, M, generator=gen, device=dev, dtype=torch.float64)
+        where = f"smc fit inputs, {label}, M={M} B={B} S={S} L={obs.shape[1]}"
+        tiny = gate_smc(torch, smc, tuple(x.double() for x in params), pi.double(), obs, gbar,
+                        abar0, where, errs)
+        print(f"{where}: smallest period-state entry {tiny:.3e}")
 
 
 # (B, S, L) of the phase-3b checks: a ragged warp (37 * 3 half-warps) with L
@@ -294,6 +326,25 @@ def packed_fit_inputs(torch, prog, chunks, dev):
     return A, pp.emis0.contiguous(), pp.emis1.contiguous(), pi, obs
 
 
+def smc_fit_inputs(torch, prog, chunks, dev):
+    """B1-B3 inputs as the smc fit makes them from its current particles, on
+    the first S = 5 of its chunks, float32: the warm-up filter (pi from the
+    particles, the 500-site prefixes) and the likelihood (pi the filtered
+    state, the 2000 sites after)."""
+    from phlash_tpu_torch.ops import smc
+    from phlash_tpu_torch.params import PSMCParams
+
+    with torch.no_grad():
+        pp = PSMCParams.from_dm(prog.init.unflatten(prog.state.particles).to_dm())
+        params = tuple(getattr(pp, k).float().contiguous()
+                       for k in ("b", "d", "u", "v", "emis0", "emis1"))
+        rows = torch.as_tensor(chunks[:5], dtype=torch.int8, device=dev)
+        warm, data = rows[:, :500].contiguous(), rows[:, 500:].contiguous()
+        pi0 = pp.pi[:, None, :].expand(-1, 5, -1).float().contiguous()
+        _, pi1, _ = smc.forward_cuda(params, pi0, warm, False)
+    return {"filter L=500": (params, pi0, warm), "likelihood L=2000": (params, pi1, data)}
+
+
 def time_steps(torch, prog, n: int = 20):
     """n SVGD iterations of `prog` after 3 of warm-up, host clock: (ms per
     iteration to the final synchronize, ms per iteration to enqueue them)."""
@@ -376,8 +427,10 @@ def flops_per_site(name: str, M: int) -> float:
     }[name]
 
 
-def kernel_timing(torch, smc, dev):
-    "Phase 5: each SMC' kernel and its plain version at the fit shape, float32."
+def kernel_timing(torch, smc, dev, fit_inputs: dict):
+    """Phase 5: each SMC' kernel and its plain version at the fit shape,
+    float32, with the kernels' launch geometry; then B2 and B3 on the smc
+    fit's own inputs (`fit_inputs`, label -> smc_fit_inputs' dict)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     (B, S, L), M = FIT_SHAPE, 16
     params, pi, obs = random_instances(torch, M, B, S, L, dev, gen)
@@ -386,42 +439,53 @@ def kernel_timing(torch, smc, dev):
     pi = pi.float().contiguous()
     gbar = torch.randn(B, S, generator=gen, device=dev)
     abar0 = torch.randn(B, S, M, generator=gen, device=dev)
-    _, _, ps = smc.forward_cuda(params, pi, obs, True)
     _, _, ps_p = smc.forward_structured(params, pi, obs, True)
     t = {
-        "fwd": time_ms(torch, lambda: smc.forward_cuda(params, pi, obs, False), 20),
         "fwd_plain": time_ms(torch, lambda: smc.forward_structured(params, pi, obs, False), 2),
-        "bwd": time_ms(torch, lambda: smc.backward_cuda(params, obs, ps, gbar, abar0), 20),
         "bwd_plain": time_ms(
             torch, lambda: smc.backward_structured(params, obs, ps_p, gbar, abar0), 2),
+        "fwd_grad_plain": time_ms(torch, lambda: smc.backward_structured(
+            params, obs, smc.forward_structured(params, pi, obs, True)[2], gbar, abar0), 2),
     }
-    t["fwd_res"] = time_ms(torch, lambda: smc.forward_cuda(params, pi, obs, True), 20)
-    t["fwd_grad"] = time_ms(torch, lambda: smc.backward_cuda(
-        params, obs, smc.forward_cuda(params, pi, obs, True)[2], gbar, abar0), 20)
-    t["fwd_grad_plain"] = time_ms(torch, lambda: smc.backward_structured(
-        params, obs, smc.forward_structured(params, pi, obs, True)[2], gbar, abar0), 2)
     sites = B * S * L
     live = B * float((obs != -2).sum())
     f4 = 4 * B * S * M  # one float32 (B, S, M) tensor, in bytes
     par = 6 * 4 * B * M  # the six (B, M) parameter rows
+    ps_bytes = ps_p.numel() * 4
     t["fwd_bound"] = bound(flops_per_site("smc_forward", M) * live,
                            par + f4 + obs.numel() + 4 * B * S + f4)
     t["fwd_res_bound"] = bound(flops_per_site("smc_forward", M) * live,
-                               par + f4 + obs.numel() + 4 * B * S + f4 + ps.numel() * 4)
+                               par + f4 + obs.numel() + 4 * B * S + f4 + ps_bytes)
     t["bwd_bound"] = bound(flops_per_site("smc_backward", M) * live,
-                           par + obs.numel() + ps.numel() * 4 + 4 * B * S + f4 + 7 * f4)
-    print(f"timing at B={B} S={S} L={L} M={M} (float32):")
-    print(f"  forward alone     kernel {t['fwd']:.4f} ms   plain {t['fwd_plain']:.2f} ms"
-          f"   kernel {sites / t['fwd'] / 1e3:.1f} Msites/s   bound {t['fwd_bound'][0]:.4f} ms")
-    print(f"  forward with residuals (B2) kernel {t['fwd_res']:.4f} ms   bound "
-          f"{t['fwd_res_bound'][0]:.4f} ms ({t['fwd_res_bound'][1]})")
-    print(f"  adjoint alone     kernel {t['bwd']:.4f} ms   plain {t['bwd_plain']:.2f} ms"
-          f"   bound {t['bwd_bound'][0]:.4f} ms")
-    print(f"  forward + adjoint kernel {t['fwd_grad']:.4f} ms   plain {t['fwd_grad_plain']:.2f} ms"
-          f"   kernel {sites / t['fwd_grad'] / 1e3:.1f} Msites/s")
+                           par + obs.numel() + ps_bytes + 4 * B * S + f4 + 7 * f4)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    print(f"  launch geometry: {B * S} threads = {-(-B * S // 32)} warps in "
-          f"{-(-B * S // 128)} blocks of 128 on {sms} SMs")
+    print(f"timing at B={B} S={S} L={L} M={M} (float32); bounds: B1 {t['fwd_bound'][0]:.4f} ms "
+          f"({t['fwd_bound'][1]}), B2 {t['fwd_res_bound'][0]:.4f} ms ({t['fwd_res_bound'][1]}), "
+          f"B3 {t['bwd_bound'][0]:.4f} ms ({t['bwd_bound'][1]})")
+    print(f"  plain: forward {t['fwd_plain']:.2f} ms, adjoint {t['bwd_plain']:.2f} ms, "
+          f"forward + adjoint {t['fwd_grad_plain']:.2f} ms")
+    _, _, ps = smc.forward_cuda(params, pi, obs, True)
+    t["fwd"] = time_ms(torch, lambda: smc.forward_cuda(params, pi, obs, False), 20)
+    t["fwd_res"] = time_ms(torch, lambda: smc.forward_cuda(params, pi, obs, True), 20)
+    t["bwd"] = time_ms(torch, lambda: smc.backward_cuda(params, obs, ps, gbar, abar0), 20)
+    t["fwd_grad"] = time_ms(torch, lambda: smc.backward_cuda(
+        params, obs, smc.forward_cuda(params, pi, obs, True)[2], gbar, abar0), 20)
+    geo = smc.kernel_geometry(B, S, M)
+    print(f"  kernels: B1 {t['fwd']:.4f} ms   B2 {t['fwd_res']:.4f} ms   B3 {t['bwd']:.4f} ms   "
+          f"B2 + B3 {t['fwd_grad']:.4f} ms ({sites / t['fwd_grad'] / 1e3:.1f} Msites/s)")
+    print(f"  launch geometry: {B * S} instances of {geo['lanes_per_instance']} lanes "
+          f"({geo['states_per_lane']} states a lane), {geo['instances_per_warp']} instances a "
+          f"warp: {geo['warps']} warps in {geo['blocks']} blocks of "
+          f"{geo['threads_per_block']} threads on {min(geo['blocks'], sms)} of {sms} SMs")
+    for label, (fp, fpi, fobs) in fit_inputs.items():
+        n, s_ = fpi.shape[:2]
+        _, _, ps = smc.forward_cuda(fp, fpi, fobs, True)
+        g = torch.randn(n, s_, generator=gen, device=dev)
+        ab = torch.randn(n, s_, M, generator=gen, device=dev)
+        t_fwd = time_ms(torch, lambda: smc.forward_cuda(fp, fpi, fobs, True), 20)
+        t_bwd = time_ms(torch, lambda: smc.backward_cuda(fp, fobs, ps, g, ab), 20)
+        print(f"  smc fit inputs, {label}: B2 {t_fwd:.4f} ms, B3 {t_bwd:.4f} ms; "
+              f"smallest period-state entry {float(ps[ps > 0].min()):.3e}")
     return t
 
 
@@ -497,6 +561,23 @@ def kernel_entry(name, route, source, replaces, launches, errs, gate, t):
             "library_ms": None}
 
 
+def ptxas_spills(log: str) -> dict:
+    """Spill stores (bytes) of each SMC' kernel instance in a ptxas log, by
+    kernel<M, SPL>."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(smc_\w+_kernel)ILi(\d+)ELi(\d+)E", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name is not None:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true", help="profile 5 SVGD steps of each path")
@@ -525,6 +606,8 @@ def main() -> int:
     for line in lib.ptxas_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    for name, spills in ptxas_spills(lib.ptxas_log).items():
+        print(f"ptxas spills of {name}: {spills}")
 
     # 3. kernels against their plain versions
     errs = check_kernels(torch, smc, dev)
@@ -538,11 +621,18 @@ def main() -> int:
         counts, pcounts = (run_slice(torch, ops, dev, path, b, ov) for b, ov in PATHS)
         built = {b: build_program(torch, dev, path, b, ov) for b, ov in PATHS}
         fit_inputs = {"initial cloud": packed_fit_inputs(torch, *built["packed"], dev)}
+        smc_inputs = {f"initial cloud, {k}": v
+                      for k, v in smc_fit_inputs(torch, *built["smc"], dev).items()}
         step_ms = step_timing(torch, {b: prog for b, (prog, _) in built.items()}, args.profile)
         fit_inputs["after the timed steps"] = packed_fit_inputs(torch, *built["packed"], dev)
+        late = {f"after the timed steps, {k}": v
+                for k, v in smc_fit_inputs(torch, *built["smc"], dev).items()}
+
+    # 3, continued: the SMC' kernels on the smc fit's late inputs
+    check_fit_inputs(torch, smc, dev, late, errs)
 
     # 5. kernel times at the fit shape
-    t = kernel_timing(torch, smc, dev)
+    t = kernel_timing(torch, smc, dev, {**smc_inputs, **late})
     pt = packed_timing(torch, packed, dev, fit_inputs)
 
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:

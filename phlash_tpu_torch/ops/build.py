@@ -66,6 +66,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_smc_forward.restype = I
     lib.phlash_smc_backward.argtypes = [P] * 10 + [I] * 4 + [P] * 8
     lib.phlash_smc_backward.restype = I
+    lib.phlash_smc_states_per_lane.argtypes = [I]
+    lib.phlash_smc_states_per_lane.restype = I
+    lib.phlash_smc_instances_per_block.argtypes = []
+    lib.phlash_smc_instances_per_block.restype = I
     lib.phlash_packed_forward.argtypes = [P] * 5 + [I] * 4 + [P] * 3
     lib.phlash_packed_forward.restype = I
     lib.phlash_packed_backward.argtypes = [P] * 6 + [I] * 4 + [P] * 6

@@ -16,8 +16,9 @@ Shapes, shared by both versions:
     params  6 tensors (B, M): b, d, u, vv, emis0, emis1 (per particle)
     pi      (B, S, M)         initial state per instance
     obs     (S, L) int8       the minibatch's observation rows
-    ll      (B, S); alpha (B, S, M); pstates (n_per, M, B, S) with
-    n_per = ceil(L / NORM_EVERY): the state at the start of every period
+    ll      (B, S); alpha (B, S, M); pstates (n_per, S, B, M) with
+    n_per = ceil(L / NORM_EVERY): the state at the start of every period,
+    chunk-major so that the kernels' period stores and loads coalesce
     gradients: six (B, S, M) per instance (the caller sums over S) + dpi
 
 Dispatch: `forward` / `backward` launch the CUDA kernel for CUDA tensors
@@ -25,26 +26,47 @@ and take the plain version for CPU tensors; there is no other path and no
 fallback.  Every wrapper counts what it ran (`.launches` on the CUDA
 wrappers, `.calls` on the plain versions); `reset_counts` zeroes them.
 
-Kernel design note (csrc/smc_forward.cu, csrc/smc_backward.cu).
+Kernel design note (csrc/smc_common.cuh, smc_forward.cu, smc_backward.cu).
 * Replaces: B1/B2 = pallas_smc.forward_structured (with_residuals False /
   True, body _make_fwd_kernel) by one forward kernel whose residual store is
   switched by a null pointer; B3 = pallas_smc.backward_structured (body
   _make_bwd_kernel) by the adjoint kernel.
-* What bounds it on the H100: neither bytes nor FLOPs.  Per site each HMM
-  does ~10 M flops on a serial dependence chain (the two scans), and there
-  are only B * S independent chains: 2500 at the fit shape (500 particles x
-  5 chunks), i.e. 79 warps.  One thread per instance in blocks of 128
-  puts work on 20 of the 132 SMs, one warp per scheduler, so the kernels
-  are latency-bound with most of the card idle.
-* What the design does about it: for now, nothing beyond keeping the state
-  and parameters in registers (local memory for M >= 32 and for the
-  adjoint's 8-site cache) and reading the int8 rows directly, so no
-  packing pass runs on the host or the device.  A warp per instance with
-  the states on lanes and __shfl scans would put B * S * 32 threads on the
-  card; that is the starting point for later work.
-* The TPU layout (128-lane tiles, chunk-major packing, 2-bit observation
-  codes in SMEM, the 16-chunk split, the VMEM tile-block chooser) is not
-  carried over: each thread indexes its own particle row and chunk row.
+* What bounds it on the H100: neither bytes nor FLOPs but latency.  Per
+  site each HMM runs a dependence chain (two scans over its M states, the
+  emission, and every 8 sites a sum, a division and a log), and there are
+  only B * S independent chains: 2500 at the fit shape (500 particles x 5
+  chunks).  One thread per chain would run the M states serially and fill
+  79 warps, 20 blocks of 128: 20 of 132 SMs.
+* What the design does about it:
+  - states on lanes: a group of G = M / SPL lanes runs one instance, SPL
+    states a lane, one SPL per M (`PHLASH_SMC_INSTANCES`, reported by
+    `kernel_geometry`); at M = 16, SPL = 4 gives 4-lane groups, 8
+    instances a warp, 315 one-warp blocks over all 132 SMs (it ran both
+    kernels faster than SPL = 1, 16 lanes and 4x the warps);
+  - scans by shuffles: S(x) and P(u x) are Kogge-Stone scans at width G
+    (a local scan of the lane's SPL states, then log2 G shuffle steps),
+    the two scans interleaved so their shuffles overlap; the suffix is a
+    reverse scan, never total - prefix, which would lose the small states;
+  - the normalizer (and the adjoint's <abar, a / c>) is an xor butterfly,
+    so every lane of a group holds the same bits;
+  - chunk-major blocks: a block holds 8 instances of one chunk, stages
+    that chunk's observation row into shared memory (16-byte loads, 1024
+    sites a tile, so any L works) and every lane reads its site's code as
+    a broadcast; no lane skips a site (padding is a select), so the
+    full-warp shuffles never sit in a divergent branch, and groups past the
+    last particle compute on a clamped copy and store nothing;
+  - the adjoint keeps each lane's 8-site cache (x, S(x), P(u x)) and its six
+    gradient accumulators in registers, and loads the previous period's
+    boundary state before the current period's work (a register double
+    buffer), so that load's latency leaves the chain;
+  - gradients are written per instance and summed over chunks in PyTorch:
+    deterministic, no atomics.
+* No tensor cores: the transition is the O(M) structured form, not a
+  matrix product; a 16-state vector is far below wgmma's 64-row tile; and
+  TF32 or bf16 inputs would break the rtol 1e-5 ll gate (docs/DESIGN.md,
+  "Why not the MXU": bf16 gave a 0.4% ll error on the TPU).
+* The TPU layout (128-lane tiles, 2-bit observation codes in SMEM, the
+  16-chunk split, the VMEM tile-block chooser) is not carried over.
 """
 
 from __future__ import annotations
@@ -60,6 +82,26 @@ SUPPORTED_M = (8, 16, 32, 64)  # template instances of the CUDA kernels
 
 def n_periods(L: int) -> int:
     return -(-L // NORM_EVERY)
+
+
+def launch_geometry(B: int, S: int, M: int, states_per_lane: int,
+                    instances_per_block: int) -> dict:
+    "How a mapping of M / states_per_lane lanes an instance lays B * S instances out."
+    lanes = M // states_per_lane
+    threads = instances_per_block * lanes
+    blocks = -(-B // instances_per_block) * S
+    return dict(states_per_lane=states_per_lane, lanes_per_instance=lanes,
+                instances_per_warp=32 // lanes, threads_per_block=threads,
+                blocks=blocks, warps=blocks * -(-threads // 32))
+
+
+def kernel_geometry(B: int, S: int, M: int) -> dict:
+    """launch_geometry of the CUDA kernels at M, from the mapping the built
+    library reports (csrc/smc_common.cuh owns it)."""
+    _check_m(M)
+    lib = load_library().lib
+    return launch_geometry(B, S, M, lib.phlash_smc_states_per_lane(M),
+                           lib.phlash_smc_instances_per_block())
 
 
 def _suffix(x: torch.Tensor) -> torch.Tensor:
@@ -85,7 +127,7 @@ def _site(obs: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def forward_structured(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool = True):
-    "Plain forward: (ll (B, S), alpha (B, S, M), pstates (n_per, M, B, S) or None)."
+    "Plain forward: (ll (B, S), alpha (B, S, M), pstates (n_per, S, B, M) or None)."
     forward_structured.calls += 1
     b, d, u, vv, e0, e1 = (x[:, None, :] for x in params)
     one = torch.ones_like(e0)
@@ -104,7 +146,7 @@ def forward_structured(params, pi: torch.Tensor, obs: torch.Tensor, with_residua
         c = torch.clamp_min(a.sum(-1, keepdim=True), TINY_NORM)
         a = a / c
         ll = ll + torch.log(c[..., 0])
-    pstates = torch.stack(pst).permute(0, 3, 1, 2).contiguous() if with_residuals else None
+    pstates = torch.stack(pst).transpose(1, 2).contiguous() if with_residuals else None
     return ll, a, pstates
 
 
@@ -122,7 +164,7 @@ def backward_structured(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: 
     ab = abar0
     g = gbar[..., None]
     for q in reversed(range(n_periods(L))):
-        a = pstates[q].permute(1, 2, 0)  # (B, S, M)
+        a = pstates[q].transpose(0, 1)  # (B, S, M)
         sites = []
         for t in range(q * NORM_EVERY, min((q + 1) * NORM_EVERY, L)):
             ob = _site(obs, t)
@@ -156,9 +198,13 @@ def backward_structured(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: 
 # ---------------------------------------------------------------------------
 
 
-def _check_shapes(params, obs, B: int, S: int, M: int, L: int) -> None:
+def _check_m(M: int) -> None:
     if M not in SUPPORTED_M:
         raise ValueError(f"the CUDA SMC kernels support M in {SUPPORTED_M}, got {M}")
+
+
+def _check_shapes(params, obs, B: int, S: int, M: int, L: int) -> None:
+    _check_m(M)
     if B * S == 0 or L == 0:
         raise ValueError(f"empty launch: B={B}, S={S}, L={L}")
     if any(tuple(p.shape) != (B, M) for p in params) or tuple(obs.shape) != (S, L):
@@ -176,7 +222,7 @@ def forward_cuda(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bo
     alpha = torch.empty(B, S, M, dtype=torch.float32, device=dev)
     pstates = None
     if with_residuals:
-        pstates = torch.empty(n_periods(L), M, B, S, dtype=torch.float32, device=dev)
+        pstates = torch.empty(n_periods(L), S, B, M, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.lib.phlash_smc_forward(
             *map(ptr, params), ptr(pi), ptr(obs), B, S, L, M,
@@ -194,8 +240,11 @@ def backward_cuda(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torch.
     L = obs.shape[1]
     dev = require_cuda([*params, pstates, gbar, abar0], [obs])
     _check_shapes(params, obs, B, S, M, L)
-    if tuple(pstates.shape) != (n_periods(L), M, B, S) or tuple(gbar.shape) != (B, S):
-        raise ValueError("pstates must be (n_per, M, B, S) and gbar (B, S)")
+    if tuple(pstates.shape) != (n_periods(L), S, B, M) or tuple(gbar.shape) != (B, S):
+        raise ValueError("pstates must be (n_per, S, B, M) and gbar (B, S)")
+    if pstates.data_ptr() % 16:
+        raise ValueError("pstates must start on a 16-byte boundary (the kernel reads it "
+                         "by vector loads)")
     lib = load_library()
     grads = [torch.empty(B, S, M, dtype=torch.float32, device=dev) for _ in range(7)]
     with torch.cuda.device(dev):

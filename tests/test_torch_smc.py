@@ -80,7 +80,7 @@ def test_plain_forward_matches_psmc_ll(sdata, M, dtype):
     obs = torch.as_tensor(sdata[rows])
     pi = tpp.pi[:, None, :].expand(B, len(rows), M).contiguous()
     ll, alpha, pst = smc.forward_structured([getattr(tpp, k) for k in PARAMS6], pi, obs, True)
-    assert pst.shape == (smc.n_periods(L), M, B, len(rows))
+    assert pst.shape == (smc.n_periods(L), len(rows), B, M)
     rtol_ll, rtol_a = (1e-10, 1e-10) if dtype == "float64" else (1e-5, 1e-4)
     for p in range(B):
         jpp = _jax_of(tpp, p)
@@ -235,6 +235,43 @@ def test_filter_matches_oracle_and_grads(sdata):
         b = np.asarray(b)
         denom = np.abs(b).max() + 1e-12
         np.testing.assert_allclose(a.numpy() / denom, b / denom, atol=1e-9, err_msg=name)
+
+
+@pytest.mark.parametrize("Lr", [40, 45])
+def test_pstates_are_chunk_major_period_states(Lr):
+    """pstates[q, s, p] is instance (p, s)'s state at the start of period q:
+    the final state of the forward over the row's first 8q sites (the
+    layout the CUDA kernels write and read)."""
+    params, pi, obs, _, _ = _random_case(3, 2, Lr, 8, seed=5)
+    _, alpha, pst = smc.forward_structured(params, pi, obs, True)
+    assert pst.shape == (smc.n_periods(Lr), 2, 3, 8)
+    torch.testing.assert_close(pst[0], pi.transpose(0, 1), rtol=0, atol=0)
+    for q in range(1, smc.n_periods(Lr)):
+        _, a_q, _ = smc.forward_structured(params, pi, obs[:, : q * smc.NORM_EVERY], False)
+        torch.testing.assert_close(pst[q], a_q.transpose(0, 1), rtol=1e-12, atol=0)
+
+
+def test_states_per_lane_and_geometry():
+    """The kernels' mapping as csrc/smc_common.cuh states it: one states-per-
+    lane instance for each supported M, groups of 4 to 32 lanes; at the fit
+    shape (B=500, S=5, M=16) 4-lane groups, 8 instances a warp, one-warp
+    blocks.  kernel_geometry refuses an M with no kernel before it builds."""
+    import re
+    from pathlib import Path
+
+    header = (Path(smc.__file__).parents[1] / "csrc" / "smc_common.cuh").read_text()
+    mapping = re.search(r"#define PHLASH_SMC_INSTANCES\(X\) (.*)", header).group(1)
+    spl = {int(m): int(s) for m, s in re.findall(r"X\((\d+), (\d+)\)", mapping)}
+    per_block = int(re.search(r"INSTANCES_PER_BLOCK = (\d+);", header).group(1))
+    assert tuple(spl) == smc.SUPPORTED_M
+    for M, s in spl.items():
+        lanes = M // s
+        assert M % s == 0 and 4 <= lanes <= 32 and lanes & (lanes - 1) == 0
+    geo = smc.launch_geometry(500, 5, 16, spl[16], per_block)
+    assert geo == dict(states_per_lane=4, lanes_per_instance=4, instances_per_warp=8,
+                       threads_per_block=32, blocks=315, warps=315)
+    with pytest.raises(ValueError, match="support M"):
+        smc.kernel_geometry(500, 5, 24)
 
 
 def test_dispatch_by_device():

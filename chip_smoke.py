@@ -15,9 +15,12 @@ Phases, each of which prints its own lines and aborts the run on failure:
    for every M, at the fit's likelihood (L=2000) and warm-up filter (L=500)
    shapes, and at a ragged row over three observation tiles (L=2501);
    after phase 4c also on the smc fit's own late inputs;
-3b. the packed kernels (B4, B5) against theirs, the same way, at a ragged
-   shape (B=37, S=3, L=1000) and the fit shape (B=500, S=5, L=2000), both
-   with seg_len=256;
+3b. the packed kernels (B4, B5) against theirs, the same way, at ragged
+   shapes (B=37, S=3, L=1000 and L=2501: three observation tiles, a
+   partial last period) and the fit shape (B=500, S=5, L=2000), with the
+   kernels' checkpoint period (which the library reports and
+   ops/packed.DEFAULT_SEG must equal); after phase 4c also on the packed
+   fit's own late inputs;
 4. the slice: phlash_tpu_torch.psmc on a seeded .psmcfa at 500 particles,
    S=5, chunks of 2000 + 500 overlap, 30 iterations (kernel_backend "smc"),
    with the launch counters showing that only the SMC' CUDA kernels ran;
@@ -29,9 +32,10 @@ Phases, each of which prints its own lines and aborts the run on failure:
    times, at the fit shape B=500, S=5, L=2000, M=16; then B2 and B3 on the
    smc fit's own inputs (its initial particle cloud, and its particles
    after the timed steps);
-5b. packed kernel (B4, B5) and plain times at the same shape, then the
-   packed kernels on the packed fit's own inputs (its initial particle
-   cloud, and its particles after the timed steps).
+5b. packed kernel (B4, B5) and plain times at the same shape, with the
+   kernels' launch geometry, then the packed kernels on the packed fit's
+   own inputs (its initial particle cloud, and its particles after the
+   timed steps).
 The last two lines are a JSON summary of the kernels and the result line.
 It exits non-zero, printing no result, without a CUDA device or when the
 package is not beside it.
@@ -52,7 +56,6 @@ SEED = 20240601
 PEAK_FP32 = 67e12  # FLOP/s: H100 SXM float32 outside the tensor cores (data sheet, 700 W)
 PEAK_BYTES = 3.35e12  # B/s: H100 SXM HBM3
 PATTERNS = {8: "8*1", 16: "14*1+1*2", 32: "32*1", 64: "64*1"}
-SEG = 256  # the packed kernels' segment (checkpoint spacing), ops/packed.DEFAULT_SEG
 FIT_SHAPE = (500, 5, 2000)  # (B, S, L) of the fit's likelihood call, where phase 5 times
 
 
@@ -185,62 +188,86 @@ def check_fit_inputs(torch, smc, dev, fit_inputs: dict, errs: dict):
         print(f"{where}: smallest period-state entry {tiny:.3e}")
 
 
-# (B, S, L) of the phase-3b checks: a ragged warp (37 * 3 half-warps) with L
-# not a multiple of the segment, and the fit shape; both with SEG.
-PACKED_SHAPES = ((37, 3, 1000), (500, 5, 2000))
+# (B, S, L) of the phase-3b checks: a ragged last block (37 particles: 5 real
+# instances and 3 clamped copies) with a padded tail, the same over three
+# observation tiles with L not a multiple of the period (2501 = 312 * 8 + 5),
+# and the fit shape.
+PACKED_SHAPES = ((37, 3, 1000), (37, 3, 2501), (500, 5, 2000))
 
 
-def check_packed_kernels(torch, packed, dev):
-    """Phase 3b: the packed forward (B4, with and without checkpoints) and
-    adjoint (B5) against their plain versions (float64 on the card), and the
-    plain forward against hmm.psmc_ll.  Errors as check_kernels returns them."""
+def gate_packed(torch, packed, params, pi, obs, gbar, where, errs):
+    """The packed forward (B4, with and without checkpoints) and adjoint (B5)
+    kernels against their plain versions in float64 on the card, and the
+    plain forward against hmm.psmc_ll.  Inputs float64; folds the errors into
+    `errs` (as check_packed_kernels returns them) and returns the smallest
+    positive checkpoint entry."""
     from phlash_tpu_torch.hmm import psmc_ll
     from phlash_tpu_torch.ops.packing import dense_transition
     from phlash_tpu_torch.params import PSMCParams
 
+    e0, e1 = params[4:]
+    A = dense_transition(PSMCParams(*params, pi=pi))
+    k_in = tuple(x.float().contiguous() for x in (A, e0, e1, pi))
+    ll_p, ck_p = packed.forward_packed(A, e0, e1, pi, obs)
+    _, ll_o = psmc_ll(PSMCParams(*(x[:, None, :] for x in params), pi=pi), obs)
+    e_o = max_rel(ll_p, ll_o)
+    print(f"plain packed forward {where} vs psmc_ll: max rel err {e_o:.3e}")
+    if not e_o <= 1e-10:
+        fail(f"the plain packed forward disagrees with hmm.psmc_ll at {where}")
+    g_p = packed.backward_packed(A, e0, e1, obs, ck_p, gbar)
+    ll_k, ck_k = packed.forward_packed_cuda(*k_in, obs)
+    ll_k0, no_ck = packed.forward_packed_cuda(*k_in, obs, with_ckpt=False)
+    g_k = packed.backward_packed_cuda(*k_in[:3], obs, ck_k, gbar.float())
+    torch.cuda.synchronize()
+    e_ll, e_ck = max_rel(ll_k, ll_p), max_rel(ck_k, ck_p)
+    if not (e_ll <= 1e-5 and e_ck <= 1e-4):
+        fail(f"packed forward kernel disagrees with the plain version at {where}: "
+             f"ll {e_ll:.3e} ckpt {e_ck:.3e}")
+    if no_ck is not None or not torch.equal(ll_k0, ll_k):
+        fail(f"the packed forward without checkpoints differs at {where}")
+    worst = 0.0
+    for name, a, b in zip(("A", "emis0", "emis1", "pi"), g_k, g_p):
+        norm = normalized(a, b)
+        worst = max(worst, norm)
+        if not norm <= 2e-5:
+            fail(f"packed adjoint kernel disagrees on d{name} at {where}: "
+                 f"normalized err {norm:.3e}")
+    print(f"packed {where}: max rel err ll {e_ll:.3e} ckpt {e_ck:.3e}; "
+          f"max normalized err over the 4 gradients {worst:.3e}")
+    fwd, bwd = errs["forward"], errs["backward"]
+    fwd["ll"], fwd["ckpt"] = max(fwd["ll"], e_ll), max(fwd["ckpt"], e_ck)
+    fwd["abs"] = max(fwd["abs"], max_abs(ll_k, ll_p), max_abs(ck_k, ck_p))
+    bwd["grad"] = max(bwd["grad"], worst)
+    bwd["abs"] = max(bwd["abs"], *(max_abs(a, b) for a, b in zip(g_k, g_p)))
+    return float(ck_p[ck_p > 0].min())
+
+
+def check_packed_kernels(torch, packed, dev):
+    """Phase 3b: gate_packed at PACKED_SHAPES on random inputs.  Returns,
+    per kernel, the largest absolute error and the largest errors in the
+    form their gates read (relative for ll and checkpoints, normalized for
+    the gradients)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     errs = {"forward": {"abs": 0.0, "ll": 0.0, "ckpt": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
     for B, S, L in PACKED_SHAPES:
-        where = f"B={B} S={S} L={L} seg_len={SEG}"
         params, pi, obs = random_instances(torch, 16, B, S, L, dev, gen)
-        e0, e1 = params[4:]
-        A = dense_transition(PSMCParams(*params, pi=pi))
-        k_in = tuple(x.float().contiguous() for x in (A, e0, e1, pi))
-        ll_k, ck_k = packed.forward_packed_cuda(*k_in, obs, SEG, True)
-        ll_k0, no_ck = packed.forward_packed_cuda(*k_in, obs, SEG, False)
-        torch.cuda.synchronize()
-        ll_p, ck_p = packed.forward_packed(A, e0, e1, pi, obs, SEG, True)
-        _, ll_o = psmc_ll(PSMCParams(*(x[:, None, :] for x in params), pi=pi), obs)
-        e_o = max_rel(ll_p, ll_o)
-        e_ll, e_ck = max_rel(ll_k, ll_p), max_rel(ck_k, ck_p)
-        print(f"packed forward {where}: max rel err ll {e_ll:.3e} ckpt {e_ck:.3e}; "
-              f"plain vs psmc_ll {e_o:.3e}")
-        if not e_o <= 1e-10:
-            fail(f"the plain packed forward disagrees with hmm.psmc_ll at {where}")
-        if not (e_ll <= 1e-5 and e_ck <= 1e-4):
-            fail(f"packed forward kernel disagrees with the plain version at {where}")
-        if no_ck is not None or not torch.equal(ll_k0, ll_k):
-            fail(f"the packed forward without checkpoints differs at {where}")
-        fwd = errs["forward"]
-        fwd["ll"], fwd["ckpt"] = max(fwd["ll"], e_ll), max(fwd["ckpt"], e_ck)
-        fwd["abs"] = max(fwd["abs"], max_abs(ll_k, ll_p), max_abs(ck_k, ck_p))
-
         gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
-        g_k = packed.backward_packed_cuda(*k_in[:3], obs, ck_k, gbar.float(), SEG)
-        torch.cuda.synchronize()
-        g_p = packed.backward_packed(A, e0, e1, obs, ck_p, gbar, SEG)
-        bwd = errs["backward"]
-        worst = 0.0
-        for name, a, b in zip(("A", "emis0", "emis1", "pi"), g_k, g_p):
-            norm = normalized(a, b)
-            worst = max(worst, norm)
-            bwd["abs"] = max(bwd["abs"], max_abs(a, b))
-            if not norm <= 2e-5:
-                fail(f"packed adjoint kernel disagrees on d{name} at {where}: "
-                     f"normalized err {norm:.3e}")
-        bwd["grad"] = max(bwd["grad"], worst)
-        print(f"packed backward {where}: max normalized err over the 4 gradients {worst:.3e}")
+        gate_packed(torch, packed, params, pi, obs, gbar, f"B={B} S={S} L={L}", errs)
     return errs
+
+
+def check_packed_fit_inputs(torch, packed, dev, fit_inputs: dict, errs: dict):
+    """Phase 3b, continued after the timed steps: B4/B5 on the packed fit's
+    own inputs (`fit_inputs`, label -> (params, pi, obs) in float32), where
+    alpha reaches toward float32's smallest normal numbers."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for label, (params, pi, obs) in fit_inputs.items():
+        B, S, _ = pi.shape
+        gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
+        where = f"packed fit inputs, {label}, B={B} S={S} L={obs.shape[1]}"
+        tiny = gate_packed(torch, packed, tuple(x.double() for x in params), pi.double(), obs,
+                           gbar, where, errs)
+        print(f"{where}: smallest checkpoint entry {tiny:.3e}")
 
 
 def write_psmcfa(path: Path, n_contigs=4, windows=100_000):
@@ -314,16 +341,17 @@ def build_program(torch, dev, path: Path, backend: str, overlap: int):
 
 def packed_fit_inputs(torch, prog, chunks, dev):
     """B4/B5 inputs as the packed fit makes them from its current particles,
-    on the first S = 5 of its chunks (2000 sites), float32."""
-    from phlash_tpu_torch.ops.packing import dense_transition
+    on the first S = 5 of its chunks (2000 sites), float32: the six
+    parameter rows, pi and the rows (the kernels take A = dense_transition)."""
     from phlash_tpu_torch.params import PSMCParams
 
     with torch.no_grad():
         pp = PSMCParams.from_dm(prog.init.unflatten(prog.state.particles).to_dm())
-        A = dense_transition(pp).contiguous()
-    pi = pp.pi[:, None, :].expand(-1, 5, -1).contiguous()
+    params = tuple(getattr(pp, k).float().contiguous()
+                   for k in ("b", "d", "u", "v", "emis0", "emis1"))
+    pi = pp.pi[:, None, :].expand(-1, 5, -1).float().contiguous()
     obs = torch.as_tensor(chunks[:5], dtype=torch.int8, device=dev)
-    return A, pp.emis0.contiguous(), pp.emis1.contiguous(), pi, obs
+    return params, pi, obs
 
 
 def smc_fit_inputs(torch, prog, chunks, dev):
@@ -491,7 +519,8 @@ def kernel_timing(torch, smc, dev, fit_inputs: dict):
 
 def packed_timing(torch, packed, dev, fit_inputs: dict):
     """Phase 5b: the packed kernels and their plain versions at the fit
-    shape, float32; then the kernels on `fit_inputs` (label -> inputs)."""
+    shape, float32, with the kernels' launch geometry; then the kernels on
+    `fit_inputs` (label -> packed_fit_inputs' triple)."""
     from phlash_tpu_torch.ops.packing import dense_transition
     from phlash_tpu_torch.params import PSMCParams
 
@@ -502,22 +531,22 @@ def packed_timing(torch, packed, dev, fit_inputs: dict):
     A, e0, e1, pi = (x.float().contiguous() for x in (
         dense_transition(PSMCParams(*params, pi=pi)), *params[4:], pi))
     gbar = torch.randn(B, S, generator=gen, device=dev)
-    _, ck = packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, True)
-    _, ck_p = packed.forward_packed(A, e0, e1, pi, obs, SEG, True)
+    _, ck = packed.forward_packed_cuda(A, e0, e1, pi, obs)
+    _, ck_p = packed.forward_packed(A, e0, e1, pi, obs)
     t = {
-        "fwd": time_ms(torch, lambda: packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, False), 20),
+        "fwd": time_ms(torch, lambda: packed.forward_packed_cuda(A, e0, e1, pi, obs,
+                                                                 with_ckpt=False), 20),
         "fwd_plain": time_ms(
-            torch, lambda: packed.forward_packed(A, e0, e1, pi, obs, SEG, False), 2),
-        "bwd": time_ms(torch, lambda: packed.backward_packed_cuda(A, e0, e1, obs, ck, gbar, SEG), 20),
+            torch, lambda: packed.forward_packed(A, e0, e1, pi, obs, with_ckpt=False), 2),
+        "bwd": time_ms(torch, lambda: packed.backward_packed_cuda(A, e0, e1, obs, ck, gbar), 20),
         "bwd_plain": time_ms(
-            torch, lambda: packed.backward_packed(A, e0, e1, obs, ck_p, gbar, SEG), 2),
+            torch, lambda: packed.backward_packed(A, e0, e1, obs, ck_p, gbar), 2),
     }
-    t["fwd_ckpt"] = time_ms(torch, lambda: packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, True),
-                            20)
+    t["fwd_ckpt"] = time_ms(torch, lambda: packed.forward_packed_cuda(A, e0, e1, pi, obs), 20)
     t["fwd_grad"] = time_ms(torch, lambda: packed.backward_packed_cuda(
-        A, e0, e1, obs, packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, True)[1], gbar, SEG), 20)
+        A, e0, e1, obs, packed.forward_packed_cuda(A, e0, e1, pi, obs)[1], gbar), 20)
     t["fwd_grad_plain"] = time_ms(torch, lambda: packed.backward_packed(
-        A, e0, e1, obs, packed.forward_packed(A, e0, e1, pi, obs, SEG, True)[1], gbar, SEG), 2)
+        A, e0, e1, obs, packed.forward_packed(A, e0, e1, pi, obs)[1], gbar), 2)
     sites = B * S * L
     live = B * float((obs != -2).sum())
     f4 = 4 * B * S * M
@@ -527,7 +556,7 @@ def packed_timing(torch, packed, dev, fit_inputs: dict):
     t["bwd_bound"] = bound(flops_per_site("packed_backward", M) * live,
                            par + obs.numel() + ck.numel() * 4 + 4 * B * S
                            + 4 * B * S * M * M + 3 * f4)
-    print(f"packed timing at B={B} S={S} L={L} M={M} seg_len={SEG} (float32):")
+    print(f"packed timing at B={B} S={S} L={L} M={M} seg_len={packed.DEFAULT_SEG} (float32):")
     for key, what in (("fwd", "forward, no checkpoints"), ("bwd", "adjoint alone"),
                       ("fwd_grad", "forward with checkpoints + adjoint")):
         extra = f"   bound {t[key + '_bound'][0]:.4f} ms" if key + "_bound" in t else ""
@@ -535,19 +564,26 @@ def packed_timing(torch, packed, dev, fit_inputs: dict):
               f"plain {t[key + '_plain']:.2f} ms ({sites / t[key + '_plain'] / 1e3:.3f} Msites/s)"
               f"{extra}")
     print(f"  forward with checkpoints            kernel {t['fwd_ckpt']:.4f} ms")
-    print(f"  launch geometry: {B * S} half-warps = {-(-B * S // 2)} warps in "
-          f"{-(-B * S * 16 // 128)} blocks of 128")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, geo in packed.kernel_geometry(B, S).items():
+        print(f"  {name} launch geometry: {B * S} instances of {geo['lanes_per_instance']} lanes "
+              f"({geo['states_per_lane']} states a lane), {geo['instances_per_warp']} instances "
+              f"a warp: {geo['warps']} warps in {geo['blocks']} blocks of "
+              f"{geo['threads_per_block']} threads on {min(geo['blocks'], sms)} of {sms} SMs")
 
     # the same launches on the packed fit's own inputs, at its initial cloud
     # and after the timed steps: the kernels' time depends on the data
-    for label, (A, e0, e1, pi, obs) in fit_inputs.items():
-        _, ck = packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, True)
-        t_fwd = time_ms(torch, lambda: packed.forward_packed_cuda(A, e0, e1, pi, obs, SEG, False),
-                        20)
-        t_bwd = time_ms(torch, lambda: packed.backward_packed_cuda(A, e0, e1, obs, ck, gbar, SEG),
+    for label, (fp, fpi, fobs) in fit_inputs.items():
+        fA = dense_transition(PSMCParams(*fp, pi=fpi)).contiguous()
+        fe0, fe1 = fp[4:]
+        fg = torch.randn(fpi.shape[:2], generator=gen, device=dev)
+        _, fck = packed.forward_packed_cuda(fA, fe0, fe1, fpi, fobs)
+        t_fwd = time_ms(torch, lambda: packed.forward_packed_cuda(
+            fA, fe0, fe1, fpi, fobs, with_ckpt=False), 20)
+        t_bwd = time_ms(torch, lambda: packed.backward_packed_cuda(fA, fe0, fe1, fobs, fck, fg),
                         20)
         print(f"  fit inputs, {label}: forward {t_fwd:.4f} ms, adjoint {t_bwd:.4f} ms; "
-              f"smallest checkpoint entry {float(ck[ck > 0].min()):.3e}")
+              f"smallest checkpoint entry {float(fck[fck > 0].min()):.3e}")
     return t
 
 
@@ -562,15 +598,16 @@ def kernel_entry(name, route, source, replaces, launches, errs, gate, t):
 
 
 def ptxas_spills(log: str) -> dict:
-    """Spill stores (bytes) of each SMC' kernel instance in a ptxas log, by
-    kernel<M, SPL>."""
+    """Spill stores (bytes) of each kernel instance in a ptxas log, by
+    kernel<template arguments>."""
     import re
 
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(smc_\w+_kernel)ILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?_kernel)I((?:Li\d+E)+)E", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+            args = re.findall(r"Li(\d+)E", m.group(2))
+            name = f"{m.group(1)}<{', '.join(args)}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name is not None:
             out[name] = int(m.group(1))
@@ -608,6 +645,13 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     for name, spills in ptxas_spills(lib.ptxas_log).items():
         print(f"ptxas spills of {name}: {spills}")
+    period = lib.lib.phlash_packed_period()
+    print(f"packed kernels: checkpoint period {period} sites, "
+          f"states a lane: forward {lib.lib.phlash_packed_states_per_lane(0)}, "
+          f"adjoint {lib.lib.phlash_packed_states_per_lane(1)}")
+    if period != packed.DEFAULT_SEG:
+        fail(f"the library's checkpoint period {period} is not ops/packed.DEFAULT_SEG "
+             f"({packed.DEFAULT_SEG})")
 
     # 3. kernels against their plain versions
     errs = check_kernels(torch, smc, dev)
@@ -624,12 +668,14 @@ def main() -> int:
         smc_inputs = {f"initial cloud, {k}": v
                       for k, v in smc_fit_inputs(torch, *built["smc"], dev).items()}
         step_ms = step_timing(torch, {b: prog for b, (prog, _) in built.items()}, args.profile)
-        fit_inputs["after the timed steps"] = packed_fit_inputs(torch, *built["packed"], dev)
+        packed_late = {"after the timed steps": packed_fit_inputs(torch, *built["packed"], dev)}
+        fit_inputs.update(packed_late)
         late = {f"after the timed steps, {k}": v
                 for k, v in smc_fit_inputs(torch, *built["smc"], dev).items()}
 
-    # 3, continued: the SMC' kernels on the smc fit's late inputs
+    # 3 and 3b, continued: each pair on its fit's late inputs
     check_fit_inputs(torch, smc, dev, late, errs)
+    check_packed_fit_inputs(torch, packed, dev, packed_late, perrs)
 
     # 5. kernel times at the fit shape
     t = kernel_timing(torch, smc, dev, {**smc_inputs, **late})

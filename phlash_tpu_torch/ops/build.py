@@ -70,10 +70,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_smc_states_per_lane.restype = I
     lib.phlash_smc_instances_per_block.argtypes = []
     lib.phlash_smc_instances_per_block.restype = I
-    lib.phlash_packed_forward.argtypes = [P] * 5 + [I] * 4 + [P] * 3
+    lib.phlash_packed_forward.argtypes = [P] * 5 + [I] * 3 + [P] * 3
     lib.phlash_packed_forward.restype = I
-    lib.phlash_packed_backward.argtypes = [P] * 6 + [I] * 4 + [P] * 6
+    lib.phlash_packed_backward.argtypes = [P] * 6 + [I] * 3 + [P] * 5
     lib.phlash_packed_backward.restype = I
+    lib.phlash_packed_period.argtypes = []
+    lib.phlash_packed_period.restype = I
+    lib.phlash_packed_states_per_lane.argtypes = [I]
+    lib.phlash_packed_states_per_lane.restype = I
     lib.phlash_cuda_error_string.argtypes = [I]
     lib.phlash_cuda_error_string.restype = ctypes.c_char_p
 

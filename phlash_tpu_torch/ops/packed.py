@@ -21,7 +21,8 @@ sweeps it in reverse (given abar = dL/dalpha and g = dL/dll):
 
 Shapes, shared by both versions:
     A (B, 16, 16); emis0, emis1 (B, 16); pi (B, S, 16); obs (S, L) int8
-    ll (B, S); ckpt (n_seg, B * S, 16), n_seg = ceil(L / seg_len)
+    ll (B, S); ckpt (n_seg, B * S, 16), n_seg = ceil(L / seg_len): alpha at
+    every segment start (the CUDA kernels take seg_len = DEFAULT_SEG only)
     gradients per instance: dA (B, S, 16, 16), de0, de1, dpi (B, S, 16)
     (the caller sums the chunk axis, so no atomics and a fixed order)
 
@@ -30,25 +31,65 @@ take the plain version for CPU tensors; there is no other path and no
 fallback.  Every wrapper counts what it ran (`.launches` on the CUDA
 wrappers, `.calls` on the plain versions); `reset_counts` zeroes them.
 
-Kernel design note (csrc/packed_forward.cu, csrc/packed_backward.cu).
+Kernel design note (csrc/packed_common.cuh, packed_forward.cu,
+packed_backward.cu).
 * Replaces: B4 = pallas_hmm.forward_packed (body _fwd_kernel) by one
   forward kernel whose checkpoint store is switched by a null pointer; B5 =
   pallas_hmm_vjp.backward_packed (body _bwd_kernel) by the adjoint kernel.
-* What bounds it on the H100: the per-site dependence chain.  Per site an
-  instance does ~560 flops (a 16 x 16 matrix-vector product, the emission,
-  the sum, the division, the log) that cannot start before the previous
-  site's normalizer is known; at the fit shape there are 2500 instances.
-* What the design does about it: one 16-lane half-warp per instance, lane j
-  owning state j and column j of A in registers, so the 2500 chains become
-  40,000 threads in 1250 warps over all 132 SMs.  alpha_i reaches lane j by
-  `__shfl_sync` in a fixed order over i, the normalizer by a 4-step
-  `__shfl_xor_sync` butterfly (every lane gets the same bits), float32 with
-  IEEE division and no tensor cores.  The adjoint keeps row j of A and
-  column j of dA in registers too, and rebuilds each segment into a scratch
-  (seg_len, B * S, 16) that a half-warp writes and reads coalesced.
+* What bounds it on the H100: neither bytes nor FLOPs but latency.  Per
+  site an instance does ~560 flops (a 16 x 16 matrix-vector product, the
+  emission, the sum, the reciprocal, the log) that cannot start before the
+  previous site's normalizer is known, and there are only B * S independent
+  chains: 2500 at the fit shape.  Handing states between lanes takes warp
+  shuffles, and the shuffle pipe, shared by every warp of an SM, is the
+  other limit.
+* What the design does about it:
+  - states on lanes: a group of G = 16 / SPL lanes runs one instance, SPL
+    states a lane, with the lane's columns of A (and, in the adjoint, its
+    rows of A and of dA) in registers; one SPL per kernel, the faster one
+    that builds without spill (`PACKED_FWD_SPL` = 4, `PACKED_BWD_SPL` = 1,
+    reported by `kernel_geometry`).  A lane receives the other lanes'
+    states by xor shuffles and keeps A in that order, so every register
+    index is a compile-time constant; more states a lane means fewer
+    shuffles an instance ((G - 1) * SPL shuffles and log2 G butterfly
+    steps a site for 32 / G instances a warp) but fewer warps and more
+    registers;
+  - a short chain: the forward carries the state unnormalized (alpha =
+    x * rho), so the next site's product waits only for x while the
+    butterfly and the reciprocal that give rho = 1 / c run beside it; the
+    16-term product runs as independent partial sums; each site takes one
+    reciprocal (the fast path of IEEE rcp.rn.f32, c lying within
+    [smallest emission, 1]) instead of a division a state; nothing branches
+    on the observation, so each period is one basic block;
+  - the dense residual: the forward stores alpha every P = 8 sites
+    (`DEFAULT_SEG`, the library's `phlash_packed_period`), 40 MB at the fit
+    shape, which fits in the 50 MB L2; the adjoint rebuilds each period
+    into registers (alpha before each site, v, rc) and sweeps it in
+    reverse, so it writes nothing to device memory but its four outputs,
+    and loads the previous period's checkpoint before the current period's
+    work (P = 16 left the adjoint too few registers and ran both kernels
+    slower);
+  - the fused dA row: the w values that form w A^T by shuffles also update
+    the lane's rows of dA (dA[m, :] += alpha_prev[m] w), so the rank-one
+    update costs no shuffle; <abar, alpha> is sum_j w'_j v'_j of the live
+    site after (abar = w' A^T, v' = alpha A), so its butterfly runs beside
+    the next shuffles, not before them;
+  - chunk-major blocks: a block holds 8 instances of one chunk, stages
+    that chunk's observation row into shared memory (csrc/smc_common.cuh's
+    stage_obs, 1024 sites a tile, so any L works) and every lane reads its
+    site's code as a broadcast; no lane skips a site (padding is a select),
+    so the full-warp shuffles never sit in a divergent branch, and groups
+    past the last particle compute on a clamped copy and store nothing;
+  - gradients are written per instance and summed over chunks in PyTorch:
+    deterministic, no atomics; ll is summed per period, then across
+    periods, each log taken by one lane of the group.
+* No tensor cores: the product is 16 x 16 per instance, far below wgmma's
+  64-row tile, and TF32 or bf16 would break the rtol 1e-5 ll gate
+  (docs/DESIGN.md, "Why not the MXU": bf16 gave a 0.4% ll error on the
+  TPU).  float32 IEEE arithmetic throughout, no fast-math.
 * The TPU layout (8 particles' A block-diagonal in 128 x 128 MXU tiles,
   8-row chunk tiles, 2-bit observation codes in SMEM) is not carried over:
-  each half-warp reads its particle's A and its chunk's raw int8 row, so any
+  each group reads its particle's A and its block's raw int8 row, so any
   S works and no packing pass runs.
 """
 
@@ -57,9 +98,12 @@ from __future__ import annotations
 import torch
 
 from phlash_tpu_torch.ops.build import check, load_library, ptr, require_cuda, stream
+from phlash_tpu_torch.ops.smc import launch_geometry
 
-M = 16  # HMM states (pallas_hmm.M): one state per lane of a half-warp
-DEFAULT_SEG = 256  # sites per segment: the checkpoint spacing (pallas_hmm.DEFAULT_SEG)
+M = 16  # HMM states (pallas_hmm.M)
+# sites per segment, the checkpoint spacing: the CUDA kernels' period
+# (PACKED_PERIOD in csrc/packed_common.cuh, which the library reports)
+DEFAULT_SEG = 8
 
 
 def n_segments(L: int, seg_len: int) -> int:
@@ -140,13 +184,26 @@ def backward_packed(A, emis0, emis1, obs, ckpt, gbar, seg_len: int = DEFAULT_SEG
 
 
 def _check_shapes(A, emis0, emis1, obs, B: int, S: int, seg_len: int) -> None:
+    if seg_len != DEFAULT_SEG:
+        raise ValueError(f"the packed CUDA kernels keep a checkpoint every {DEFAULT_SEG} sites "
+                         f"(their period); got seg_len={seg_len}")
     L = obs.shape[1]
-    if B * S == 0 or L == 0 or seg_len <= 0:
-        raise ValueError(f"empty launch: B={B}, S={S}, L={L}, seg_len={seg_len}")
+    if B * S == 0 or L == 0:
+        raise ValueError(f"empty launch: B={B}, S={S}, L={L}")
     if tuple(A.shape) != (B, M, M) or any(tuple(e.shape) != (B, M) for e in (emis0, emis1)):
         raise ValueError(f"the packed kernels take A (B, {M}, {M}) and emissions (B, {M})")
     if obs.shape[0] != S:
         raise ValueError("observations must be (S, L)")
+
+
+def kernel_geometry(B: int, S: int) -> dict:
+    """launch_geometry of the forward and adjoint kernels, from the mapping
+    the built library reports (states per lane: csrc/packed_common.cuh;
+    instances per block, shared with the SMC' kernels: smc_common.cuh)."""
+    lib = load_library().lib
+    per_block = lib.phlash_smc_instances_per_block()
+    return {name: launch_geometry(B, S, M, lib.phlash_packed_states_per_lane(adjoint), per_block)
+            for name, adjoint in (("forward", 0), ("backward", 1))}
 
 
 def forward_packed_cuda(A, emis0, emis1, pi, obs, seg_len: int = DEFAULT_SEG,
@@ -154,8 +211,8 @@ def forward_packed_cuda(A, emis0, emis1, pi, obs, seg_len: int = DEFAULT_SEG,
     "The forward kernel (B4); shapes as the plain version."
     B, S, _ = pi.shape
     L = obs.shape[1]
-    dev = require_cuda([A, emis0, emis1, pi], [obs])
     _check_shapes(A, emis0, emis1, obs, B, S, seg_len)
+    dev = require_cuda([A, emis0, emis1, pi], [obs])
     if tuple(pi.shape) != (B, S, M):
         raise ValueError(f"pi must be (B, S, {M})")
     lib = load_library()
@@ -165,8 +222,8 @@ def forward_packed_cuda(A, emis0, emis1, pi, obs, seg_len: int = DEFAULT_SEG,
         ckpt = torch.empty(n_segments(L, seg_len), B * S, M, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.lib.phlash_packed_forward(
-            ptr(A), ptr(emis0), ptr(emis1), ptr(pi), ptr(obs), B, S, L, seg_len,
-            ptr(ll), ptr(ckpt), stream(dev),
+            ptr(A), ptr(emis0), ptr(emis1), ptr(pi), ptr(obs), B, S, L, ptr(ll), ptr(ckpt),
+            stream(dev),
         )
     check(lib, err, "packed_forward launch")
     forward_packed_cuda.launches += 1
@@ -177,19 +234,18 @@ def backward_packed_cuda(A, emis0, emis1, obs, ckpt, gbar, seg_len: int = DEFAUL
     "The adjoint kernel (B5); shapes as the plain version."
     B, S = gbar.shape
     L = obs.shape[1]
-    dev = require_cuda([A, emis0, emis1, ckpt, gbar], [obs])
     _check_shapes(A, emis0, emis1, obs, B, S, seg_len)
+    dev = require_cuda([A, emis0, emis1, ckpt, gbar], [obs])
     if tuple(ckpt.shape) != (n_segments(L, seg_len), B * S, M):
-        raise ValueError("ckpt must be (n_seg, B * S, 16)")
+        raise ValueError(f"ckpt must be (n_seg, B * S, {M})")
     lib = load_library()
-    # the segment being swept: alpha before each site, then v, per instance
-    hist = torch.empty(2, seg_len, B * S, M, dtype=torch.float32, device=dev)
+    # the four outputs are all the kernel writes: the history stays in registers
     dA = torch.empty(B, S, M, M, dtype=torch.float32, device=dev)
     de0, de1, dpi = (torch.empty(B, S, M, dtype=torch.float32, device=dev) for _ in range(3))
     with torch.cuda.device(dev):
         err = lib.lib.phlash_packed_backward(
-            ptr(A), ptr(emis0), ptr(emis1), ptr(obs), ptr(ckpt), ptr(gbar), B, S, L, seg_len,
-            ptr(hist), ptr(dA), ptr(de0), ptr(de1), ptr(dpi), stream(dev),
+            ptr(A), ptr(emis0), ptr(emis1), ptr(obs), ptr(ckpt), ptr(gbar), B, S, L,
+            ptr(dA), ptr(de0), ptr(de1), ptr(dpi), stream(dev),
         )
     check(lib, err, "packed_backward launch")
     backward_packed_cuda.launches += 1

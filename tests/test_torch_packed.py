@@ -195,6 +195,53 @@ def test_plain_adjoint_matches_autograd():
                                    atol=1e-10 * float(b.abs().max()), err_msg=name)
 
 
+@pytest.mark.parametrize("seg_len", [packed.DEFAULT_SEG, 256])
+def test_plain_adjoint_independent_of_spacing(seg_len):
+    """The dense residual: the plain adjoint's gradients at float64 do not
+    depend on the checkpoint spacing.  seg_len = DEFAULT_SEG (the CUDA
+    kernels' period) and 256 (segments of which the last is partial) agree
+    with one segment over the whole row (L = 300) to rtol 1e-12."""
+    A, e0, e1, pi, obs, gbar = _adjoint_case(L=300, seed=4)
+    grads = {}
+    for s in (seg_len, 300):
+        _, ckpt = packed.forward_packed(A, e0, e1, pi, obs, seg_len=s)
+        assert ckpt.shape == (packed.n_segments(300, s), B * 3, M)
+        grads[s] = packed.backward_packed(A, e0, e1, obs, ckpt, gbar, seg_len=s)
+    for name, a, b in zip(("A", "emis0", "emis1", "pi"), grads[seg_len], grads[300]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                   atol=1e-12 * float(b.abs().max()), err_msg=name)
+
+
+def test_period_and_states_per_lane():
+    """The kernels' mapping as csrc/packed_common.cuh states it: the
+    checkpoint period is DEFAULT_SEG, each kernel's states per lane give
+    groups of 4 to 16 lanes; at the fit shape (B=500, S=5) the forward runs
+    315 one-warp blocks and the adjoint 315 blocks of 4 warps.  The fit's
+    2000-site rows need no padding to the period."""
+    import re
+    from pathlib import Path
+
+    from phlash_tpu_torch.ops import smc
+
+    header = (Path(packed.__file__).parents[1] / "csrc" / "packed_common.cuh").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", header)}
+    assert const["PACKED_PERIOD"] == packed.DEFAULT_SEG
+    smc_header = (Path(packed.__file__).parents[1] / "csrc" / "smc_common.cuh").read_text()
+    per_block = int(re.search(r"INSTANCES_PER_BLOCK = (\d+);", smc_header).group(1))
+    geo = {}
+    for name in ("PACKED_FWD_SPL", "PACKED_BWD_SPL"):
+        lanes = M // const[name]
+        assert M % const[name] == 0 and 4 <= lanes <= 16 and lanes & (lanes - 1) == 0
+        geo[name] = smc.launch_geometry(500, 5, M, const[name], per_block)
+    assert geo["PACKED_FWD_SPL"] == dict(states_per_lane=4, lanes_per_instance=4,
+                                         instances_per_warp=8, threads_per_block=32,
+                                         blocks=315, warps=315)
+    assert geo["PACKED_BWD_SPL"] == dict(states_per_lane=1, lanes_per_instance=16,
+                                         instances_per_warp=2, threads_per_block=128,
+                                         blocks=315, warps=1260)
+    assert PackedKernel(M, np.zeros((1, 2000), np.int8)).data.shape == (1, 2000)
+
+
 def test_packed_op_gradcheck():
     "torch.autograd.gradcheck on PackedOp (forward with checkpoints, hand adjoint)."
     A, e0, e1, pi, obs, _ = _adjoint_case(L=13, seed=2)
@@ -347,6 +394,12 @@ REFUSALS = {
                         "float32"),
     "float32_cpu_to_cuda_wrapper": (lambda: packed.forward_packed_cuda(*_f32_case()),
                                     "CUDA tensors"),
+    # the kernels keep a checkpoint every DEFAULT_SEG sites, checked first
+    "forward_seg_len_not_the_period": (lambda: packed.forward_packed_cuda(
+        *_f32_case(), seg_len=256), "seg_len=256"),
+    "adjoint_seg_len_not_the_period": (lambda: packed.backward_packed_cuda(
+        *_f32_case()[:3], _f32_case()[4], torch.zeros(3, 3 * B, M), torch.zeros(B, 3),
+        seg_len=256), "seg_len=256"),
     "unknown_backend": (lambda: get_kernel(
         16, np.zeros((2, 16), np.int8), device="cpu", backend="pallas"), "unknown kernel backend"),
 }

@@ -23,11 +23,23 @@ Phases, each of which prints its own lines and aborts the run on failure:
    fit's own late inputs;
 4. the slice: phlash_tpu_torch.psmc on a seeded .psmcfa at 500 particles,
    S=5, chunks of 2000 + 500 overlap, 30 iterations (kernel_backend "smc"),
-   with the launch counters showing that only the SMC' CUDA kernels ran;
+   by the default CUDA graph replays of steps_per_call = 10 iterations with
+   the held-out ELPD fused into each call; the launch counters (which count
+   replays) must show exactly the expected launches of the SMC' CUDA
+   kernels (expected_counts) and nothing else;
 4b. the same with kernel_backend="packed" and overlap 0: only the packed
    CUDA kernels run;
-4c. ms per SVGD iteration of both paths, timed in turns (smc, packed,
-   packed, smc);
+4c. ms per SVGD iteration of both paths, eager (base_step) and graphed
+   (calls of 10), timed in turns (smc, packed, packed, smc), with each
+   graph's warm-up and capture time;
+4d. graphed against eager on both paths (and on the dense backend at a
+   small shape): from one state and one set of index rows, one graphed
+   10-iteration call with the ELPD against 10 eager base_steps and the
+   eager ELPD: identical indices, particles and amsgrad moments and the
+   ELPD within 1e-6 relative;
+4e. checkpoint/resume on the card: psmc(niter=20, checkpoint_path=...,
+   save_every=10), then the same with niter=30, against phase 4's
+   uninterrupted niter=30 fit, within 1e-6 relative;
 5. SMC' kernel (B1, B2, B3) times with their launch geometry, and plain
    times, at the fit shape B=500, S=5, L=2000, M=16; then B2 and B3 on the
    smc fit's own inputs (its initial particle cloud, and its particles
@@ -36,7 +48,10 @@ Phases, each of which prints its own lines and aborts the run on failure:
    kernels' launch geometry, then the packed kernels on the packed fit's
    own inputs (its initial particle cloud, and its particles after the
    timed steps).
-The last two lines are a JSON summary of the kernels and the result line.
+`--profile` also prints torch.profiler tables of eager and graphed steps
+of each path, with the device busy share.
+The last two lines are a JSON summary of the kernels (B1-B5) and the
+result line.
 It exits non-zero, printing no result, without a CUDA device or when the
 package is not beside it.
 """
@@ -283,29 +298,47 @@ def write_psmcfa(path: Path, n_contigs=4, windows=100_000):
                 f.write("".join(seq[lo: lo + 60]) + "\n")
 
 
+# (kernel_backend, overlap) of the two fit paths that phase 4 drives
+PATHS = (("smc", 500), ("packed", 0))
+NITER = 30  # SVGD iterations of the phase-4 fits
+SPC = 10  # steps_per_call, the CUDA default: one graph replay per 10 iterations
+SLICE = dict(num_particles=500, minibatch_size=5, chunk_size=2000)
+
+
+def expected_counts(backend: str) -> dict:
+    """Launches of a phase-4 fit: NITER iterations by graph replay, an ELPD
+    in each of the NITER / SPC calls (its cadence, 10 iterations, is one
+    call), and the eager warm-up iteration and ELPD before the one capture.
+    An smc iteration runs the warm-up filter and the likelihood, each B2 +
+    B3; its ELPD two B1.  A packed iteration runs B4 + B5, its ELPD one B4."""
+    steps, elpds = NITER + 1, NITER // SPC + 1
+    if backend == "smc":
+        return dict(forward_cuda=2 * steps + 2 * elpds, forward_cuda_residuals=2 * steps,
+                    backward_cuda=2 * steps, forward_plain=0, backward_plain=0)
+    return dict(forward_cuda=steps + elpds, backward_cuda=steps, forward_plain=0,
+                backward_plain=0)
+
+
 def run_slice(torch, ops, dev, path: Path, backend: str, overlap: int):
     """Phases 4 / 4b: the fit path through the public entry point with
     `backend`; ops maps backend -> its ops module (launch counters).  Returns
-    this backend's counts."""
+    this backend's counts and the models."""
     import phlash_tpu_torch
 
-    kw = dict(num_particles=500, minibatch_size=5, chunk_size=2000, overlap=overlap)
     for mod in ops.values():
         mod.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     models = phlash_tpu_torch.psmc([str(path)], device="cuda", kernel_backend=backend,
-                                   niter=30, **kw)
+                                   niter=NITER, overlap=overlap, **SLICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: mod.counts() for name, mod in ops.items()}
-    print(f"slice {backend}: psmc(niter=30, overlap={overlap}) took {wall:.2f} s; "
-          f"launch counts {counts}")
-    ours = counts[backend]
-    if ours["forward_cuda"] == 0 or ours["backward_cuda"] == 0:
-        fail(f"the {backend} fit did not launch both of its CUDA kernels")
-    if ours["forward_plain"] or ours["backward_plain"]:
-        fail(f"a plain version ran on the {backend} CUDA path")
+    print(f"slice {backend}: psmc(niter={NITER}, overlap={overlap}) took {wall:.2f} s "
+          f"(graph capture included); launch counts {counts}")
+    ours, want = counts[backend], expected_counts(backend)
+    if ours != want:
+        fail(f"the {backend} fit launched {ours}; expected {want}")
     if any(any(c.values()) for name, c in counts.items() if name != backend):
         fail(f"the {backend} fit launched another backend's kernels")
     if len(models) != 500:
@@ -317,26 +350,27 @@ def run_slice(torch, ops, dev, path: Path, backend: str, overlap: int):
     Ne = torch.stack([0.5 / m.eta.c for m in models])
     print(f"slice {backend}: 500 finite models; median Ne(t) over particles at M epochs: "
           f"{[f'{x:.4g}' for x in Ne.median(0).values.tolist()]}")
-    return ours
+    return ours, models
 
 
-# (kernel_backend, overlap) of the two fit paths that phase 4 drives
-PATHS = (("smc", 500), ("packed", 0))
-
-
-def build_program(torch, dev, path: Path, backend: str, overlap: int):
-    """One path's training program on the slice's data (the first contig
-    held out), and its chunks."""
+def build_program(torch, dev, path: Path, backend: str, overlap: int, num_particles=500,
+                  minibatch_size=5, chunk_size=2000, niter=NITER):
+    """One path's training program on the slice's data, the first contig held
+    out, its chunks, and the held-out ELPD on that contig."""
     from phlash_tpu_torch.data import RawContig, init_mcmc_data
+    from phlash_tpu_torch.mcmc import held_out_elpd
     from phlash_tpu_torch.training import build_training
 
-    contigs = list(RawContig.from_psmcfa_iter(str(path), 100))[1:]
-    afs, chunks = init_mcmc_data(contigs, 100, overlap, 2000)
+    held, *contigs = RawContig.from_psmcfa_iter(str(path), 100)
+    afs, chunks = init_mcmc_data(contigs, 100, overlap, chunk_size)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     prog = build_training(chunks, afs, window_size=100, overlap=overlap, device=dev,
                           generator=gen, kernel_backend=backend,
-                          options=dict(num_particles=500, minibatch_size=5, niter=30))
-    return prog, chunks
+                          options=dict(num_particles=num_particles,
+                                       minibatch_size=minibatch_size, niter=niter))
+    elpd = held_out_elpd(prog, held, span=int(chunks.shape[-1]), overlap=overlap,
+                         elpd_samples=None, device=dev, kernel_backend=backend)
+    return prog, chunks, elpd
 
 
 def packed_fit_inputs(torch, prog, chunks, dev):
@@ -373,16 +407,18 @@ def smc_fit_inputs(torch, prog, chunks, dev):
     return {"filter L=500": (params, pi0, warm), "likelihood L=2000": (params, pi1, data)}
 
 
-def time_steps(torch, prog, n: int = 20):
-    """n SVGD iterations of `prog` after 3 of warm-up, host clock: (ms per
-    iteration to the final synchronize, ms per iteration to enqueue them)."""
+def time_eager(torch, prog, gen, n: int = 20):
+    """n eager SVGD iterations (base_step) of `prog` after 3 of warm-up, host
+    clock: (ms per iteration to the final synchronize, ms per iteration to
+    enqueue them)."""
+    inds = torch.randint(prog.N, (n + 3, prog.S), generator=gen, device=prog.warmup.device)
     state = prog.state
-    for _ in range(3):
-        state = prog.step(state)
+    for row in inds[:3]:
+        state = prog.base_step(state, row)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n):
-        state = prog.step(state)
+    for row in inds[3:]:
+        state = prog.base_step(state, row)
     t_enqueued = time.perf_counter()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -390,29 +426,151 @@ def time_steps(torch, prog, n: int = 20):
     return (t1 - t0) / n * 1e3, (t_enqueued - t0) / n * 1e3
 
 
-def step_timing(torch, progs: dict, profile: bool) -> dict:
-    """Phase 4c: ms per SVGD iteration of each path's program, timed in
-    turns (smc, packed, packed, smc); the mean of the two turns per path."""
-    overlaps = dict(PATHS)
-    ms = {b: [] for b in progs}
-    for b in ("smc", "packed", "packed", "smc"):
-        total, enqueued = time_steps(torch, progs[b])
-        ms[b].append(total)
-        print(f"svgd step {b}: {total:.3f} ms/iter, enqueued in {enqueued:.3f} ms/iter "
-              f"(500 particles, S=5, chunk 2000 + {overlaps[b]}, mean of 20)")
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
+def time_graphed(torch, prog, gen, calls: int = 4):
+    """`calls` graphed calls of prog.steps_per_call iterations (prog.step)
+    after 2 of warm-up (the first captures): ms per iteration, to the final
+    synchronize and to enqueue."""
+    from phlash_tpu_torch.training import clone_state
 
+    k = prog.steps_per_call
+    inds = torch.randint(prog.N, (calls + 2, k, prog.S), generator=gen,
+                         device=prog.warmup.device)
+    state = prog.state
+    for rows in inds[:2]:
+        state, _ = prog.step(state, rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rows in inds[2:]:
+        state, _ = prog.step(state, rows)
+    t_enqueued = time.perf_counter()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prog.state = clone_state(state)
+    return (t1 - t0) / (calls * k) * 1e3, (t_enqueued - t0) / (calls * k) * 1e3
+
+
+def profile_steps(torch, prog, gen, b: str, graphed: bool):
+    """torch.profiler over 20 graphed iterations (2 calls) or 5 eager ones of
+    `prog`: the tables, and the device busy share (kernel and copy time on
+    the card over the host time of the window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    from phlash_tpu_torch.training import clone_state
+
+    k = prog.steps_per_call if graphed else 1
+    n_calls = 2 if graphed else 5
+    inds = torch.randint(prog.N, (n_calls, k, prog.S), generator=gen,
+                         device=prog.warmup.device)
+    state = prog.state
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        for rows in inds:
+            state = prog.step(state, rows)[0] if graphed else prog.base_step(state, rows[0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prog.state = clone_state(state)
+    events = p.events()
+    dev_ms = sum(e.time_range.elapsed_us() for e in events
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    launches = {name: sum(e.name == name for e in events)
+                for name in ("cudaLaunchKernel", "cudaGraphLaunch")}
+    what = "graphed" if graphed else "eager"
+    iters = n_calls * k
+    print(f"profile of {iters} {what} SVGD iterations, {b}: device time {dev_ms / iters:.3f} ms "
+          f"an iteration, wall {wall / iters:.3f} ms an iteration, device busy share "
+          f"{dev_ms / wall:.3f}; host calls {launches}")
+    print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    print(p.key_averages().table(sort_by="self_cpu_time_total", row_limit=12))
+
+
+def step_timing(torch, progs: dict, profile: bool) -> dict:
+    """Phase 4c: ms per SVGD iteration of each path's program, eager and
+    graphed, timed in turns (smc, packed, packed, smc); the mean of the two
+    turns per path and mode."""
+    overlaps = dict(PATHS)
+    gen = torch.Generator(device=next(iter(progs.values())).warmup.device).manual_seed(SEED + 6)
+    ms = {(b, mode): [] for b in progs for mode in ("eager", "graphed")}
+    for b in ("smc", "packed", "packed", "smc"):
+        for mode, timer in (("eager", time_eager), ("graphed", time_graphed)):
+            total, enqueued = timer(torch, progs[b], gen)
+            ms[(b, mode)].append(total)
+            print(f"svgd step {b} {mode}: {total:.3f} ms/iter, enqueued in {enqueued:.3f} "
+                  f"ms/iter (500 particles, S=5, chunk 2000 + {overlaps[b]})")
+    for b, prog in progs.items():
+        for (k, with_elpd), sec in prog.step.setup_seconds.items():
+            print(f"graph setup {b} ({k} iterations, ELPD {with_elpd}): warm-up "
+                  f"{sec['warmup']:.3f} s, capture and instantiation {sec['capture']:.3f} s")
+    if profile:
         for b, prog in progs.items():
-            state = prog.state
-            with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-                for _ in range(5):
-                    state = prog.step(state)
-                torch.cuda.synchronize()
-            print(f"profile of 5 SVGD steps, {b}:")
-            print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-            print(p.key_averages().table(sort_by="self_cpu_time_total", row_limit=12))
-    return {b: sum(v) / len(v) for b, v in ms.items()}
+            for graphed in (False, True):
+                profile_steps(torch, prog, gen, b, graphed)
+    return {key: sum(v) / len(v) for key, v in ms.items()}
+
+
+def graphed_vs_eager(torch, prog, elpd, label: str, seed: int) -> dict:
+    """Phase 4d: one graphed call of prog.steps_per_call iterations with the
+    ELPD (a fresh Caller: warm-up, capture, replay) against as many eager
+    base_steps and the eager ELPD, from one state and one set of index rows.
+    Returns the largest relative errors."""
+    from phlash_tpu_torch.training import Caller, clone_state
+
+    dev = prog.warmup.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k = prog.steps_per_call
+    inds = torch.randint(prog.N, (k, prog.S), generator=gen, device=dev)
+    elpd_inds = elpd.draw(gen)
+    start = clone_state(prog.state)
+    caller = Caller(prog.base_step, elpd)
+    g_state, g_elpd = caller(clone_state(start), inds, elpd_inds)
+    graph = caller.graphs[(k, True)]
+    e_state = clone_state(start)
+    for row in inds:
+        e_state = prog.base_step(e_state, row)
+    e_elpd = elpd(e_state.particles, elpd_inds)
+    torch.cuda.synchronize()
+    if not (torch.equal(graph.inds, inds) and torch.equal(graph.elpd_inds, elpd_inds)):
+        fail(f"graphed call {label}: the graph's index buffers differ from the eager indices")
+    names = ("particles", "mu", "nu", "nu_max")
+    errs = {n: max_rel(a, b) for n, a, b in zip(names, g_state.tensors(), e_state.tensors())}
+    errs["elpd"] = max_rel(g_elpd, e_elpd)
+    bitwise = all(torch.equal(a, b) for a, b in zip(g_state.tensors(), e_state.tensors()))
+    sec = caller.setup_seconds[(k, True)]
+    print(f"graphed vs eager {label}: {k} iterations, count {int(g_state.opt_state.count)} / "
+          f"{int(e_state.opt_state.count)}; max rel err "
+          + ", ".join(f"{n} {v:.3e}" for n, v in errs.items())
+          + f"; state bitwise equal: {bitwise}; ELPD {float(g_elpd):.6f} / {float(e_elpd):.6f}; "
+          f"warm-up {sec['warmup']:.3f} s, capture and instantiation {sec['capture']:.3f} s")
+    if not torch.equal(g_state.opt_state.count, e_state.opt_state.count):
+        fail(f"graphed call {label}: the amsgrad count differs")
+    if not max(errs.values()) <= 1e-6:
+        fail(f"graphed call {label} disagrees with the eager steps: {errs}")
+    return errs
+
+
+def resume_check(torch, path: Path, tmp: str, want_models) -> float:
+    """Phase 4e: psmc(niter=20) with a checkpoint every 10 iterations, then
+    the same call with niter=30, against phase 4's uninterrupted niter=30
+    fit (`want_models`): largest relative error of the returned models."""
+    import phlash_tpu_torch
+
+    ck = str(Path(tmp) / "resume.npz")
+    kw = dict(device="cuda", kernel_backend="smc", overlap=500, checkpoint_path=ck,
+              save_every=10, **SLICE)
+    t0 = time.perf_counter()
+    phlash_tpu_torch.psmc([str(path)], niter=20, **kw)
+    got = phlash_tpu_torch.psmc([str(path)], niter=NITER, **kw)
+    wall = time.perf_counter() - t0
+    err = max(max(max_rel(g.eta.c, w.eta.c), max_rel(g.eta.t, w.eta.t))
+              for g, w in zip(got, want_models))
+    same = all(torch.equal(g.eta.c, w.eta.c) for g, w in zip(got, want_models))
+    print(f"resume: psmc(niter=20, save_every=10) then psmc(niter={NITER}) against the "
+          f"uninterrupted fit: max rel err {err:.3e} over eta.c and eta.t, bitwise equal: "
+          f"{same} ({wall:.2f} s)")
+    if len(got) != len(want_models) or not err <= 1e-6:
+        fail("the resumed fit differs from the uninterrupted one")
+    return err
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -470,6 +628,7 @@ def kernel_timing(torch, smc, dev, fit_inputs: dict):
     _, _, ps_p = smc.forward_structured(params, pi, obs, True)
     t = {
         "fwd_plain": time_ms(torch, lambda: smc.forward_structured(params, pi, obs, False), 2),
+        "fwd_res_plain": time_ms(torch, lambda: smc.forward_structured(params, pi, obs, True), 2),
         "bwd_plain": time_ms(
             torch, lambda: smc.backward_structured(params, obs, ps_p, gbar, abar0), 2),
         "fwd_grad_plain": time_ms(torch, lambda: smc.backward_structured(
@@ -490,8 +649,8 @@ def kernel_timing(torch, smc, dev, fit_inputs: dict):
     print(f"timing at B={B} S={S} L={L} M={M} (float32); bounds: B1 {t['fwd_bound'][0]:.4f} ms "
           f"({t['fwd_bound'][1]}), B2 {t['fwd_res_bound'][0]:.4f} ms ({t['fwd_res_bound'][1]}), "
           f"B3 {t['bwd_bound'][0]:.4f} ms ({t['bwd_bound'][1]})")
-    print(f"  plain: forward {t['fwd_plain']:.2f} ms, adjoint {t['bwd_plain']:.2f} ms, "
-          f"forward + adjoint {t['fwd_grad_plain']:.2f} ms")
+    print(f"  plain: forward {t['fwd_plain']:.2f} ms, with residuals {t['fwd_res_plain']:.2f} ms, "
+          f"adjoint {t['bwd_plain']:.2f} ms, forward + adjoint {t['fwd_grad_plain']:.2f} ms")
     _, _, ps = smc.forward_cuda(params, pi, obs, True)
     t["fwd"] = time_ms(torch, lambda: smc.forward_cuda(params, pi, obs, False), 20)
     t["fwd_res"] = time_ms(torch, lambda: smc.forward_cuda(params, pi, obs, True), 20)
@@ -587,11 +746,10 @@ def packed_timing(torch, packed, dev, fit_inputs: dict):
     return t
 
 
-def kernel_entry(name, route, source, replaces, launches, errs, gate, t):
-    "One kernel of the JSON summary line."
-    ms_bound, by = t["fwd_bound"] if name.endswith("forward") else t["bwd_bound"]
-    key = "fwd" if name.endswith("forward") else "bwd"
-    return {"name": name, "route": route, "source": source, "replaces": replaces,
+def kernel_entry(name, source, replaces, launches, errs, gate, t, key):
+    "One kernel of the JSON summary line; `key` names its times in `t`."
+    ms_bound, by = t[key + "_bound"]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **errs, "gate": gate, "ms": t[key],
             "plain_ms": t[key + "_plain"], "bound_ms": ms_bound, "bound_by": by,
             "library_ms": None}
@@ -619,6 +777,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true", help="profile 5 SVGD steps of each path")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not (ROOT / "phlash_tpu_torch" / "csrc").is_dir():
         fail(f"phlash_tpu_torch/ not found beside {Path(__file__).name}; run from a checkout")
     sys.path.insert(0, str(ROOT))
@@ -657,21 +816,33 @@ def main() -> int:
     errs = check_kernels(torch, smc, dev)
     perrs = check_packed_kernels(torch, packed, dev)
 
-    # 4. the slice, once per hand-kernel backend
+    # 4. the slice, once per hand-kernel backend, by graph replays
     ops = {"smc": smc, "packed": packed}
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
         path = Path(tmp) / "smoke.psmcfa"
         write_psmcfa(path)
-        counts, pcounts = (run_slice(torch, ops, dev, path, b, ov) for b, ov in PATHS)
+        (counts, smc_models), (pcounts, _) = (run_slice(torch, ops, dev, path, b, ov)
+                                              for b, ov in PATHS)
         built = {b: build_program(torch, dev, path, b, ov) for b, ov in PATHS}
-        fit_inputs = {"initial cloud": packed_fit_inputs(torch, *built["packed"], dev)}
+        fit_inputs = {"initial cloud": packed_fit_inputs(torch, *built["packed"][:2], dev)}
         smc_inputs = {f"initial cloud, {k}": v
-                      for k, v in smc_fit_inputs(torch, *built["smc"], dev).items()}
-        step_ms = step_timing(torch, {b: prog for b, (prog, _) in built.items()}, args.profile)
-        packed_late = {"after the timed steps": packed_fit_inputs(torch, *built["packed"], dev)}
+                      for k, v in smc_fit_inputs(torch, *built["smc"][:2], dev).items()}
+        # 4c. eager and graphed steps in turns
+        step_ms = step_timing(torch, {b: prog for b, (prog, _, _) in built.items()}, args.profile)
+        # 4d. graphed against eager: both paths, and the dense backend small
+        for i, (b, (prog, _, elpd)) in enumerate(built.items()):
+            graphed_vs_eager(torch, prog, elpd, b, SEED + 10 + i)
+        dense, _, dense_elpd = build_program(torch, dev, path, "dense", 50, num_particles=16,
+                                             minibatch_size=2, chunk_size=200, niter=2)
+        graphed_vs_eager(torch, dense, dense_elpd, "dense (16 particles, S=2, chunk 200 + 50)",
+                         SEED + 12)
+        # 4e. checkpoint/resume
+        resume_check(torch, path, tmp, smc_models)
+        packed_late = {"after the timed steps": packed_fit_inputs(torch, *built["packed"][:2],
+                                                                  dev)}
         fit_inputs.update(packed_late)
         late = {f"after the timed steps, {k}": v
-                for k, v in smc_fit_inputs(torch, *built["smc"], dev).items()}
+                for k, v in smc_fit_inputs(torch, *built["smc"][:2], dev).items()}
 
     # 3 and 3b, continued: each pair on its fit's late inputs
     check_fit_inputs(torch, smc, dev, late, errs)
@@ -683,31 +854,36 @@ def main() -> int:
 
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:
         fail("JAX or phlash_tpu was imported")
-    print(f"svgd_step_ms_per_iter: smc {step_ms['smc']:.3f} packed {step_ms['packed']:.3f}")
+    print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s before its summary")
+    print("svgd_step_ms_per_iter: " + " ".join(f"{b} {mode} {v:.3f}"
+                                                for (b, mode), v in step_ms.items()))
     src = "phlash_tpu_torch/csrc/"
+    smc_fwd = {"max_abs_err": errs["forward"]["abs"], "max_rel_err_ll": errs["forward"]["ll"],
+               "max_rel_err_alpha_pstates": errs["forward"]["state"]}
+    smc_gate = "rel: ll 1e-5, alpha and pstates 1e-4; B1 equal to B2 bitwise"
     print(json.dumps({"kernels": [
-        kernel_entry("smc_forward", "cuda", src + "smc_forward.cu",
-                     "phlash_tpu/ops/pallas_smc.py:358", counts["forward_cuda"],
-                     {"max_abs_err": errs["forward"]["abs"],
-                      "max_rel_err_ll": errs["forward"]["ll"],
-                      "max_rel_err_alpha_pstates": errs["forward"]["state"]},
-                     "rel: ll 1e-5, alpha and pstates 1e-4", t),
-        kernel_entry("smc_backward", "cuda", src + "smc_backward.cu",
-                     "phlash_tpu/ops/pallas_smc.py:511", counts["backward_cuda"],
+        kernel_entry("smc_forward", src + "smc_forward.cu", "phlash_tpu/ops/pallas_smc.py:358",
+                     counts["forward_cuda"] - counts["forward_cuda_residuals"], smc_fwd,
+                     smc_gate, t, "fwd"),
+        kernel_entry("smc_forward_residuals", src + "smc_forward.cu",
+                     "phlash_tpu/ops/pallas_smc.py:358", counts["forward_cuda_residuals"],
+                     smc_fwd, smc_gate, t, "fwd_res"),
+        kernel_entry("smc_backward", src + "smc_backward.cu", "phlash_tpu/ops/pallas_smc.py:511",
+                     counts["backward_cuda"],
                      {"max_abs_err": errs["backward"]["abs"],
                       "max_normalized_err": errs["backward"]["grad"]},
-                     "max|err| / max|plain| per gradient 2e-5", t),
-        kernel_entry("packed_forward", "cuda", src + "packed_forward.cu",
+                     "max|err| / max|plain| per gradient 2e-5", t, "bwd"),
+        kernel_entry("packed_forward", src + "packed_forward.cu",
                      "phlash_tpu/ops/pallas_hmm.py:162", pcounts["forward_cuda"],
                      {"max_abs_err": perrs["forward"]["abs"],
                       "max_rel_err_ll": perrs["forward"]["ll"],
                       "max_rel_err_ckpt": perrs["forward"]["ckpt"]},
-                     "rel: ll 1e-5, ckpt 1e-4", pt),
-        kernel_entry("packed_backward", "cuda", src + "packed_backward.cu",
+                     "rel: ll 1e-5, ckpt 1e-4", pt, "fwd"),
+        kernel_entry("packed_backward", src + "packed_backward.cu",
                      "phlash_tpu/ops/pallas_hmm_vjp.py:155", pcounts["backward_cuda"],
                      {"max_abs_err": perrs["backward"]["abs"],
                       "max_normalized_err": perrs["backward"]["grad"]},
-                     "max|err| / max|plain| per gradient 2e-5", pt),
+                     "max|err| / max|plain| per gradient 2e-5", pt, "bwd"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,20 +1,34 @@
 """SVGD posterior sampling: `fit(data, test_data, **options)`.
 
-Port of phlash_tpu/mcmc.py:66-413 for one device and one SVGD iteration per
-call: the chunk cap, the iteration loop, the periodic finiteness check,
-the held-out ELPD (an exponential moving average over evaluations every 10
-iterations, with `elpd_cutoff` iterations of patience) and the return of
-the best-ELPD particles (or the last ones with `return_final=True`).
+Port of phlash_tpu/mcmc.py:66-413 for one device: the chunk cap, the loop of
+calls of `steps_per_call` SVGD iterations (CUDA graph replays on CUDA, see
+training.Caller; the final call may be partial), the periodic finiteness
+check, the held-out ELPD fused into the call (an exponential moving average
+over evaluations every 10 iterations, with `elpd_cutoff` iterations of
+patience), checkpoint/resume with the asynchronous writer, the StepMeter
+summary, and the return of the best-ELPD particles (or the last ones with
+`return_final=True`).  With steps_per_call > 1 the periodic cadences
+(finiteness, ELPD, checkpoint) land on the first call at or after their
+scheduled iteration, and the best state pairs the call's first iteration
+with the particles after the call, as in phlash_tpu.
 
 Options with the JAX defaults: niter, num_particles, window_size, overlap,
 chunk_size, minibatch_size, learning_rate, sigma, theta, mutation_rate,
 pattern, t1, tM, rho_over_theta, alpha, beta, elpd_cutoff, elpd_samples,
-return_final.  New in the port: device (default "cuda"; no
-card means an error, never a CPU fallback), seed (seeds the
-torch.Generator) and kernel_backend, the likelihood algorithm: "smc" (the
-default; phlash_tpu's "pallas"), "packed" (phlash_tpu's "pallas_mxu"; needs
-overlap=0) or "dense" (phlash_tpu's "dense"); see kernel.py.  The device
-decides between the hand CUDA kernels and their plain versions.
+return_final, steps_per_call (10 on CUDA, 1 on the CPU), check_every (10),
+checkpoint_path, save_every (50) and progress (True; a tqdm bar when tqdm
+imports).  New in the port: device (default "cuda"; no card means an
+error, never a CPU fallback), seed and kernel_backend, the likelihood
+algorithm: "smc" (the default; phlash_tpu's "pallas"), "packed"
+(phlash_tpu's "pallas_mxu"; needs overlap=0) or "dense" (phlash_tpu's
+"dense"); see kernel.py.  The device decides between the hand CUDA kernels
+and their plain versions.
+
+`seed` seeds two torch.Generators on the device: the step's (the initial
+cloud and every call's minibatch indices) with `seed` itself, and the
+held-out ELPD's (its chunk subsets) with a seed derived from `seed` and
+ELPD_STREAM.  So the ELPD cadence leaves the step stream alone, as
+phlash_tpu's fold_in does, and a checkpoint stores both generators' states.
 Options of phlash_tpu.fit that this port does not implement raise
 NotImplementedError when set.
 """
@@ -22,15 +36,25 @@ NotImplementedError when set.
 from __future__ import annotations
 
 import logging
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from phlash_tpu_torch.checkpoint import AsyncCheckpointWriter, TrainCheckpoint, load_checkpoint
 from phlash_tpu_torch.data import RawContig, chunk_het_matrix, init_mcmc_data
 from phlash_tpu_torch.kernel import check_backend, get_kernel, resolve_device
 from phlash_tpu_torch.model import log_density_batched
+from phlash_tpu_torch.params import MCMCParams
+from phlash_tpu_torch.profiling import StepMeter
 from phlash_tpu_torch.size_history import DemographicModel, SizeHistory
-from phlash_tpu_torch.training import TrainingProgram, build_training, resolve_minibatch_size
+from phlash_tpu_torch.training import (
+    Caller,
+    TrainingProgram,
+    build_training,
+    clone_state,
+    resolve_minibatch_size,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -38,18 +62,20 @@ _OPTIONS = {
     "niter", "num_particles", "window_size", "overlap", "chunk_size", "minibatch_size",
     "learning_rate", "sigma", "theta", "mutation_rate", "pattern", "t1", "tM",
     "rho_over_theta", "alpha", "beta", "elpd_cutoff", "elpd_samples", "return_final",
+    "steps_per_call", "check_every", "checkpoint_path", "save_every", "progress",
 }
 # phlash_tpu.fit options without a counterpart here, with the value that
 # means "off" (which is accepted)
 _NOT_IMPLEMENTED = {
-    "checkpoint_path": None, "save_every": None, "mesh": None, "steps_per_call": 1,
-    "kernel_seg_len": None, "callback": None, "double_precision": False,
+    "mesh": None, "kernel_seg_len": None, "callback": None, "double_precision": False,
     "double_precision_params": False, "truth": None, "key": None, "num_workers": 1,
-    "max_samples": None, "afs_transform": None, "init": None, "check_every": None,
-    "progress": False,
+    "max_samples": None, "afs_transform": None, "init": None,
 }
 CHECK_EVERY = 10  # iterations between finiteness checks (each one syncs the device)
+ELPD_EVERY = 10  # iterations between held-out ELPD evaluations
+SAVE_EVERY = 50  # iterations between checkpoint saves
 MAX_SAMPLES = 20  # held-out rows used for the ELPD (phlash_tpu's max_samples default)
+ELPD_STREAM = 0x0E1D  # derives the ELPD generator's seed (phlash_tpu's fold_in constant)
 
 
 def _check_options(options: dict) -> None:
@@ -63,6 +89,13 @@ def _check_options(options: dict) -> None:
             hint = " (use seed=)" if k == "key" else ""
             raise NotImplementedError(f"fit option {k}={v!r} is not implemented{hint}")
         raise TypeError(f"fit got an unknown option {k!r}")
+
+
+def generators(seed: int, device: torch.device) -> tuple[torch.Generator, torch.Generator]:
+    "(step generator, ELPD generator) of a fit: see the module docstring."
+    elpd_seed = int(np.random.SeedSequence([seed, ELPD_STREAM]).generate_state(1)[0])
+    return (torch.Generator(device=device).manual_seed(seed),
+            torch.Generator(device=device).manual_seed(elpd_seed))
 
 
 def _models(prog: TrainingProgram, particles: torch.Tensor) -> list[DemographicModel]:
@@ -80,19 +113,89 @@ def _models(prog: TrainingProgram, particles: torch.Tensor) -> list[DemographicM
     ]
 
 
+@dataclass
+class HeldOutELPD:
+    """The held-out ELPD (phlash_tpu/mcmc.py:136-198): the held-out rows are
+    chunked like the training data, and each evaluation visits `S` of the
+    `N` chunks, drawn afresh by `draw` (all of them when S == N).
+    `self(particles, inds)` is the mean held-out log density over the
+    particles, a 0-d tensor, through the forward kernel alone; it runs
+    inside a captured call, so it reads nothing back to the host."""
+
+    init: MCMCParams
+    kern: object
+    warmup: torch.Tensor  # (N, overlap) int8
+    afs: torch.Tensor | None
+    afs_transform: torch.Tensor | None
+    N: int
+    S: int
+
+    def draw(self, generator: torch.Generator) -> torch.Tensor:
+        "The (S,) chunk indices of one evaluation, without replacement."
+        dev = self.warmup.device
+        if self.S == self.N:
+            return torch.arange(self.N, device=dev)
+        return torch.randperm(self.N, generator=generator, device=dev)[: self.S]
+
+    def __call__(self, particles: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():  # forward kernel only, no residuals
+            return log_density_batched(
+                self.init.unflatten(particles), c=(0.0, 1.0, 1.0), inds=inds,
+                warmup=self.warmup[inds], kern=self.kern, afs=self.afs,
+                afs_transform=self.afs_transform,
+            ).mean()
+
+
+def held_out_elpd(prog: TrainingProgram, test_data: RawContig, *, span: int, overlap: int,
+                  elpd_samples: int | None, device, kernel_backend: str) -> HeldOutELPD:
+    """The held-out ELPD of `test_data` for `prog`, whose chunks span `span`
+    columns; elpd_samples chunks an evaluation (default max(S, 4))."""
+    d = test_data.get_data(prog.window_size)
+    test_afs = None
+    if d["afs"] is not None:
+        test_afs = torch.as_tensor(np.asarray(d["afs"]), dtype=torch.float32, device=device)
+    test_chunks = chunk_het_matrix(d["het_matrix"][:MAX_SAMPLES], overlap=overlap,
+                                   chunk_size=span - overlap)
+    N = len(test_chunks)
+    T = None
+    if test_afs is not None and prog.afs_transform is not None:
+        if prog.afs_transform.shape[1] == len(test_afs):
+            T = prog.afs_transform
+    return HeldOutELPD(
+        init=prog.init,
+        kern=get_kernel(M=prog.init.M, data=np.ascontiguousarray(test_chunks[:, overlap:]),
+                        device=device, backend=kernel_backend),
+        warmup=torch.as_tensor(np.ascontiguousarray(test_chunks[:, :overlap]),
+                               dtype=torch.int8, device=device),
+        afs=test_afs, afs_transform=T, N=N,
+        S=min(N, int(elpd_samples or max(prog.S, 4))),
+    )
+
+
+def _progress(calls, enabled: bool):
+    "A tqdm bar over the calls when tqdm imports, else the calls."
+    try:
+        import tqdm.auto as tqdm
+    except ImportError:
+        return calls
+    return tqdm.tqdm(calls, disable=not enabled, desc="fitting model")
+
+
 def fit(data: list[RawContig], test_data: RawContig = None, *, device="cuda", seed: int = 1,
         kernel_backend: str = None, **options) -> list[DemographicModel]:
     """Sample demographic models from the posterior.
 
     Returns one DemographicModel per particle, rescaled to per-base-pair
     rates (and to generations when mutation_rate is given).  With
-    `test_data`, the particles of the iteration with the best held-out ELPD
-    are returned unless `return_final=True`.
+    `test_data`, the particles of the call with the best held-out ELPD are
+    returned unless `return_final=True`.  With `checkpoint_path`, the state
+    is saved every `save_every` iterations and at the end, and a run
+    restarted with the same arguments resumes at the saved iteration.
     """
     _check_options(options)
     kernel_backend = check_backend(kernel_backend, options.get("overlap", 500))
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen, elpd_gen = generators(seed, dev)
     niter = options.get("niter", 1000)
     window_size = options.get("window_size", 100)
     overlap = options.get("overlap", 500)
@@ -113,61 +216,90 @@ def fit(data: list[RawContig], test_data: RawContig = None, *, device="cuda", se
                           options=options, device=dev, generator=gen,
                           kernel_backend=kernel_backend)
     state = prog.state
-
-    elpd_cutoff = options.get("elpd_cutoff", 100)
+    call, elpd = prog.step, None
     if test_data is not None:
-        d = test_data.get_data(window_size)
-        test_afs = None
-        if d["afs"] is not None:
-            test_afs = torch.as_tensor(np.asarray(d["afs"]), dtype=torch.float32, device=dev)
-        het = d["het_matrix"][:MAX_SAMPLES]
-        # chunk the held-out rows like the training data; each evaluation
-        # visits a fresh random subset of `elpd_samples` chunks
-        span = int(chunks.shape[-1])
-        test_chunks = chunk_het_matrix(het, overlap=overlap, chunk_size=span - overlap)
-        N_test = len(test_chunks)
-        S_elpd = min(N_test, int(options.get("elpd_samples", max(prog.S, 4))))
-        test_kern = get_kernel(M=prog.init.M, data=np.ascontiguousarray(test_chunks[:, overlap:]),
-                               device=dev, backend=kernel_backend)
-        test_warmup = torch.as_tensor(np.ascontiguousarray(test_chunks[:, :overlap]),
-                                      dtype=torch.int8, device=dev)
-        test_T = None
-        if test_afs is not None and prog.afs_transform is not None:
-            if prog.afs_transform.shape[1] == len(test_afs):
-                test_T = prog.afs_transform
+        elpd = held_out_elpd(prog, test_data, span=int(chunks.shape[-1]), overlap=overlap,
+                             elpd_samples=options.get("elpd_samples"), device=dev,
+                             kernel_backend=kernel_backend)
+        call = Caller(prog.base_step, elpd)
 
-        def elpd(particles: torch.Tensor) -> float:
-            if S_elpd == N_test:
-                inds = torch.arange(N_test, device=dev)
-            else:
-                inds = torch.randperm(N_test, generator=gen, device=dev)[:S_elpd]
-            with torch.no_grad():  # forward kernel only, no residuals
-                return float(log_density_batched(
-                    prog.init.unflatten(particles), c=(0.0, 1.0, 1.0), inds=inds,
-                    warmup=test_warmup[inds], kern=test_kern, afs=test_afs,
-                    afs_transform=test_T,
-                ).mean())
+    spc = prog.steps_per_call
+    elpd_cutoff = options.get("elpd_cutoff", 100)
+    check_every = options.get("check_every", CHECK_EVERY)
+    ckpt_path = options.get("checkpoint_path")
+    save_every = options.get("save_every", SAVE_EVERY)
+    start, ema, best = 0, None, None  # best = (iteration, ema, state snapshot)
+    writer = None
+    if ckpt_path:
+        writer = AsyncCheckpointWriter()
+        resumed = load_checkpoint(ckpt_path, state)
+        if resumed is not None:
+            state, start, ema = resumed.state, resumed.step, resumed.ema
+            for g, s in zip((gen, elpd_gen), resumed.rng_states):
+                g.set_state(s)
+            if resumed.best_state is not None:
+                best = (resumed.best_step, resumed.best_ema, resumed.best_state)
+            if start % spc:
+                logger.warning("resuming from iteration %d, which is not a multiple of "
+                               "steps_per_call=%d; call boundaries realign from there",
+                               start, spc)
 
-    ema, best = None, None  # best = (iteration, ema, particles)
-    next_check = next_elpd = 0
-    for i in range(niter):
-        new_state = prog.step(state)
-        if i >= next_check or i + 1 >= niter:
-            next_check = i + CHECK_EVERY
-            if not bool(torch.isfinite(new_state.particles).all()):
+    def train_checkpoint(step: int) -> TrainCheckpoint:
+        return TrainCheckpoint(
+            step=step, state=state, rng_states=(gen.get_state(), elpd_gen.get_state()), ema=ema,
+            best_step=best[0] if best else step, best_ema=best[1] if best else None,
+            best_state=best[2] if best else None,
+        )
+
+    meter = StepMeter(sites_per_step=float(prog.S) * len(state.particles)
+                      * int(prog.kern.data.shape[-1]))
+    pbar = _progress(range(start, niter, spc), options.get("progress", True))
+    patience = 0
+    next_check = next_elpd = start
+    next_save = start + save_every
+    last, saved_at = start, None
+    for i in pbar:
+        k = min(spc, niter - i)  # the final call may be partial
+        inds = torch.randint(prog.N, (k, prog.S), generator=gen, device=dev)
+        want_elpd = elpd is not None and i >= next_elpd
+        state, e_dev = call(state, inds, elpd.draw(elpd_gen) if want_elpd else None)
+        if i >= next_check or i + k >= niter:
+            next_check = i + check_every
+            if not bool(torch.isfinite(state.particles).all()):
                 raise RuntimeError(f"non-finite particles at iteration {i}")
-        state = new_state
-        if test_data is not None and i >= next_elpd:
-            next_elpd = i + 10
-            e = elpd(state.particles)
+        meter.tick(k)
+        last = i + k
+        stop = False
+        if want_elpd:
+            next_elpd = i + ELPD_EVERY
+            e = float(e_dev)
             ema = e if ema is None else 0.9 * ema + 0.1 * e
             if best is None or ema > best[1]:
-                best = (i, ema, state.particles)
-            if i - best[0] > elpd_cutoff:
-                logger.info("ELPD has not improved in %d iterations; stopping early", elpd_cutoff)
-                break
+                patience = 0
+                best = (i, ema, clone_state(state))
+            else:
+                patience += 1
+            stop = i - best[0] > elpd_cutoff
+            if hasattr(pbar, "set_description"):
+                pbar.set_description(f"elpd={ema:.2f} patience={patience}")
+        # saved after the call's ELPD, so that the saved ema and best state
+        # go with the saved state (a resume then evaluates at its first call)
+        if writer is not None and last >= next_save:
+            next_save = last + save_every
+            saved_at = last
+            writer.save(ckpt_path, train_checkpoint(last))  # snapshots at hand-off
+        if stop:
+            logger.info("ELPD has not improved in %d iterations; stopping early", elpd_cutoff)
+            break
+    if writer is not None:
+        if last != saved_at and last > start:
+            # leave the run's final state on disk, so that a rerun with the
+            # same arguments resumes at niter and takes no step
+            writer.save(ckpt_path, train_checkpoint(last))
+        writer.wait()
+    logger.info("fit finished: %s", meter.summary())
     particles = state.particles
     if best is not None and not options.get("return_final", False):
         logger.info("returning best-ELPD state from iteration %d", best[0])
-        particles = best[2]
+        particles = best[2].particles
     return _models(prog, particles)

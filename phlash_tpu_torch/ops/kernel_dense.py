@@ -59,7 +59,10 @@ def forward_ll_dense(pp: PSMCParams, obs: torch.Tensor, seg_len: int = 512):
     for lo in range(0, obs.shape[1], seg_len):
         seg = obs[:, lo: lo + seg_len]
         if torch.is_grad_enabled():
-            alpha, ll = checkpoint(_segment, A, emis, alpha, ll, seg, use_reentrant=False)
+            # the segment draws no random numbers, so there is no generator
+            # state to keep (reading it is not allowed in a CUDA graph capture)
+            alpha, ll = checkpoint(_segment, A, emis, alpha, ll, seg, use_reentrant=False,
+                                   preserve_rng_state=False)
         else:
             alpha, ll = _segment(A, emis, alpha, ll, seg)
     return alpha, ll

@@ -29,7 +29,8 @@ Shapes, shared by both versions:
 Dispatch: `forward` / `backward` launch the CUDA kernel for CUDA tensors and
 take the plain version for CPU tensors; there is no other path and no
 fallback.  Every wrapper counts what it ran (`.launches` on the CUDA
-wrappers, `.calls` on the plain versions); `reset_counts` zeroes them.
+wrappers, `.calls` on the plain versions); `reset_counts` zeroes them, and
+`add_counts` adds what a CUDA graph replay launched (see ops/smc.py).
 
 Kernel design note (csrc/packed_common.cuh, packed_forward.cu,
 packed_backward.cu).
@@ -285,6 +286,14 @@ def counts() -> dict:
         forward_cuda=forward_packed_cuda.launches, backward_cuda=backward_packed_cuda.launches,
         forward_plain=forward_packed.calls, backward_plain=backward_packed.calls,
     )
+
+
+def add_counts(n: dict) -> None:
+    "Add `n`, a dict as counts() gives it, to the counters."
+    forward_packed_cuda.launches += n["forward_cuda"]
+    backward_packed_cuda.launches += n["backward_cuda"]
+    forward_packed.calls += n["forward_plain"]
+    backward_packed.calls += n["backward_plain"]
 
 
 reset_counts()

@@ -24,7 +24,11 @@ Shapes, shared by both versions:
 Dispatch: `forward` / `backward` launch the CUDA kernel for CUDA tensors
 and take the plain version for CPU tensors; there is no other path and no
 fallback.  Every wrapper counts what it ran (`.launches` on the CUDA
-wrappers, `.calls` on the plain versions); `reset_counts` zeroes them.
+wrappers, `.calls` on the plain versions; `forward_cuda.residual_launches`
+the forward launches that kept residuals, B2); `reset_counts` zeroes them.
+A wrapper counts when Python calls it, so a CUDA graph replay, which calls
+no wrapper, adds what its capture counted through `add_counts`
+(training.Caller does).
 
 Kernel design note (csrc/smc_common.cuh, smc_forward.cu, smc_backward.cu).
 * Replaces: B1/B2 = pallas_smc.forward_structured (with_residuals False /
@@ -230,6 +234,7 @@ def forward_cuda(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bo
         )
     check(lib, err, "smc_forward launch")
     forward_cuda.launches += 1
+    forward_cuda.residual_launches += with_residuals
     return ll, alpha, pstates
 
 
@@ -281,15 +286,26 @@ def backward(params, obs, pstates, gbar, abar0):
 
 
 def reset_counts() -> None:
-    forward_cuda.launches = backward_cuda.launches = 0
+    forward_cuda.launches = forward_cuda.residual_launches = backward_cuda.launches = 0
     forward_structured.calls = backward_structured.calls = 0
 
 
 def counts() -> dict:
+    "forward_cuda counts B1 and B2 launches, forward_cuda_residuals B2's alone."
     return dict(
-        forward_cuda=forward_cuda.launches, backward_cuda=backward_cuda.launches,
+        forward_cuda=forward_cuda.launches, forward_cuda_residuals=forward_cuda.residual_launches,
+        backward_cuda=backward_cuda.launches,
         forward_plain=forward_structured.calls, backward_plain=backward_structured.calls,
     )
+
+
+def add_counts(n: dict) -> None:
+    "Add `n`, a dict as counts() gives it, to the counters."
+    forward_cuda.launches += n["forward_cuda"]
+    forward_cuda.residual_launches += n["forward_cuda_residuals"]
+    backward_cuda.launches += n["backward_cuda"]
+    forward_structured.calls += n["forward_plain"]
+    backward_structured.calls += n["backward_plain"]
 
 
 reset_counts()

@@ -14,14 +14,25 @@ Port of phlash_tpu/params.py:34-160.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from phlash_tpu_torch import size_history, transition
 from phlash_tpu_torch.utils import Pattern, softplus, softplus_inv
 
 PSMC_FIELDS = ("b", "d", "u", "v", "emis0", "emis1", "pi")
+
+
+@functools.lru_cache(maxsize=32)
+def _expand_index(pattern: str, device: torch.device) -> torch.Tensor:
+    """Pattern(pattern).expand as an index on `device`, built once and shared
+    read-only: indexing a device tensor by the numpy index would copy it
+    from the host at every call, which a CUDA graph capture does not allow."""
+    pat = Pattern(pattern)
+    return torch.as_tensor(pat.expand(np.arange(len(pat))), device=device)
 
 
 @dataclass(frozen=True)
@@ -154,5 +165,6 @@ class MCMCParams:
         k = torch.arange(pat.M - 1, dtype=t1.dtype, device=t1.device) / (pat.M - 2)
         grid = torch.exp(lo + (hi - lo) * k)  # geomspace(t1, tM, M - 1)
         t = torch.cat([torch.zeros_like(lo), grid], -1)
-        eta = size_history.SizeHistory(t=t, c=pat.expand(self.c))
+        c = self.c[..., _expand_index(self.pattern, self.c.device)]  # pat.expand(self.c)
+        eta = size_history.SizeHistory(t=t, c=c)
         return size_history.DemographicModel(eta=eta, theta=self.theta, rho=self.rho)

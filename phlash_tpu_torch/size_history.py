@@ -9,6 +9,7 @@ whole particle cloud at once.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from fractions import Fraction
 
@@ -66,8 +67,7 @@ class SizeHistory:
         haz = torch.cat(
             [torch.zeros_like(c[..., :1]), torch.cumsum(c[..., :-1] * dt, -1)], -1
         )  # (..., K)
-        j = np.arange(2, n + 1)
-        m = torch.as_tensor(j * (j - 1) // 2, dtype=c.dtype, device=c.device)  # (n-1,)
+        m = _pair_counts(n, c.dtype, c.device)  # (n-1,)
         mh = m[:, None] * haz[..., None, :]  # (..., n-1, K)
         finite = (
             torch.exp(-mh[..., :-1])
@@ -81,8 +81,7 @@ class SizeHistory:
         """Expected total branch length subtending b = 1..n-1 leaves: the
         expected (unnormalized) site-frequency spectrum, (..., n-1)."""
         etjj = self.etjj(n)
-        W = torch.as_tensor(_W_matrix(n), dtype=etjj.dtype, device=etjj.device)
-        return etjj @ W.T
+        return etjj @ _W_tensor(n, etjj.dtype, etjj.device).T
 
 
 def _psmc_time_grid(M: int, t_max: float = 15.0) -> np.ndarray:
@@ -112,6 +111,23 @@ class DemographicModel:
         N0 = (self.theta / 2.0) / mu
         eta = SizeHistory(t=N0 * self.eta.t, c=self.eta.c / N0)
         return DemographicModel(eta=eta, theta=mu, rho=self.rho / N0)
+
+
+# The constants of etjj and etbl, built once per (n, dtype, device) and
+# shared read-only: a step that rebuilt them would copy them from the host
+# at every call, which costs host time and is not allowed in a CUDA graph
+# capture.
+@functools.lru_cache(maxsize=32)
+def _pair_counts(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    "j (j - 1) / 2 for j = 2..n: the pair-coalescence rate multipliers, (n-1,)."
+    j = np.arange(2, n + 1)
+    return torch.as_tensor(j * (j - 1) // 2, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _W_tensor(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    "_W_matrix(n) as a tensor."
+    return torch.as_tensor(_W_matrix(n), dtype=dtype, device=device)
 
 
 def _W_matrix(n: int) -> np.ndarray:

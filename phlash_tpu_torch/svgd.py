@@ -9,6 +9,12 @@ and an amsgrad step written out to optax's rule (optax keeps the running
 max of the bias-corrected second moment; torch.optim.Adam(amsgrad=True)
 keeps the max of the raw one, so it would take another trajectory).
 Particles are one (P, D) tensor; the caller owns the mapping to MCMCParams.
+
+Every piece of the state is a tensor on the particles' device, the step
+count included, and the step reads no Python number that changes from one
+step to the next: a CUDA graph of the step (training.Caller) replays what
+it captured, so a count held as a Python int would repeat the first step's
+bias correction at every replay.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ class AMSGradState:
     mu: torch.Tensor
     nu: torch.Tensor
     nu_max: torch.Tensor
-    count: int
+    count: torch.Tensor  # 0-d int64, steps taken
 
 
 @dataclass(frozen=True)
@@ -66,16 +72,18 @@ class AMSGrad:
     eps: float = 1e-8
 
     def init(self, params: torch.Tensor) -> AMSGradState:
-        z = torch.zeros_like(params)
-        return AMSGradState(mu=z, nu=z, nu_max=z, count=0)
+        return AMSGradState(mu=torch.zeros_like(params), nu=torch.zeros_like(params),
+                            nu_max=torch.zeros_like(params),
+                            count=torch.zeros((), dtype=torch.int64, device=params.device))
 
     def update(self, g: torch.Tensor, state: AMSGradState):
         "(updates to add to the params, new state) for the descent direction g."
         mu = (1 - self.b1) * g + self.b1 * state.mu
         nu = (1 - self.b2) * g**2 + self.b2 * state.nu
         count = state.count + 1
-        mu_hat = mu / (1 - self.b1**count)
-        nu_hat = nu / (1 - self.b2**count)
+        n = count.to(mu.dtype)  # the bias corrections as tensor ops, in the moments' dtype
+        mu_hat = mu / (1 - torch.pow(self.b1, n))
+        nu_hat = nu / (1 - torch.pow(self.b2, n))
         nu_max = torch.maximum(state.nu_max, nu_hat)
         updates = -self.learning_rate * (mu_hat / (torch.sqrt(nu_max) + self.eps))
         return updates, AMSGradState(mu=mu, nu=nu, nu_max=nu_max, count=count)
@@ -85,6 +93,16 @@ class AMSGrad:
 class SVGDState:
     particles: torch.Tensor  # (P, D)
     opt_state: AMSGradState
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        "particles, mu, nu, nu_max, count: the whole state, in this order."
+        o = self.opt_state
+        return self.particles, o.mu, o.nu, o.nu_max, o.count
+
+    @classmethod
+    def from_tensors(cls, tensors) -> "SVGDState":
+        particles, mu, nu, nu_max, count = tensors
+        return cls(particles=particles, opt_state=AMSGradState(mu, nu, nu_max, count))
 
 
 class SVGD:

@@ -1,15 +1,32 @@
-"""Construction of the SVGD training program.
+"""Construction of the SVGD training program, and fit's call of k steps.
 
-Port of phlash_tpu/training.py:82-243 with one SVGD iteration per call: given
-a chunk tensor and options, produce the initial particle cloud and a
-`step(state) -> state` that draws a minibatch, filters its warmup prefixes,
-takes the likelihood and its gradient through the kernel pair and applies
-the SVGD + amsgrad update, all on `device`.
+Port of phlash_tpu/training.py:34-243: given a chunk tensor and options,
+produce the initial particle cloud, `base_step(state, inds) -> state`, one
+SVGD iteration on the minibatch chunks `inds` (S,) (the warm-up filter, the
+likelihood and its gradient through the kernel pair, the SVGD + amsgrad
+update, all on `device`), and `step`, a `Caller` of `steps_per_call`
+iterations.
+
+Minibatch indices are drawn outside the step.  `fit` draws a call's
+(k, S) index rows in one torch.randint from its generator (the counterpart
+of jax.random.split(key, k)), and `make_multi_step(step, k)` runs k
+iterations on those rows.  On the CPU a call is that loop, eagerly.  On
+CUDA, `Caller` captures it once per (k, with the held-out ELPD or not) as a
+CUDA graph over static buffers and replays it: the counterpart of jax.jit
+over lax.scan, one graph launch in place of the ~2200 kernel launches that
+each iteration issues from Python.
+
+What a step may do, so that its capture replays right: no host sync (no
+.item(), float(), bool() or printing of a device value), no copy from the
+host (constants are built once per device: size_history._pair_counts,
+_W_tensor, params._expand_index), no random draw, and no Python number
+that changes from one step to the next (the amsgrad count is a tensor).
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass
 from typing import Callable
 
@@ -19,11 +36,153 @@ import torch
 from phlash_tpu_torch.afs import default_afs_transform
 from phlash_tpu_torch.kernel import check_backend, get_kernel
 from phlash_tpu_torch.model import log_density_batched
+from phlash_tpu_torch.ops import packed, smc
 from phlash_tpu_torch.params import MCMCParams
 from phlash_tpu_torch.svgd import SVGD, AMSGrad, SVGDState
 from phlash_tpu_torch.utils import Pattern
 
 logger = logging.getLogger(__name__)
+
+# the modules whose launch counters a graph replay adds to
+_COUNTED = (smc, packed)
+
+
+def make_multi_step(step: Callable, k: int) -> Callable:
+    """`step` applied to the k rows of a (k, S) index tensor, in order:
+    `(state, inds) -> state`.  The counterpart of phlash_tpu's lax.scan
+    chain; `Caller` captures it as one CUDA graph."""
+
+    def multi(state: SVGDState, inds: torch.Tensor) -> SVGDState:
+        for j in range(k):
+            state = step(state, inds[j])
+        return state
+
+    return multi
+
+
+def resolve_steps_per_call(steps_per_call: int | None, device, niter: int) -> int:
+    """SVGD iterations per call: explicit, else 10 on CUDA and 1 on the CPU
+    (phlash_tpu: 10 on an accelerator, 1 on the CPU); capped at niter."""
+    if steps_per_call is None:
+        steps_per_call = 10 if torch.device(device).type == "cuda" else 1
+    return max(1, min(int(steps_per_call), niter))
+
+
+def clone_state(state: SVGDState) -> SVGDState:
+    "A copy of `state` that no later call changes (a Caller's state is static on CUDA)."
+    return SVGDState.from_tensors(t.clone() for t in state.tensors())
+
+
+def _copy_into(dst: SVGDState, src: SVGDState) -> None:
+    for d, s in zip(dst.tensors(), src.tensors()):
+        d.copy_(s)
+
+
+@dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    inds: torch.Tensor  # (k, S) static index rows
+    elpd_inds: torch.Tensor | None  # static held-out chunk indices
+    elpd: torch.Tensor | None  # 0-d static output
+    launches: list  # per module of _COUNTED, counts() of one replay
+
+
+class Caller:
+    """fit's call: `(state, inds (k, S), elpd_inds=None) -> (state, elpd)`.
+
+    Runs k = len(inds) SVGD iterations of `base_step`, one on each row of
+    `inds`.  With `elpd_inds` it then evaluates `elpd(particles, elpd_inds)`
+    (the held-out ELPD, a 0-d tensor) on the particles after them, in the
+    same call (phlash_tpu fuses it into the jitted call the same way);
+    without, elpd is None.
+
+    On the CPU a call runs eagerly (`run`).  On CUDA:
+    - the state lives in static buffers, which every replay updates in
+      place; the call returns that static state.  A state passed in that is
+      not it (the first call, a resumed state) is copied in first.  A caller
+      that keeps a state across calls must clone it.
+    - the first call of each (k, with ELPD) pair runs one eager iteration
+      (and the ELPD) on a copy of the state, on a side stream, so that
+      autograd and cuBLAS initialise outside the capture, then captures the
+      k iterations and the ELPD as one graph on that stream, into a memory
+      pool that all of this Caller's graphs share.  Later calls copy the
+      indices into the graph's static buffers and replay it.  The warm-up
+      and the capture draw no random numbers (the indices come in), so
+      they move neither the trajectory nor any generator.
+    - a capture that fails raises; nothing falls back to eager stepping.
+    - the kernel launch counters (ops/smc.py, ops/packed.py) count what
+      ran on the card: the warm-up's launches stay counted, the capture's
+      are taken back, and every replay adds what its capture launched.
+    `setup_seconds[(k, with_elpd)]` holds the host time of each graph's
+    warm-up and of its capture with instantiation.
+    """
+
+    def __init__(self, base_step: Callable, elpd: Callable | None = None):
+        self.base_step, self.elpd = base_step, elpd
+        self.state: SVGDState | None = None  # the static state (CUDA)
+        self.graphs: dict[tuple[int, bool], _Graph] = {}
+        self.setup_seconds: dict[tuple[int, bool], dict] = {}
+        self._pool = self._stream = None
+
+    def run(self, state: SVGDState, inds: torch.Tensor, elpd_inds: torch.Tensor | None = None):
+        "The call, eagerly: make_multi_step(base_step, k), then the ELPD."
+        state = make_multi_step(self.base_step, len(inds))(state, inds)
+        return state, None if elpd_inds is None else self.elpd(state.particles, elpd_inds)
+
+    def __call__(self, state: SVGDState, inds: torch.Tensor, elpd_inds: torch.Tensor | None = None):
+        if inds.device.type != "cuda":
+            return self.run(state, inds, elpd_inds)
+        if self.state is None:
+            self.state = clone_state(state)
+        elif state is not self.state:
+            _copy_into(self.state, state)
+        key = (len(inds), elpd_inds is not None)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(key, inds, elpd_inds)
+        g = self.graphs[key]
+        g.inds.copy_(inds)
+        if elpd_inds is not None:
+            g.elpd_inds.copy_(elpd_inds)
+        g.graph.replay()
+        for mod, n in zip(_COUNTED, g.launches):
+            mod.add_counts(n)
+        return self.state, g.elpd
+
+    def _capture(self, key, inds: torch.Tensor, elpd_inds: torch.Tensor | None) -> _Graph:
+        dev = inds.device
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(dev)
+        g = _Graph(graph=torch.cuda.CUDAGraph(), inds=inds.clone(),
+                   elpd_inds=None if elpd_inds is None else elpd_inds.clone(),
+                   elpd=None if elpd_inds is None else torch.zeros(
+                       (), dtype=self.state.particles.dtype, device=dev),
+                   launches=[])
+        t0 = time.perf_counter()
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream):
+            self.run(clone_state(self.state), g.inds[:1], g.elpd_inds)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        before = [mod.counts() for mod in _COUNTED]
+        # thread_local: the checkpoint writer's thread may wait on a CUDA
+        # event while this thread captures
+        with torch.cuda.graph(g.graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            state, elpd = self.run(self.state, g.inds, g.elpd_inds)
+            _copy_into(self.state, state)
+            if elpd is not None:
+                g.elpd.copy_(elpd)
+        torch.cuda.synchronize(dev)
+        for mod, b in zip(_COUNTED, before):
+            n = {name: v - b[name] for name, v in mod.counts().items()}
+            mod.add_counts({name: -v for name, v in n.items()})
+            g.launches.append(n)
+        self.setup_seconds[key] = dict(warmup=t1 - t0, capture=time.perf_counter() - t1)
+        logger.info("captured a CUDA graph of %d SVGD iterations%s: warm-up %.3f s, "
+                    "capture and instantiation %.3f s", key[0], " and the ELPD" if key[1] else "",
+                    t1 - t0, self.setup_seconds[key]["capture"])
+        return g
 
 
 def resolve_minibatch_size(options: dict, n_chunks: int, niter: int) -> int:
@@ -35,12 +194,18 @@ def resolve_minibatch_size(options: dict, n_chunks: int, niter: int) -> int:
 @dataclass
 class TrainingProgram:
     state: SVGDState
-    step: Callable  # (state) -> state: one SVGD iteration on a fresh minibatch
+    step: Caller  # (state, inds (k, S), elpd_inds=None) -> (state, elpd); k = steps_per_call
+    base_step: Callable  # (state, inds (S,)) -> state: one eager SVGD iteration
     init: MCMCParams  # the center of the initial cloud; unflattens particles
+    kern: object  # the likelihood kernel (holds the device-resident chunks)
+    warmup: torch.Tensor  # (N, overlap) int8 warm-up prefixes on the device
+    afs: torch.Tensor | None
     afs_transform: torch.Tensor | None
+    N: int  # number of training chunks
     S: int  # minibatch size
     window_size: int
     mutation_rate: float | None
+    steps_per_call: int = 1
 
 
 def batched_grad(init: MCMCParams) -> Callable:
@@ -58,8 +223,10 @@ def batched_grad(init: MCMCParams) -> Callable:
 def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: int,
                    overlap: int, options: dict, device: torch.device,
                    generator: torch.Generator, kernel_backend: str = None) -> TrainingProgram:
-    """Assemble particles, kernel and the one-step function from chunked data.
-    kernel_backend: "smc" (default), "packed" (overlap 0 only) or "dense"."""
+    """Assemble particles, kernel and the step functions from chunked data.
+    kernel_backend: "smc" (default), "packed" (overlap 0 only) or "dense".
+    `generator` draws the initial cloud; `fit` draws the minibatch
+    indices (see the module docstring)."""
     kernel_backend = check_backend(kernel_backend, overlap)
     niter = options.get("niter", 1000)
     mutation_rate = options.get("mutation_rate")
@@ -125,13 +292,14 @@ def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: i
     # unbiased minibatch gradients: HMM term scaled by N / S
     weights = (1.0, N / S, 1.0)
 
-    def one_step(state: SVGDState) -> SVGDState:
-        "Draw S chunk indices (with replacement) and take one SVGD step."
-        inds = torch.randint(N, (S,), generator=generator, device=device)
+    def one_step(state: SVGDState, inds: torch.Tensor) -> SVGDState:
+        "One SVGD step on the minibatch chunks `inds` (S,), drawn with replacement."
         return svgd.step(state, c=weights, inds=inds, warmup=warmup_dev[inds], kern=kern,
                          afs=afs, afs_transform=afs_transform)
 
     return TrainingProgram(
-        state=state, step=one_step, init=init, afs_transform=afs_transform, S=S,
+        state=state, step=Caller(one_step), base_step=one_step, init=init, kern=kern,
+        warmup=warmup_dev, afs=afs, afs_transform=afs_transform, N=N, S=S,
         window_size=window_size, mutation_rate=mutation_rate,
+        steps_per_call=resolve_steps_per_call(options.get("steps_per_call"), device, niter),
     )

@@ -97,9 +97,9 @@ def test_backend_device_mismatch_raises(device, backend):
 
 
 @pytest.mark.parametrize("option", [
-    dict(checkpoint_path="ckpt.npz"), dict(mesh=object()), dict(steps_per_call=2),
+    dict(num_workers=2), dict(mesh=object()), dict(init=object()),
     dict(kernel_seg_len="auto"), dict(callback=print), dict(double_precision=True),
-    dict(truth=object()), dict(afs_transform=np.eye(1)), dict(progress=True),
+    dict(truth=object()), dict(afs_transform=np.eye(1)), dict(double_precision_params=True),
 ], ids=lambda d: next(iter(d)))
 def test_unimplemented_options_raise(psmcfa, option):
     with pytest.raises(NotImplementedError):

@@ -280,8 +280,8 @@ def test_dispatch_by_device():
     smc.reset_counts()
     _, _, pst = smc.forward(params, pi, obs, True)
     smc.backward(params, obs, pst, gbar, abar0)
-    assert smc.counts() == dict(forward_cuda=0, backward_cuda=0, forward_plain=1,
-                                backward_plain=1)
+    assert smc.counts() == dict(forward_cuda=0, forward_cuda_residuals=0, backward_cuda=0,
+                                forward_plain=1, backward_plain=1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         smc.forward_cuda([p.float() for p in params], pi.float(), obs, True)
     with pytest.raises(ValueError, match="support M"):

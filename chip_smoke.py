@@ -47,7 +47,22 @@ Phases, each of which prints its own lines and aborts the run on failure:
 5b. packed kernel (B4, B5) and plain times at the same shape, with the
    kernels' launch geometry, then the packed kernels on the packed fit's
    own inputs (its initial particle cloud, and its particles after the
-   timed steps).
+   timed steps);
+5c. the scan backend (hmm.ScanKernel, plain PyTorch, float32) against the
+   smc backend through the hand kernels at B=8, S=2, L=500: ll rtol 1e-4,
+   gradients at normalized error 2e-5;
+6. posterior reproduction: phlash_tpu_torch.sim regenerates the dataset of
+   tests/data/torch_posterior_fixture.json (two contigs of 6,000,000
+   windows), phlash_tpu_torch.fit fits it on the card by graph replay with
+   the fixture's options, once for each of the fixture's keys as the seed,
+   on "smc" at overlap 500 and on "packed" at overlap 0, with exact launch
+   counts, and repro.compare holds each path's pooled ensemble against the
+   committed phlash_tpu.fit ensemble of the same overlap: tv of the medians
+   <= 0.10 and each median inside the other's 95% band on >= 0.90 of the
+   grid.  Each path's line also carries a hash of its ensemble (equal
+   hashes across runs show the run-to-run determinism) and the gate's
+   reading on the port's ensemble with planted biases (c of epochs 5-8
+   times 1.2, 1.5, 2.0), the largest of which must fail the gate.
 `--profile` also prints torch.profiler tables of eager and graphed steps
 of each path, with the device busy share.
 The last two lines are a JSON summary of the kernels (B1-B5) and the
@@ -59,7 +74,10 @@ package is not beside it.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import logging
+import struct
 import subprocess
 import sys
 import tempfile
@@ -283,6 +301,151 @@ def check_packed_fit_inputs(torch, packed, dev, fit_inputs: dict, errs: dict):
         tiny = gate_packed(torch, packed, tuple(x.double() for x in params), pi.double(), obs,
                            gbar, where, errs)
         print(f"{where}: smallest checkpoint entry {tiny:.3e}")
+
+
+def check_scan(torch, dev) -> dict:
+    """Phase 5c: the scan backend (plain PyTorch, float32, as a fit runs it)
+    against the smc backend through the hand kernels (B2, B3) on one
+    float32 case with a missing block and a padded tail, B=8, S=2, L=500:
+    lls and the gradients of a weighted sum of them.  Launches here are
+    comparisons, not the fit path's: the caller resets the counters after."""
+    from phlash_tpu_torch.hmm import ScanKernel
+    from phlash_tpu_torch.ops.kernel_smc import SMCKernel
+    from phlash_tpu_torch.params import PSMCParams
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    B, S, L, M = 8, 2, 500, 16
+    params, pi, obs = random_instances(torch, M, B, S, L, dev, gen)
+    W = torch.randn(B, S, generator=gen, device=dev)
+    out = {}
+    for name, kern in (("scan", ScanKernel(M, obs, device=dev)),
+                       ("smc", SMCKernel(M, obs, device=dev))):
+        leaves = [x.float().clone().requires_grad_(True) for x in (*params, pi)]
+        ll = kern.loglik_batched(PSMCParams(*leaves), torch.arange(S, device=dev))
+        out[name] = ll.detach(), torch.autograd.grad((ll * W).sum(), leaves)
+    torch.cuda.synchronize()
+    e_ll = max_rel(out["scan"][0], out["smc"][0].double())
+    e_g = max(normalized(a, b.double()) for a, b in zip(out["scan"][1], out["smc"][1]))
+    print(f"scan vs smc kernels at B={B} S={S} L={L} M={M} (float32): max rel err ll "
+          f"{e_ll:.3e}, max normalized err over the 7 gradients {e_g:.3e}")
+    if not (e_ll <= 1e-4 and e_g <= 2e-5):
+        fail("the scan backend disagrees with the smc kernels")
+    return {"ll": e_ll, "grad": e_g}
+
+
+# (kernel_backend, overlap) of the phase-6 fits; the committed phlash_tpu.fit
+# posterior of each overlap is tests/data/torch_posterior_overlap<overlap>.npz
+REPRO_PATHS = (("smc", 500), ("packed", 0))
+
+
+class FitMeters(logging.Handler):
+    "Collects the StepMeter that each fit's 'fit finished' log record carries."
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.meters = []
+
+    def emit(self, record):
+        if hasattr(record, "step_meter"):
+            self.meters.append(record.step_meter)
+
+
+def ensemble_digest(models) -> str:
+    "A hash of a posterior ensemble's values (t, c, rho of every model, in order)."
+    h = hashlib.sha256()
+    for m in models:
+        for x in (m.eta.t, m.eta.c):
+            h.update(x.detach().cpu().numpy().tobytes())
+        h.update(struct.pack("<d", m.rho))
+    return h.hexdigest()[:16]
+
+
+def repro_phase(torch, ops: dict) -> list[dict]:
+    """Phase 6: regenerate the fixture's dataset, fit it on the card on each
+    path of REPRO_PATHS once per fixture key (as the seed), and hold each
+    pooled ensemble against phlash_tpu.fit's (repro.compare).  Fails on a
+    wrong launch count, a failed gate, or a gate that passes the largest
+    planted bias."""
+    import phlash_tpu_torch
+    from phlash_tpu_torch import repro, results, sim
+
+    data = ROOT / "tests" / "data"
+    meta = json.loads((data / "torch_posterior_fixture.json").read_text())
+    truth = sim.bottleneck_demography(theta=1e-2)
+    t0 = time.perf_counter()
+    contigs = [sim.simulate_smc_continuous(truth, L=meta["L"], seed=s, n_samples=1)
+               for s in meta["seeds"]]
+    print(f"repro: simulated {len(contigs)} contigs of {meta['L']} windows in "
+          f"{time.perf_counter() - t0:.2f} s (phlash_tpu_torch.sim); het share "
+          f"{[round(float((c.het_matrix == 1).mean()), 6) for c in contigs]}")
+    afs_on = all(c.afs is not None for c in contigs)
+    print(f"repro: composite compared: prior + chunk HMM + AFS term ({'on' if afs_on else 'off'}, "
+          f"both packages)")
+    niter, P, seeds = meta["shared"]["niter"], meta["shared"]["num_particles"], meta["keys"]
+    if niter % SPC:
+        fail(f"the fixture's niter {niter} is not a multiple of {SPC}")
+    # per fit: niter iterations by replay of one graph plus its eager warm-up
+    # iteration; no held-out data, so no ELPD
+    steps = niter + 1
+    log = logging.getLogger("phlash_tpu_torch.mcmc")
+    meters, level = FitMeters(), log.level
+    log.addHandler(meters)
+    log.setLevel(logging.INFO)
+    out = []
+    for backend, overlap in REPRO_PATHS:
+        want = (dict(forward_cuda=2 * steps, forward_cuda_residuals=2 * steps,
+                     backward_cuda=2 * steps, forward_plain=0, backward_plain=0)
+                if backend == "smc" else
+                dict(forward_cuda=steps, backward_cuda=steps, forward_plain=0, backward_plain=0))
+        pooled, walls, captures = [], [], []
+        for seed in seeds:
+            for mod in ops.values():
+                mod.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            post = phlash_tpu_torch.fit(contigs, device="cuda", seed=seed, kernel_backend=backend,
+                                        window_size=meta["window_size"], overlap=overlap,
+                                        chunk_size=meta["chunk_size"], progress=False,
+                                        **meta["shared"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            captures.append(meters.meters.pop().setup_seconds)
+            counts = {name: mod.counts() for name, mod in ops.items()}
+            if counts[backend] != want:
+                fail(f"the {backend} repro fit (seed {seed}) launched {counts[backend]}; "
+                     f"expected {want}")
+            if any(any(c.values()) for name, c in counts.items() if name != backend):
+                fail(f"the {backend} repro fit launched another backend's kernels")
+            if len(post) != P or not all(torch.isfinite(m.eta.c).all() and (m.eta.c > 0).all()
+                                         for m in post):
+                fail(f"the {backend} repro fit (seed {seed}) did not return {P} finite models")
+            pooled += post
+        ref = results.load_posterior(str(data / f"torch_posterior_overlap{overlap}.npz"))
+        res = repro.compare(pooled, ref, truth)
+        # each single fit against phlash_tpu's ensemble: the seed's spread (not gated)
+        single = [repro.compare(pooled[i: i + P], ref, truth)["tv_cross"]
+                  for i in range(0, len(pooled), P)]
+        # what the gate catches: the port's ensemble with planted biases
+        planted = repro.planted(pooled, ref, truth)
+        line = dict(phase="repro", kernel_backend=backend, overlap=overlap, seeds=seeds,
+                    particles=len(pooled), ref_particles=len(ref), afs_term=afs_on,
+                    ensemble_sha256=ensemble_digest(pooled), launches_per_fit=want,
+                    fit_wall_s=walls,
+                    fit_wall_s_without_capture=[w - c for w, c in zip(walls, captures)],
+                    tv_cross_single_fits=single, planted=planted, **res)
+        print(f"repro {backend}: {len(seeds)} fits of {niter} iterations at {P} particles, "
+              f"{sum(walls):.2f} s in all ({min(walls):.3f}-{max(walls):.3f} s a fit, "
+              f"{min(w - c for w, c in zip(walls, captures)):.3f}-"
+              f"{max(w - c for w, c in zip(walls, captures)):.3f} s without graph capture)")
+        print(json.dumps(line))
+        if not res["ok"]:
+            fail(f"the {backend} posterior does not reproduce phlash_tpu.fit's: {res}")
+        if planted[str(repro.PLANT_FACTORS[-1])]["ok"]:
+            fail(f"the {backend} gate passes the largest planted bias: {planted}")
+        out.append(line)
+    log.removeHandler(meters)
+    log.setLevel(level)
+    return out
 
 
 def write_psmcfa(path: Path, n_contigs=4, windows=100_000):
@@ -851,6 +1014,11 @@ def main() -> int:
     # 5. kernel times at the fit shape
     t = kernel_timing(torch, smc, dev, {**smc_inputs, **late})
     pt = packed_timing(torch, packed, dev, fit_inputs)
+    # 5c. the scan backend against the smc kernels
+    check_scan(torch, dev)
+
+    # 6. posterior reproduction against phlash_tpu.fit
+    repro_phase(torch, ops)
 
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:
         fail("JAX or phlash_tpu was imported")

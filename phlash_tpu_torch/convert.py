@@ -22,7 +22,8 @@ def _t(x, dtype, device) -> torch.Tensor:
     return torch.tensor(np.array(x), dtype=dtype, device=device)
 
 
-def _np(x) -> np.ndarray:
+def to_numpy(x) -> np.ndarray:
+    "A tensor (on any device) or an array-like as a numpy array."
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
@@ -40,7 +41,8 @@ def from_reference_mcmc(ref, dtype=torch.float64, device="cpu") -> MCMCParams:
 
 def mcmc_fields(mcp: MCMCParams) -> dict:
     return dict(
-        t_tr=_np(mcp.t_tr), c_tr=_np(mcp.c_tr), rho_over_theta_tr=_np(mcp.rho_over_theta_tr),
+        t_tr=to_numpy(mcp.t_tr), c_tr=to_numpy(mcp.c_tr),
+        rho_over_theta_tr=to_numpy(mcp.rho_over_theta_tr),
         pattern=mcp.pattern, theta=mcp.theta, alpha=mcp.alpha, beta=mcp.beta,
     )
 
@@ -50,7 +52,7 @@ def from_reference_psmc(ref, dtype=torch.float64, device="cpu") -> PSMCParams:
 
 
 def psmc_fields(pp: PSMCParams) -> dict:
-    return {k: _np(getattr(pp, k)) for k in PSMC_FIELDS}
+    return {k: to_numpy(getattr(pp, k)) for k in PSMC_FIELDS}
 
 
 def from_reference_dm(ref, dtype=torch.float64, device="cpu") -> DemographicModel:
@@ -60,4 +62,4 @@ def from_reference_dm(ref, dtype=torch.float64, device="cpu") -> DemographicMode
 
 def dm_fields(dm: DemographicModel) -> dict:
     "{'t', 'c', 'theta', 'rho'}: SizeHistory(t, c) and the model's rates."
-    return dict(t=_np(dm.eta.t), c=_np(dm.eta.c), theta=dm.theta, rho=_np(dm.rho))
+    return dict(t=to_numpy(dm.eta.t), c=to_numpy(dm.eta.c), theta=dm.theta, rho=to_numpy(dm.rho))

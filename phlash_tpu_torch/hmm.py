@@ -1,20 +1,23 @@
-"""Plain pair-coalescent HMM forward algorithm: the scan oracle.
+"""Plain pair-coalescent HMM forward algorithm: the scan oracle and backend.
 
-Port of phlash_tpu/hmm.py:29-68.  `matvec_smc` applies v @ A in O(M) from the
-compressed SMC' structure; `psmc_ll` is the per-site-normalized forward
-recursion at any dtype, with leading batch axes.  Neither is on the fit
-path: `psmc_ll` is the independent per-site oracle that chip_smoke.py holds
-the plain structured forward (phlash_tpu_torch.ops.smc) against at float64
-on the card, before that plain version gates the CUDA kernels.  Padding
-(-2) freezes the state, as it does in the kernels (the JAX oracle is only
-ever given {-1, 0, 1}).
+Port of phlash_tpu/hmm.py:29-123.  `matvec_smc` applies v @ A in O(M) from
+the compressed SMC' structure; `psmc_ll` is the per-site-normalized forward
+recursion at any dtype, with leading batch axes.  `psmc_ll` is the
+independent per-site oracle that chip_smoke.py holds the plain structured
+forward (phlash_tpu_torch.ops.smc) against at float64 on the card, before
+that plain version gates the CUDA kernels.  `ScanKernel` (phlash_tpu's
+PureXLAKernel) puts it behind the kernel interface as
+kernel_backend="scan": plain PyTorch on either device, differentiated by
+autograd through the site loop.  Padding (-2) freezes the state, as it does
+in the kernels (the JAX oracle is only ever given {-1, 0, 1}).
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
-from phlash_tpu_torch.params import PSMCParams
+from phlash_tpu_torch.params import PSMC_FIELDS, PSMCParams
 
 
 def matvec_smc(v: torch.Tensor, pp: PSMCParams) -> torch.Tensor:
@@ -45,3 +48,37 @@ def psmc_ll(pp: PSMCParams, data: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
         alpha = torch.where(live, a / norm, alpha)
         ll = ll + torch.where(live[..., 0], torch.log(norm[..., 0]), torch.zeros_like(ll))
     return alpha, ll
+
+
+class ScanKernel(nn.Module):
+    """The scan likelihood kernel over a device-resident chunk tensor.
+
+    data: int8 (N, L) chunks in {-1, 0, 1}.  The same interface as
+    ops/kernel_smc.SMCKernel and ops/kernel_dense.DenseKernel; plain PyTorch
+    on whatever device `data` lives on, in the parameters' dtype, or in
+    float64 with double_precision=True.
+    """
+
+    def __init__(self, M: int, data, device="cpu", double_precision: bool = False):
+        super().__init__()
+        self.M = M
+        self.double_precision = double_precision
+        self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8, device=device))
+
+    def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
+        """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
+        except pi, (B, S, M): the per-chunk initial distributions."""
+        if self.double_precision:
+            pp = pp.to(torch.float64)
+        per_chunk = pp.replace(**{k: getattr(pp, k)[:, None, :] for k in PSMC_FIELDS if k != "pi"})
+        return psmc_ll(per_chunk, self.data[inds])[1]
+
+    def filter_batched(self, pp: PSMCParams, warmup: torch.Tensor) -> torch.Tensor:
+        """Filtered state after the warmup prefixes, (B, S, M), differentiable.
+        pp leaves (B, M); warmup (S, overlap) int8, shared across particles."""
+        if self.double_precision:
+            pp = pp.to(torch.float64)
+        S = warmup.shape[0]
+        per_chunk = PSMCParams(*(getattr(pp, k)[:, None, :] for k in PSMC_FIELDS))
+        per_chunk = per_chunk.replace(pi=per_chunk.pi.expand(-1, S, -1))
+        return psmc_ll(per_chunk, warmup.to(torch.int8))[0]

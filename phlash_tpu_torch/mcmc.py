@@ -14,22 +14,30 @@ with the particles after the call, as in phlash_tpu.
 
 Options with the JAX defaults: niter, num_particles, window_size, overlap,
 chunk_size, minibatch_size, learning_rate, sigma, theta, mutation_rate,
-pattern, t1, tM, rho_over_theta, alpha, beta, elpd_cutoff, elpd_samples,
-return_final, steps_per_call (10 on CUDA, 1 on the CPU), check_every (10),
-checkpoint_path, save_every (50) and progress (True; a tqdm bar when tqdm
-imports).  New in the port: device (default "cuda"; no card means an
-error, never a CPU fallback), seed and kernel_backend, the likelihood
-algorithm: "smc" (the default; phlash_tpu's "pallas"), "packed"
-(phlash_tpu's "pallas_mxu"; needs overlap=0) or "dense" (phlash_tpu's
-"dense"); see kernel.py.  The device decides between the hand CUDA kernels
-and their plain versions.
+truth (a DemographicModel: mutation_rate = truth.theta; giving both raises
+ValueError), init (an MCMCParams: the initial cloud's centre),
+afs_transform, pattern, t1, tM, rho_over_theta, alpha, beta, elpd_cutoff,
+elpd_samples, max_samples (held-out rows, 20), return_final,
+double_precision_params (a float64 cloud and assembly), double_precision
+and kernel_seg_len (see kernel.py: float64 kernel state on "dense" and
+"scan" only; a segment length on "dense" only), steps_per_call (10 on CUDA,
+1 on the CPU), check_every (10), checkpoint_path, save_every (50), progress
+(True; a tqdm bar when tqdm imports) and callback: called after each call
+with the cloud as one batched DemographicModel in per-window-base units
+(rescaled by the mutation rate when known), read back to the host once a
+call; phlash_tpu's default is its live plot, the port's is None (no read
+back).  New in the port: device (default "cuda"; no card means an error,
+never a CPU fallback), seed and kernel_backend, the likelihood algorithm:
+"smc" (the default; phlash_tpu's "pallas"), "packed" (phlash_tpu's
+"pallas_mxu"; needs overlap=0), "dense" or "scan"; see kernel.py.  The
+device decides between the hand CUDA kernels and their plain versions.
 
 `seed` seeds two torch.Generators on the device: the step's (the initial
 cloud and every call's minibatch indices) with `seed` itself, and the
 held-out ELPD's (its chunk subsets) with a seed derived from `seed` and
 ELPD_STREAM.  So the ELPD cadence leaves the step stream alone, as
 phlash_tpu's fold_in does, and a checkpoint stores both generators' states.
-Options of phlash_tpu.fit that this port does not implement raise
+phlash_tpu's key (use seed), mesh and num_workers > 1 raise
 NotImplementedError when set.
 """
 
@@ -60,21 +68,18 @@ logger = logging.getLogger(__name__)
 
 _OPTIONS = {
     "niter", "num_particles", "window_size", "overlap", "chunk_size", "minibatch_size",
-    "learning_rate", "sigma", "theta", "mutation_rate", "pattern", "t1", "tM",
-    "rho_over_theta", "alpha", "beta", "elpd_cutoff", "elpd_samples", "return_final",
-    "steps_per_call", "check_every", "checkpoint_path", "save_every", "progress",
+    "learning_rate", "sigma", "theta", "mutation_rate", "truth", "init", "afs_transform",
+    "pattern", "t1", "tM", "rho_over_theta", "alpha", "beta", "elpd_cutoff", "elpd_samples",
+    "max_samples", "return_final", "double_precision_params", "double_precision",
+    "kernel_seg_len", "steps_per_call", "check_every", "checkpoint_path", "save_every",
+    "progress", "callback",
 }
 # phlash_tpu.fit options without a counterpart here, with the value that
 # means "off" (which is accepted)
-_NOT_IMPLEMENTED = {
-    "mesh": None, "kernel_seg_len": None, "callback": None, "double_precision": False,
-    "double_precision_params": False, "truth": None, "key": None, "num_workers": 1,
-    "max_samples": None, "afs_transform": None, "init": None,
-}
+_NOT_IMPLEMENTED = {"mesh": None, "key": None, "num_workers": 1}
 CHECK_EVERY = 10  # iterations between finiteness checks (each one syncs the device)
 ELPD_EVERY = 10  # iterations between held-out ELPD evaluations
 SAVE_EVERY = 50  # iterations between checkpoint saves
-MAX_SAMPLES = 20  # held-out rows used for the ELPD (phlash_tpu's max_samples default)
 ELPD_STREAM = 0x0E1D  # derives the ELPD generator's seed (phlash_tpu's fold_in constant)
 
 
@@ -98,19 +103,23 @@ def generators(seed: int, device: torch.device) -> tuple[torch.Generator, torch.
             torch.Generator(device=device).manual_seed(elpd_seed))
 
 
-def _models(prog: TrainingProgram, particles: torch.Tensor) -> list[DemographicModel]:
-    "Particles as demographic models in per-window-base units (and generations)."
+def cloud(prog: TrainingProgram, particles: torch.Tensor) -> DemographicModel:
+    """The particles, read back to the host once, as one batched demographic
+    model in per-window-base units (and generations when the mutation rate
+    is known): phlash_tpu's dms()."""
     with torch.no_grad():
-        dm = prog.init.unflatten(particles).to_dm()
+        dm = prog.init.unflatten(particles.detach().cpu()).to_dm()
     dm = DemographicModel(eta=dm.eta, theta=dm.theta / prog.window_size,
                           rho=dm.rho / prog.window_size)
-    if prog.mutation_rate:
-        dm = dm.rescale(prog.mutation_rate)
-    t, c, rho = (x.detach().cpu() for x in (dm.eta.t, dm.eta.c, dm.rho))
-    return [
-        DemographicModel(eta=SizeHistory(t=t[k], c=c[k]), theta=dm.theta, rho=float(rho[k]))
-        for k in range(t.shape[0])
-    ]
+    return dm.rescale(prog.mutation_rate) if prog.mutation_rate else dm
+
+
+def _models(prog: TrainingProgram, particles: torch.Tensor) -> list[DemographicModel]:
+    "Particles as a list of demographic models, as `cloud` has them."
+    dm = cloud(prog, particles)
+    return [DemographicModel(eta=SizeHistory(t=dm.eta.t[k], c=dm.eta.c[k]), theta=dm.theta,
+                             rho=float(dm.rho[k]))
+            for k in range(dm.eta.t.shape[0])]
 
 
 @dataclass
@@ -147,14 +156,16 @@ class HeldOutELPD:
 
 
 def held_out_elpd(prog: TrainingProgram, test_data: RawContig, *, span: int, overlap: int,
-                  elpd_samples: int | None, device, kernel_backend: str) -> HeldOutELPD:
-    """The held-out ELPD of `test_data` for `prog`, whose chunks span `span`
-    columns; elpd_samples chunks an evaluation (default max(S, 4))."""
+                  elpd_samples: int | None, device, kernel_backend: str, max_samples: int = 20,
+                  double_precision: bool = False, seg_len=None) -> HeldOutELPD:
+    """The held-out ELPD of the first `max_samples` rows of `test_data` for
+    `prog`, whose chunks span `span` columns; elpd_samples chunks an
+    evaluation (default max(S, 4)); the kernel as the training one."""
     d = test_data.get_data(prog.window_size)
     test_afs = None
     if d["afs"] is not None:
         test_afs = torch.as_tensor(np.asarray(d["afs"]), dtype=torch.float32, device=device)
-    test_chunks = chunk_het_matrix(d["het_matrix"][:MAX_SAMPLES], overlap=overlap,
+    test_chunks = chunk_het_matrix(d["het_matrix"][:max_samples], overlap=overlap,
                                    chunk_size=span - overlap)
     N = len(test_chunks)
     T = None
@@ -164,7 +175,8 @@ def held_out_elpd(prog: TrainingProgram, test_data: RawContig, *, span: int, ove
     return HeldOutELPD(
         init=prog.init,
         kern=get_kernel(M=prog.init.M, data=np.ascontiguousarray(test_chunks[:, overlap:]),
-                        device=device, backend=kernel_backend),
+                        device=device, backend=kernel_backend,
+                        double_precision=double_precision, seg_len=seg_len),
         warmup=torch.as_tensor(np.ascontiguousarray(test_chunks[:, :overlap]),
                                dtype=torch.int8, device=device),
         afs=test_afs, afs_transform=T, N=N,
@@ -190,10 +202,14 @@ def fit(data: list[RawContig], test_data: RawContig = None, *, device="cuda", se
     `test_data`, the particles of the call with the best held-out ELPD are
     returned unless `return_final=True`.  With `checkpoint_path`, the state
     is saved every `save_every` iterations and at the end, and a run
-    restarted with the same arguments resumes at the saved iteration.
+    restarted with the same arguments resumes at the saved iteration.  The
+    "fit finished" log record carries the loop's StepMeter as `step_meter`
+    (its `setup_seconds`: the CUDA graphs' warm-up and capture).
     """
     _check_options(options)
-    kernel_backend = check_backend(kernel_backend, options.get("overlap", 500))
+    kernel_backend = check_backend(kernel_backend, options.get("overlap", 500),
+                                   options.get("double_precision", False),
+                                   options.get("kernel_seg_len"))
     dev = resolve_device(device)
     gen, elpd_gen = generators(seed, dev)
     niter = options.get("niter", 1000)
@@ -220,10 +236,14 @@ def fit(data: list[RawContig], test_data: RawContig = None, *, device="cuda", se
     if test_data is not None:
         elpd = held_out_elpd(prog, test_data, span=int(chunks.shape[-1]), overlap=overlap,
                              elpd_samples=options.get("elpd_samples"), device=dev,
-                             kernel_backend=kernel_backend)
+                             kernel_backend=kernel_backend,
+                             max_samples=options.get("max_samples", 20),
+                             double_precision=options.get("double_precision", False),
+                             seg_len=options.get("kernel_seg_len"))
         call = Caller(prog.base_step, elpd)
 
     spc = prog.steps_per_call
+    callback = options.get("callback")
     elpd_cutoff = options.get("elpd_cutoff", 100)
     check_every = options.get("check_every", CHECK_EVERY)
     ckpt_path = options.get("checkpoint_path")
@@ -291,13 +311,16 @@ def fit(data: list[RawContig], test_data: RawContig = None, *, device="cuda", se
         if stop:
             logger.info("ELPD has not improved in %d iterations; stopping early", elpd_cutoff)
             break
+        if callback is not None:
+            callback(cloud(prog, state.particles))
     if writer is not None:
         if last != saved_at and last > start:
             # leave the run's final state on disk, so that a rerun with the
             # same arguments resumes at niter and takes no step
             writer.save(ckpt_path, train_checkpoint(last))
         writer.wait()
-    logger.info("fit finished: %s", meter.summary())
+    meter.setup_seconds = sum((sum(s.values()) for s in call.setup_seconds.values()), 0.0)
+    logger.info("fit finished: %s", meter.summary(), extra={"step_meter": meter})
     particles = state.particles
     if best is not None and not options.get("return_final", False):
         logger.info("returning best-ELPD state from iteration %d", best[0])

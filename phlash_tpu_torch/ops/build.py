@@ -30,6 +30,9 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the dtype the kernels of a device type take: the CUDA kernels are
+# float32-only; the plain versions (every other device) take any dtype
+KERNEL_DTYPE = {"cuda": torch.float32}
 
 
 @dataclass(frozen=True)

@@ -71,24 +71,31 @@ def forward_ll_dense(pp: PSMCParams, obs: torch.Tensor, seg_len: int = 512):
 class DenseKernel(nn.Module):
     """Dense-transition likelihood kernel over a device-resident chunk tensor.
 
-    data: int8 (N, L) chunks in {-1, 0, 1}.  Runs in the parameters' dtype
-    on whatever device `data` lives on.
+    data: int8 (N, L) chunks in {-1, 0, 1}.  Runs in the parameters' dtype,
+    or in float64 with double_precision=True, on whatever device `data`
+    lives on.
     """
 
-    def __init__(self, M: int, data, device="cpu", seg_len: int = None):
+    def __init__(self, M: int, data, device="cpu", seg_len: int = None,
+                 double_precision: bool = False):
         super().__init__()
         self.M = M
+        self.double_precision = double_precision
         self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8, device=device))
         self.seg_len = seg_len or _pick_seg_len(self.data.shape[-1])
 
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
         """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
         except pi, (B, S, M): the per-chunk initial distributions."""
+        if self.double_precision:
+            pp = pp.to(torch.float64)
         return forward_ll_dense(pp, self.data[inds], self.seg_len)[1]
 
     def filter_batched(self, pp: PSMCParams, warmup: torch.Tensor) -> torch.Tensor:
         """Filtered state after the warmup prefixes, (B, S, M), differentiable.
         pp leaves (B, M); warmup (S, overlap) int8, shared across particles."""
+        if self.double_precision:
+            pp = pp.to(torch.float64)
         S = warmup.shape[0]
         pi = pp.pi[:, None, :].expand(-1, S, -1)
         return forward_ll_dense(pp.replace(pi=pi), warmup.to(torch.int8), self.seg_len)[0]

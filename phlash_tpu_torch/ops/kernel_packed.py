@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from phlash_tpu_torch.ops import packed
+from phlash_tpu_torch.ops import build, packed
 from phlash_tpu_torch.ops.packing import dense_transition
 from phlash_tpu_torch.params import PSMCParams
 
@@ -46,18 +46,25 @@ class PackedOp(torch.autograd.Function):
 
 
 def packed_op(A, emis0, emis1, pi, obs, seg_len: int = packed.DEFAULT_SEG) -> torch.Tensor:
-    "Run the kernel pair; checkpoints are kept only when autograd will ask."
+    """Run the kernel pair; checkpoints are kept only when autograd will ask.
+    The kernels take build.KERNEL_DTYPE (float32 on CUDA): the inputs are
+    cast to it here (autograd casts their gradients back) and ll to pi's dtype,
+    so a float64 tensor never reaches a kernel."""
     leaves = (A, emis0, emis1, pi)
+    dtype = build.KERNEL_DTYPE.get(obs.device.type)
+    if dtype is not None:
+        leaves = tuple(x.to(dtype) for x in leaves)
     with_ckpt = torch.is_grad_enabled() and any(x.requires_grad for x in leaves)
-    return PackedOp.apply(obs, seg_len, with_ckpt, *leaves)
+    return PackedOp.apply(obs, seg_len, with_ckpt, *leaves).to(pi.dtype)
 
 
 class PackedKernel(nn.Module):
     """Dense-transition likelihood kernel over a device-resident chunk tensor.
 
     data: int8 (N, L) chunks in {-1, 0, 1}.  M must be 16.  On a CUDA device
-    the hand kernels run, in float32 only; on the CPU their plain versions,
-    in the parameters' dtype (see ops/packed.py).
+    the hand kernels run, in float32 (packed_op casts at the boundary); on
+    the CPU their plain versions, in the parameters' dtype (see
+    ops/packed.py).
     """
 
     def __init__(self, M: int, data, device="cpu", seg_len: int = packed.DEFAULT_SEG):
@@ -73,8 +80,5 @@ class PackedKernel(nn.Module):
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
         """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
         except pi, (B, S, M): the per-chunk initial distributions."""
-        if self.data.is_cuda and pp.pi.dtype != torch.float32:
-            raise ValueError(f"the packed CUDA kernels are float32-only, got {pp.pi.dtype}; "
-                             "use kernel_backend='dense'")
         rows = self.data[inds].contiguous()
         return packed_op(dense_transition(pp), pp.emis0, pp.emis1, pp.pi, rows, self.seg_len)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from phlash_tpu_torch.ops import smc
+from phlash_tpu_torch.ops import build, smc
 from phlash_tpu_torch.params import PSMCParams
 
 _PARAMS = ("b", "d", "u", "v", "emis0", "emis1")
@@ -44,10 +44,17 @@ class SMCOp(torch.autograd.Function):
 
 def smc_op(pp: PSMCParams, pi: torch.Tensor, obs: torch.Tensor):
     """Run the kernel pair: pp leaves (B, M) (pp.pi is ignored), pi (B, S, M),
-    obs (S, L) int8 rows.  Residuals are kept only when autograd will ask."""
+    obs (S, L) int8 rows.  Residuals are kept only when autograd will ask.
+    The kernels take build.KERNEL_DTYPE (float32 on CUDA): the inputs are
+    cast to it here (autograd casts their gradients back) and the outputs to
+    pi's dtype, so a float64 tensor never reaches a kernel."""
     leaves = [getattr(pp, k) for k in _PARAMS] + [pi]
+    dtype = build.KERNEL_DTYPE.get(obs.device.type)
+    if dtype is not None:
+        leaves = [x.to(dtype) for x in leaves]
     with_residuals = torch.is_grad_enabled() and any(x.requires_grad for x in leaves)
-    return SMCOp.apply(obs, with_residuals, *leaves)
+    ll, alpha = SMCOp.apply(obs, with_residuals, *leaves)
+    return ll.to(pi.dtype), alpha.to(pi.dtype)
 
 
 class SMCKernel(nn.Module):

@@ -18,9 +18,12 @@ class StepMeter:
 
     sites_per_step: observation columns visited per SVGD iteration
         (= particles x minibatch x chunk length for the HMM term).
+    setup_seconds: host seconds the loop spent warming up and capturing
+        CUDA graphs (training.Caller.setup_seconds, summed; 0 on the CPU).
     """
 
     sites_per_step: float = 0.0
+    setup_seconds: float = 0.0
     _t0: float = field(default_factory=time.perf_counter)
     _steps: int = 0
 
@@ -40,5 +43,5 @@ class StepMeter:
     def summary(self) -> str:
         return (
             f"{self._steps} steps, {self.steps_per_sec:.2f} it/s, "
-            f"{self.msites_per_sec:.0f} Msites/s"
+            f"{self.msites_per_sec:.0f} Msites/s, graph set-up {self.setup_seconds:.3f} s"
         )

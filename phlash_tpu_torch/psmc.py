@@ -25,7 +25,8 @@ def psmc(psmcfa_files: list[str], window_size: int = 100, hold_out: bool = True,
             files were produced by fq2psmcfa, usually 100).
         hold_out: reserve the first contig as a test set for early stopping.
         **options: forwarded to phlash_tpu_torch.fit (device, seed,
-            kernel_backend "smc" / "packed" / "dense", and the fit options).
+            kernel_backend "smc" / "packed" / "dense" / "scan", and the fit
+            options).
     """
     logger.info("reading PSMC data from %d file(s)", len(psmcfa_files))
     contigs: list[RawContig] = []

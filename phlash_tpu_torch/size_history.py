@@ -1,21 +1,29 @@
 """Piecewise-constant coalescent size histories and demographic models.
 
-Port of phlash_tpu/size_history.py:32-185,302-360 (the part the SVGD fit path
-runs).  ``SizeHistory(t, c)`` holds breakpoints t (t[..., 0] == 0) and
-per-epoch pair-coalescence rates c as tensors whose leading axes are batch
-axes (one row per particle), so every method works on one model or on the
-whole particle cloud at once.
+Port of phlash_tpu/size_history.py:32-226,277-360.  ``SizeHistory(t, c)``
+holds breakpoints t (t[..., 0] == 0) and per-epoch pair-coalescence rates c
+as tensors whose leading axes are batch axes (one row per particle), so the
+fit path's methods and `__call__` work on one model or on the whole particle
+cloud at once.  The evaluation methods built on the hazard PPoly (`R`,
+`density`, `sf`, `cdf`, `mu`, `quantile`, `balance`, `tv`, `l2`) take one
+model: 1-D t and c.  `quantile` solves on the host with scipy, and `tv` and
+`l2` build their union grids on the host, as phlash_tpu does.  `draw`,
+`to_demes` and `from_demography` (matplotlib, demes, msprime) are not
+ported.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 from fractions import Fraction
+from typing import Callable
 
 import numpy as np
 import torch
 
+from phlash_tpu_torch.ppoly import PPoly
 from phlash_tpu_torch.utils import Pattern, texp_mean
 
 
@@ -32,6 +40,85 @@ class SizeHistory:
     @property
     def M(self) -> int:
         return self.t.shape[-1]
+
+    @property
+    def K(self) -> int:
+        return self.c.shape[-1]
+
+    @property
+    def Ne(self) -> torch.Tensor:
+        "Effective population size trajectory, Ne = 1 / (2c)."
+        return 0.5 / self.c
+
+    @classmethod
+    def default(cls, K: int, dtype=torch.float64, device="cpu") -> "SizeHistory":
+        "Constant history with breakpoints at Exponential(1) quantiles."
+        q = np.linspace(0.0, 1.0, K, endpoint=False)
+        t = torch.as_tensor(-np.log1p(-q), dtype=dtype, device=device)  # expon.ppf
+        return cls(t=t, c=torch.ones_like(t))
+
+    @classmethod
+    def from_pmf(cls, t, p, dtype=torch.float64, device="cpu") -> "SizeHistory":
+        """The history whose coalescence-time pmf over the grid t is p:
+        p[i] = P(coalescence in [t[i], t[i+1])).  The rate of the last (open)
+        epoch is unidentifiable and set to 1."""
+        t, p = np.asarray(t), np.asarray(p)
+        R, c = 0.0, []
+        for dt, p_i in zip(np.diff(t), p[:-1]):
+            c.append(-np.log1p(-p_i * np.exp(R)) / dt)
+            R += c[-1] * dt
+        c.append(1.0)
+        as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)  # noqa: E731
+        return cls(t=as_t(t), c=as_t(c))
+
+    def _one(self, what: str) -> None:
+        if self.t.ndim != 1:
+            raise ValueError(f"SizeHistory.{what} takes one model (1-D t and c), "
+                             f"got t of shape {tuple(self.t.shape)}")
+
+    # -- evaluation ---------------------------------------------------------
+    def __call__(self, x, Ne: bool = False) -> torch.Tensor:
+        """c(x), or Ne(x) with Ne=True, at the points x: a number or a 1-D
+        tensor shared by every model of the batch, or a tensor (..., N) with
+        the batch axes of t.  Returns the batch axes, then x's last axis."""
+        x = torch.as_tensor(x, dtype=self.t.dtype, device=self.t.device)
+        pts = x.reshape(1) if x.ndim == 0 else x
+        edges = _append(self.t, math.inf)
+        pts = pts.expand(*edges.shape[:-1], pts.shape[-1]).contiguous()
+        j = torch.searchsorted(edges.contiguous(), pts, right=True) - 1
+        c = self.c.expand(*pts.shape[:-1], self.K)
+        out = torch.gather(c, -1, j.clamp(0, self.K - 1))
+        out = out[..., 0] if x.ndim == 0 else out
+        return 0.5 / out if Ne else out
+
+    def to_pp(self) -> PPoly:
+        self._one("to_pp")
+        return PPoly(x=_append(self.t, math.inf), c=self.c[None])
+
+    @property
+    def R(self) -> PPoly:
+        "Cumulative coalescent hazard R(t) = int_0^t c(s) ds."
+        return self.to_pp().antiderivative()
+
+    def density(self, c: float = 1.0) -> Callable:
+        "Coalescence-time density (optionally with rate multiplier c)."
+        R = self.R
+        return lambda x: c * self(x) * torch.exp(-c * R(x))
+
+    @property
+    def sf(self) -> Callable:
+        R = self.R
+        return lambda x: torch.exp(-R(x))
+
+    @property
+    def cdf(self) -> Callable:
+        R = self.R
+        return lambda x: -torch.expm1(-R(x))
+
+    @property
+    def mu(self) -> torch.Tensor:
+        "Unconditional expected pairwise coalescence time."
+        return self.to_pp().exp_integral()
 
     def surv(self) -> torch.Tensor:
         "Survival function of the coalescence density at each breakpoint."
@@ -83,6 +170,78 @@ class SizeHistory:
         etjj = self.etjj(n)
         return etjj @ _W_tensor(n, etjj.dtype, etjj.device).T
 
+    # -- quantiles / metrics --------------------------------------------------
+    def quantile(self, q: float) -> float:
+        "Time at which the coalescence CDF reaches q (host-side root finding)."
+        from scipy.optimize import root_scalar
+
+        R = self.R
+
+        def f(x):
+            return -np.expm1(-float(R(x))) - q
+
+        hi = float(self.t[-1]) or 1.0
+        while f(hi) < 0:
+            hi *= 2.0
+        return root_scalar(f, bracket=(0.0, hi)).root
+
+    def balance(self) -> "SizeHistory":
+        "Re-grid so that each epoch carries equal coalescence mass."
+        t = torch.as_tensor([self.quantile(q) for q in np.linspace(0, 1, self.K, endpoint=True)],
+                            dtype=self.t.dtype, device=self.t.device)
+        return SizeHistory(t=t, c=self(t))
+
+    def _union(self, other: "SizeHistory", *extra: float) -> np.ndarray:
+        "The sorted union of both grids (and `extra`), on the host."
+        self._one("tv and l2")
+        other._one("tv and l2")
+        pts = set(self.t.tolist()) | set(other.t.tolist()) | set(extra)
+        return np.array(sorted(pts))
+
+    def tv(self, other: "SizeHistory", n: int = 1) -> torch.Tensor:
+        """Total-variation distance between the two coalescence densities
+        for n diploid samples."""
+        n2 = 2 * n
+        rate_mult = n2 * (n2 - 1) / 2.0
+        t = torch.as_tensor(self._union(other), dtype=self.t.dtype, device=self.t.device)
+        if float(t[0]) != 0.0:
+            raise ValueError("SizeHistory.tv needs histories that start at t = 0")
+        mids = _append((t[:-1] + t[1:]) / 2.0, float(t[-1]) + 1.0)
+        R1 = SizeHistory(t=t, c=rate_mult * self(mids)).R
+        R2 = SizeHistory(t=t, c=rate_mult * other(mids)).R
+        return _tv_pwc(R1, R2)
+
+    def l2(self, other: "SizeHistory", t_max: float) -> torch.Tensor:
+        "L2 distance between the two Ne(t) trajectories on [0, t_max]."
+        grid = self._union(other, float(t_max))
+        grid = torch.as_tensor(grid[grid <= t_max], dtype=self.t.dtype, device=self.t.device)
+        mid = (grid[:-1] + grid[1:]) / 2.0
+        d2 = (self(mid, Ne=True) - other(mid, Ne=True)) ** 2 * torch.diff(grid)
+        return torch.sqrt(d2.sum())
+
+
+def _tv_pwc(R1: PPoly, R2: PPoly) -> torch.Tensor:
+    """TV distance between two densities a e^{-(a t + b)} given their
+    piecewise-linear cumulative hazards (same breakpoints)."""
+    return 0.5 * _tv_piece(R1.c[0], R1.c[1], R2.c[0], R2.c[1], torch.diff(R1.x)).sum()
+
+
+def _tv_piece(a1, b1, a2, b2, T) -> torch.Tensor:
+    "int_0^T |a1 e^{-(a1 t + b1)} - a2 e^{-(a2 t + b2)}| dt, exactly, per piece."
+
+    def F(a, b, U):
+        "int_0^U a e^{-(a t + b)} dt; valid at U = +inf for a > 0."
+        return torch.exp(-b) * torch.where(torch.isinf(U), torch.ones_like(U),
+                                           -torch.expm1(-a * U))
+
+    same = torch.isclose(a1, a2)
+    denom = torch.where(same, torch.ones_like(a1), a1 - a2)
+    # the two densities cross at most once on the piece
+    t_x = torch.minimum(torch.clamp_min((torch.log(a1 / a2) + b2 - b1) / denom, 0.0), T)
+    t_x = torch.where(same, torch.zeros_like(t_x), t_x)
+    f1, f2 = F(a1, b1, t_x), F(a2, b2, t_x)
+    return torch.abs(f1 - f2) + torch.abs((F(a1, b1, T) - f1) - (F(a2, b2, T) - f2))
+
 
 def _psmc_time_grid(M: int, t_max: float = 15.0) -> np.ndarray:
     "Default discretization grid: 0 followed by geomspace(1e-3, t_max, M-1)."
@@ -93,7 +252,7 @@ def _psmc_time_grid(M: int, t_max: float = 15.0) -> np.ndarray:
 class DemographicModel:
     eta: SizeHistory
     theta: float  # scaled mutation rate per window (one value for the cloud)
-    rho: torch.Tensor | float  # scaled recombination rate per window, (...)
+    rho: torch.Tensor | float | None  # scaled recombination rate per window, (...)
 
     @classmethod
     def default(cls, pattern: str, theta: float, rho: float = None, t_max: float = 15.0,
@@ -110,7 +269,12 @@ class DemographicModel:
         per-generation mutation rate mu."""
         N0 = (self.theta / 2.0) / mu
         eta = SizeHistory(t=N0 * self.eta.t, c=self.eta.c / N0)
-        return DemographicModel(eta=eta, theta=mu, rho=self.rho / N0)
+        rho = None if self.rho is None else self.rho / N0
+        return DemographicModel(eta=eta, theta=mu, rho=rho)
+
+    @property
+    def M(self) -> int:
+        return self.eta.M
 
 
 # The constants of etjj and etbl, built once per (n, dtype, device) and

@@ -224,17 +224,33 @@ def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: i
                    overlap: int, options: dict, device: torch.device,
                    generator: torch.Generator, kernel_backend: str = None) -> TrainingProgram:
     """Assemble particles, kernel and the step functions from chunked data.
-    kernel_backend: "smc" (default), "packed" (overlap 0 only) or "dense".
-    `generator` draws the initial cloud; `fit` draws the minibatch
-    indices (see the module docstring)."""
-    kernel_backend = check_backend(kernel_backend, overlap)
+    kernel_backend: "smc" (default), "packed" (overlap 0 only), "dense" or
+    "scan".  `generator` draws the initial cloud; `fit` draws the minibatch
+    indices (see the module docstring).  The options of phlash_tpu's
+    build_training that shape the program: truth (sets mutation_rate),
+    init (the cloud's centre, an MCMCParams), afs_transform,
+    double_precision_params (a float64 cloud and assembly), and
+    double_precision and kernel_seg_len (see kernel.py)."""
+    double_precision = options.get("double_precision", False)
+    seg_len = options.get("kernel_seg_len")
+    kernel_backend = check_backend(kernel_backend, overlap, double_precision, seg_len)
     niter = options.get("niter", 1000)
     mutation_rate = options.get("mutation_rate")
-    dtype = torch.float32  # the particle cloud and the assembly run in float32
+    truth = options.get("truth")
+    if truth is not None:
+        if mutation_rate:
+            raise ValueError("mutation rate is already known from truth")
+        mutation_rate = truth.theta
+    # the particle cloud and the assembly run in float32, or in float64 with
+    # double_precision_params=True
+    dtype = torch.float64 if options.get("double_precision_params", False) else torch.float32
 
-    afs_transform = None
+    afs_transform = options.get("afs_transform")
+    if afs_transform is None and afs is not None:
+        afs_transform = default_afs_transform(afs)
+    if afs_transform is not None:
+        afs_transform = torch.as_tensor(afs_transform, dtype=dtype, device=device)
     if afs is not None:
-        afs_transform = torch.as_tensor(default_afs_transform(afs), dtype=dtype, device=device)
         afs = torch.as_tensor(np.asarray(afs), dtype=dtype, device=device)
 
     S = resolve_minibatch_size(options, len(chunks), niter)
@@ -252,26 +268,31 @@ def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: i
     theta = options.get("theta", watterson)
     logger.info("scaled mutation rate theta=%.4g", theta)
 
-    t1, tM = options.get("t1"), options.get("tM")
-    if mutation_rate is not None:
-        N0 = theta / mutation_rate
-        t1 = 1e1 / 2 / N0 if t1 is None else t1
-        tM = 1e6 / 2 / N0 if tM is None else tM
-    t1 = 1e-4 if t1 is None else t1
-    tM = 15.0 if tM is None else tM
-    rho = options.get("rho_over_theta", 1.0) * theta
-    pattern = options.get("pattern", "14*1+1*2")
-    # assembled in float64 like phlash_tpu's init, then cast to the cloud's dtype
-    init = MCMCParams.from_linear(
-        pattern=pattern,
-        rho=rho * window_size,
-        t1=t1,
-        tM=tM,
-        c=np.ones(len(Pattern(pattern))),
-        theta=theta * window_size,
-        alpha=options.get("alpha", 0.0),
-        beta=options.get("beta", 0.0),
-    ).to(dtype=dtype, device=device)
+    init = options.get("init")
+    if init is None:
+        t1, tM = options.get("t1"), options.get("tM")
+        if mutation_rate is not None:
+            N0 = theta / mutation_rate
+            t1 = 1e1 / 2 / N0 if t1 is None else t1
+            tM = 1e6 / 2 / N0 if tM is None else tM
+        t1 = 1e-4 if t1 is None else t1
+        tM = 15.0 if tM is None else tM
+        rho = options.get("rho_over_theta", 1.0) * theta
+        pattern = options.get("pattern", "14*1+1*2")
+        # assembled in float64 like phlash_tpu's init, then cast to the cloud's dtype
+        init = MCMCParams.from_linear(
+            pattern=pattern,
+            rho=rho * window_size,
+            t1=t1,
+            tM=tM,
+            c=np.ones(len(Pattern(pattern))),
+            theta=theta * window_size,
+            alpha=options.get("alpha", 0.0),
+            beta=options.get("beta", 0.0),
+        )
+    elif not isinstance(init, MCMCParams):
+        raise TypeError(f"init must be a phlash_tpu_torch.params.MCMCParams, got {type(init)}")
+    init = init.to(dtype=dtype, device=device)
 
     # particle cloud: Gaussian around the init, covariance sigma * I
     num_particles = options.get("num_particles", 500)
@@ -287,7 +308,7 @@ def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: i
     warmup_dev = torch.as_tensor(np.ascontiguousarray(warmup_host), dtype=torch.int8,
                                  device=device)
     kern = get_kernel(M=init.M, data=np.ascontiguousarray(data_host), device=device,
-                      backend=kernel_backend)
+                      backend=kernel_backend, double_precision=double_precision, seg_len=seg_len)
 
     # unbiased minibatch gradients: HMM term scaled by N / S
     weights = (1.0, N / S, 1.0)

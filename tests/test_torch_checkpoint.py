@@ -173,7 +173,16 @@ def test_step_meter():
         m.tick(10)
     assert m._steps == 50
     assert m.steps_per_sec > 0 and m.msites_per_sec > 0
-    assert "50 steps" in m.summary()
+    assert "50 steps" in m.summary() and "graph set-up 0.000 s" in m.summary()
+
+
+def test_fit_logs_its_step_meter(contig, caplog):
+    """The "fit finished" record carries the loop's StepMeter: the
+    iterations it ran, and no graph set-up on the CPU."""
+    with caplog.at_level(logging.INFO, logger="phlash_tpu_torch.mcmc"):
+        mcmc.fit([contig], niter=3, steps_per_call=2, **FIT)
+    (meter,) = [r.step_meter for r in caplog.records if hasattr(r, "step_meter")]
+    assert isinstance(meter, StepMeter) and meter._steps == 3 and meter.setup_seconds == 0.0
 
 
 def test_async_writer_orders_saves_and_surfaces_errors(tmp_path, monkeypatch):

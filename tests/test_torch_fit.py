@@ -1,6 +1,7 @@
 """The slice end to end on the CPU (phlash_tpu_torch.psmc with the plain
 kernel versions), ingestion against phlash_tpu, the import boundary, and the
-options and devices the port refuses."""
+options and devices the port refuses (the fit options it implements are
+tested in test_torch_fit_options.py)."""
 
 import pytest
 
@@ -68,7 +69,9 @@ def test_ingestion_matches_jax(psmcfa):
 
 def test_import_leaves_jax_out():
     "Importing the port loads neither JAX nor phlash_tpu."
-    code = ("import sys, phlash_tpu_torch, phlash_tpu_torch.convert; "
+    code = ("import sys, phlash_tpu_torch, phlash_tpu_torch.convert, phlash_tpu_torch.cband, "
+            "phlash_tpu_torch.hmm, phlash_tpu_torch.ppoly, phlash_tpu_torch.repro, "
+            "phlash_tpu_torch.results, phlash_tpu_torch.sim; "
             "bad = [m for m in ('jax', 'phlash_tpu') if m in sys.modules]; "
             "sys.exit(f'imported {bad}' if bad else 0)")
     path = os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")])
@@ -97,9 +100,7 @@ def test_backend_device_mismatch_raises(device, backend):
 
 
 @pytest.mark.parametrize("option", [
-    dict(num_workers=2), dict(mesh=object()), dict(init=object()),
-    dict(kernel_seg_len="auto"), dict(callback=print), dict(double_precision=True),
-    dict(truth=object()), dict(afs_transform=np.eye(1)), dict(double_precision_params=True),
+    dict(num_workers=2), dict(mesh=object()), dict(key=7),
 ], ids=lambda d: next(iter(d)))
 def test_unimplemented_options_raise(psmcfa, option):
     with pytest.raises(NotImplementedError):

@@ -63,6 +63,20 @@ Phases, each of which prints its own lines and aborts the run on failure:
    hashes across runs show the run-to-run determinism) and the gate's
    reading on the port's ensemble with planted biases (c of epochs 5-8
    times 1.2, 1.5, 2.0), the largest of which must fail the gate.
+7. from genome files: phlash_tpu_torch.sim simulates two contigs (chr1,
+   chr2) of 500,000 windows (50 Mb) of 8 diploids under the bottleneck;
+   one record per window where any sample is het is written, with the
+   port's writers, as a tabix-indexed .vcf.gz, a plain .vcf and a .bcf
+   with .csi; contig() of chr1 from each form must give the planted het
+   matrix and the records' AFS (n = 16) exactly, through the C tokenizer
+   and the native BCF reader with no warning; phlash_tpu_torch.fit from
+   the .vcf.gz (chr1 as its two arms, read by a spawn pool of 2 workers,
+   chr2 held out) at 500 particles, chunks of 2000 + 500, 30 iterations
+   by graph replay with the ELPD, with exact launch counts and finite
+   particles; the AFS term of the initial cloud in float32 within 1e-5
+   relative of float64; and `python -m phlash_tpu_torch fit` called
+   in-process on the .vcf.gz (chr2 held out, 20 iterations, exact launch
+   counts) writes a posterior of 500 models that load_posterior reads.
 `--profile` also prints torch.profiler tables of eager and graphed steps
 of each path, with the device busy share.
 The last two lines are a JSON summary of the kernels (B1-B5) and the
@@ -338,16 +352,19 @@ def check_scan(torch, dev) -> dict:
 REPRO_PATHS = (("smc", 500), ("packed", 0))
 
 
-class FitMeters(logging.Handler):
-    "Collects the StepMeter that each fit's 'fit finished' log record carries."
+class Records(logging.Handler):
+    """Collects a logger's records at `level` and up; at each 'fit finished'
+    record, the StepMeter's setup seconds and its rate at that moment."""
 
-    def __init__(self):
-        super().__init__(logging.INFO)
-        self.meters = []
+    def __init__(self, level=logging.DEBUG):
+        super().__init__(level)
+        self.records, self.meters = [], []
 
     def emit(self, record):
+        self.records.append(record)
         if hasattr(record, "step_meter"):
-            self.meters.append(record.step_meter)
+            m = record.step_meter
+            self.meters.append(dict(setup_seconds=m.setup_seconds, steps_per_sec=m.steps_per_sec))
 
 
 def ensemble_digest(models) -> str:
@@ -388,7 +405,7 @@ def repro_phase(torch, ops: dict) -> list[dict]:
     # iteration; no held-out data, so no ELPD
     steps = niter + 1
     log = logging.getLogger("phlash_tpu_torch.mcmc")
-    meters, level = FitMeters(), log.level
+    meters, level = Records(logging.INFO), log.level
     log.addHandler(meters)
     log.setLevel(logging.INFO)
     out = []
@@ -409,7 +426,7 @@ def repro_phase(torch, ops: dict) -> list[dict]:
                                         **meta["shared"])
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            captures.append(meters.meters.pop().setup_seconds)
+            captures.append(meters.meters.pop()["setup_seconds"])
             counts = {name: mod.counts() for name, mod in ops.items()}
             if counts[backend] != want:
                 fail(f"the {backend} repro fit (seed {seed}) launched {counts[backend]}; "
@@ -468,13 +485,14 @@ SPC = 10  # steps_per_call, the CUDA default: one graph replay per 10 iterations
 SLICE = dict(num_particles=500, minibatch_size=5, chunk_size=2000)
 
 
-def expected_counts(backend: str) -> dict:
-    """Launches of a phase-4 fit: NITER iterations by graph replay, an ELPD
-    in each of the NITER / SPC calls (its cadence, 10 iterations, is one
-    call), and the eager warm-up iteration and ELPD before the one capture.
-    An smc iteration runs the warm-up filter and the likelihood, each B2 +
-    B3; its ELPD two B1.  A packed iteration runs B4 + B5, its ELPD one B4."""
-    steps, elpds = NITER + 1, NITER // SPC + 1
+def expected_counts(backend: str, niter: int = NITER) -> dict:
+    """Launches of a fit with held-out data (phases 4, 4b, 7): niter (a
+    multiple of SPC) iterations by graph replay, an ELPD in each of the
+    niter / SPC calls (its cadence, 10 iterations, is one call), and the
+    eager warm-up iteration and ELPD before the one capture.  An smc
+    iteration runs the warm-up filter and the likelihood, each B2 + B3; its
+    ELPD two B1.  A packed iteration runs B4 + B5, its ELPD one B4."""
+    steps, elpds = niter + 1, niter // SPC + 1
     if backend == "smc":
         return dict(forward_cuda=2 * steps + 2 * elpds, forward_cuda_residuals=2 * steps,
                     backward_cuda=2 * steps, forward_plain=0, backward_plain=0)
@@ -909,11 +927,262 @@ def packed_timing(torch, packed, dev, fit_inputs: dict):
     return t
 
 
-def kernel_entry(name, source, replaces, launches, errs, gate, t, key):
-    "One kernel of the JSON summary line; `key` names its times in `t`."
+# phase 7: genome files.  Two contigs of GENOME_WINDOWS windows of 100 bp
+# (50 Mb each) of GENOME_SAMPLES diploids from the continuous SMC' under the
+# bottleneck, written as .vcf.gz with .tbi, .vcf and .bcf with .csi
+GENOME_WINDOWS = 500_000
+GENOME_SAMPLES = 8
+GENOME_CONTIGS = ("chr1", "chr2")
+HOM_ALT = 0.25  # chance that a sample not het at a record is 1|1 there (else 0|0)
+GT_TEXT = ("0|0", "0|1", "1|1")  # by derived-allele count
+GT_ALLELES = ((0, 0), (0, 1), (1, 1))
+GENOME_FIT = dict(num_particles=500, niter=NITER, overlap=500, chunk_size=2000, num_workers=2)
+CLI_NITER = 20
+
+
+def genome_records(het, rng, window_size: int = 100):
+    """One contig's records: one in each window where any sample is het, at
+    a random position inside it; a sample is 0|1 where its window is het,
+    else 1|1 with probability HOM_ALT and 0|0 otherwise.  Returns 1-based
+    positions (R,) and each call's derived-allele count (R, S) in 0..2."""
+    import numpy as np
+
+    w = np.flatnonzero(het.any(0))
+    pos = 1 + window_size * w + rng.integers(0, window_size, len(w))
+    hom_alt = rng.random((len(w), het.shape[0])) < HOM_ALT
+    return pos, np.where(het[:, w].T > 0, 1, np.where(hom_alt, 2, 0))
+
+
+def spectrum(code):
+    "The AFS (n - 1,) of records with derived-allele counts `code` (R, S)."
+    import numpy as np
+
+    n = 2 * code.shape[1]
+    return np.bincount(code.sum(1), minlength=n + 1)[1:-1]
+
+
+def write_genome_files(out: Path, planted: dict, samples: list[str], seed: int,
+                       window_size: int = 100) -> tuple[dict, dict, dict]:
+    """Write the contigs' records as out/genome.vcf.gz (+ .tbi), genome.vcf
+    and genome.bcf (+ .csi) with the port's writers.  `planted` maps a
+    contig name to its (S, W) het matrix.  Returns (paths, the AFS the
+    records carry by contig, seconds by form)."""
+    import numpy as np
+
+    from phlash_tpu_torch.io.bcf import write_bcf
+    from phlash_tpu_torch.io.tabix import write_tabixed_vcf
+
+    rng = np.random.default_rng(seed)
+    header = ("##fileformat=VCFv4.2\n"
+              '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n'
+              + "".join(f"##contig=<ID={c},length={h.shape[1] * window_size}>\n"
+                        for c, h in planted.items())
+              + "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+              + "\t".join(samples) + "\n")
+    lines, bcf_records, spectra = [header], [], {}
+    for chrom, het in planted.items():
+        pos, code = genome_records(het, rng, window_size)
+        spectra[chrom] = spectrum(code)
+        for p, row in zip(pos.tolist(), code.tolist()):
+            lines.append(f"{chrom}\t{p}\t.\tA\tT\t.\tPASS\t.\tGT\t"
+                         + "\t".join(GT_TEXT[k] for k in row) + "\n")
+            bcf_records.append((chrom, p, "A", ["T"], [GT_ALLELES[k] for k in row]))
+    text = "".join(lines)
+    paths = {form: out / f"genome.{form}" for form in ("vcf.gz", "vcf", "bcf")}
+    seconds = {}
+    t0 = time.perf_counter()
+    write_tabixed_vcf(str(paths["vcf.gz"]), text)
+    seconds["vcf.gz"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths["vcf"].write_text(text)
+    seconds["vcf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_bcf(str(paths["bcf"]), header, bcf_records, index=True)
+    seconds["bcf"] = time.perf_counter() - t0
+    return paths, spectra, seconds
+
+
+def check_ingestion(paths: dict, planted: dict, spectra: dict, samples: list[str],
+                    chrom: str, window_size: int = 100) -> dict:
+    """Phase 7b: contig(path, samples, region).get_data() of each form over the
+    whole of `chrom` must give the planted het matrix and the records' AFS
+    exactly, through the C tokenizer and the native BCF reader with no
+    warning.  Returns the seconds of each form."""
+    import numpy as np
+
+    from phlash_tpu_torch.data import contig
+    from phlash_tpu_torch.io import vcf_parser_backend
+
+    if vcf_parser_backend() != "c":
+        fail("the C VCF tokenizer did not build (vcf_parser_backend() is not 'c')")
+    log, warned = logging.getLogger("phlash_tpu_torch.data"), Records(logging.WARNING)
+    log.addHandler(warned)
+    region = f"{chrom}:1-{planted[chrom].shape[1] * window_size}"
+    seconds = {}
+    try:
+        for form, path in paths.items():
+            t0 = time.perf_counter()
+            d = contig(str(path), samples, region).get_data(window_size)
+            seconds[form] = time.perf_counter() - t0
+            if not np.array_equal(d["het_matrix"], planted[chrom].astype(np.int8)):
+                fail(f"genome.{form} {region}: the het matrix is not the planted one")
+            if not np.array_equal(d["afs"], spectra[chrom]):
+                fail(f"genome.{form} {region}: AFS {d['afs'].tolist()}, "
+                     f"the records carry {spectra[chrom].tolist()}")
+    finally:
+        log.removeHandler(warned)
+    if warned.records:
+        fail(f"ingestion warned: {[r.getMessage() for r in warned.records]}")
+    return seconds
+
+
+def afs_term_precision(torch, prog) -> dict:
+    """The AFS term of prog's initial cloud in its float32 against float64
+    (the same particles, cast): max relative difference over the particles."""
+    from phlash_tpu_torch.model import log_afs
+
+    x = prog.state.particles
+    a32 = log_afs(prog.init.unflatten(x).to_dm().eta, prog.afs, prog.afs_transform)
+    init64 = prog.init.to(dtype=torch.float64)
+    a64 = log_afs(init64.unflatten(x.double()).to_dm().eta, prog.afs.double(),
+                  prog.afs_transform.double())
+    rel = float(((a32.double() - a64).abs() / a64.abs()).max())
+    return dict(n=int(prog.afs.shape[-1]) + 1, f32_median=float(a32.median()),
+                f64_median=float(a64.median()), max_rel=rel)
+
+
+def genome_phase(torch, ops: dict, dev, tmp: str) -> dict:
+    """Phase 7: from genome files to a posterior.  (a) simulate and write
+    the files; (b) the ingestion gates; (c) phlash_tpu_torch.fit from the
+    .vcf.gz with a spawn pool of 2 readers, by graph replay with the fused
+    ELPD on chr2, with exact launch counts; (d) the command line in-process.
+    Returns the phase's launch counts of the smc kernels."""
+    import numpy as np
+
+    import phlash_tpu_torch
+    from phlash_tpu_torch import results, sim
+    from phlash_tpu_torch.__main__ import main as cli
+    from phlash_tpu_torch.data import contig, init_mcmc_data
+    from phlash_tpu_torch.mcmc import generators
+    from phlash_tpu_torch.training import build_training
+
+    out = Path(tmp) / "genome"
+    out.mkdir()
+    samples = [f"s{i}" for i in range(GENOME_SAMPLES)]
+    truth = sim.bottleneck_demography()
+    t0 = time.perf_counter()
+    planted = {c: sim.simulate_smc_continuous(truth, L=GENOME_WINDOWS, n_samples=GENOME_SAMPLES,
+                                              seed=SEED + 70 + k).het_matrix
+               for k, c in enumerate(GENOME_CONTIGS)}
+    t_sim = time.perf_counter() - t0
+    paths, spectra, t_write = write_genome_files(out, planted, samples, SEED + 79)
+    print(f"genome: {len(planted)} contigs x {GENOME_WINDOWS} windows x {GENOME_SAMPLES} "
+          f"samples simulated in {t_sim:.2f} s; records "
+          f"{ {c: int(h.any(0).sum()) for c, h in planted.items()} }; written in "
+          + ", ".join(f"{f} {s:.2f} s ({paths[f].stat().st_size} B)" for f, s in t_write.items()))
+    print(f"genome: AFS (n = {2 * GENOME_SAMPLES}) of chr1 {spectra['chr1'].tolist()}")
+
+    # b. ingestion gates
+    t_read = check_ingestion(paths, planted, spectra, samples, "chr1")
+    print("genome: chr1 ingested equal to the planted het matrix and AFS (C tokenizer, "
+          "native BCF): " + ", ".join(f"{f} {s:.3f} s" for f, s in t_read.items()))
+
+    # c. the fit: chr1 as its two arms (so that the pool has two contigs to
+    # read), chr2 held out
+    end = GENOME_WINDOWS * 100
+    half = end // 2
+    vcf_gz = str(paths["vcf.gz"])
+    train = [contig(vcf_gz, samples, f"chr1:1-{half}"), contig(vcf_gz, samples,
+                                                               f"chr1:{half + 1}-{end}")]
+    test = contig(vcf_gz, samples, f"chr2:1-{end}")
+    mlog, fitlog = logging.getLogger("phlash_tpu_torch"), Records()  # mcmc's and data's
+    level = mlog.level
+    mlog.addHandler(fitlog)
+    mlog.setLevel(logging.DEBUG)
+    try:
+        for mod in ops.values():
+            mod.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post = phlash_tpu_torch.fit(train, test_data=test, device="cuda", seed=SEED + 7,
+                                    progress=False, **GENOME_FIT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: mod.counts() for name, mod in ops.items()}
+    finally:
+        mlog.removeHandler(fitlog)
+        mlog.setLevel(level)
+    want = expected_counts("smc")
+    if counts["smc"] != want:
+        fail(f"the genome-file fit launched {counts['smc']}; expected {want}")
+    if any(counts["packed"].values()):
+        fail("the genome-file fit launched the packed kernels")
+    if len(post) != GENOME_FIT["num_particles"] or not all(
+            torch.isfinite(m.eta.t).all() and torch.isfinite(m.eta.c).all()
+            and (m.eta.c > 0).all() and np.isfinite(m.rho) for m in post):
+        fail(f"the genome-file fit did not return {GENOME_FIT['num_particles']} finite models")
+    if not any(r.getMessage().startswith("reading 2 contigs in a pool") for r in fitlog.records):
+        fail("the genome-file fit did not read its contigs in the worker pool")
+    down = [r.args for r in fitlog.records if r.getMessage().startswith("downsampling chunks")]
+    meter = fitlog.meters[-1]
+    loop_s = GENOME_FIT["niter"] / meter["steps_per_sec"]
+    ms_iter = 1e3 * (loop_s - meter["setup_seconds"]) / GENOME_FIT["niter"]
+    # the AFS term of an initial cloud drawn as the fit draws its own, on
+    # the chunks before the cap
+    afs, chunks = init_mcmc_data(train, 100, GENOME_FIT["overlap"], GENOME_FIT["chunk_size"],
+                                 num_workers=1)
+    prog = build_training(chunks, afs, window_size=100, overlap=GENOME_FIT["overlap"],
+                          options=dict(GENOME_FIT, minibatch_size=5), device=dev,
+                          generator=generators(SEED + 7, dev)[0], kernel_backend="smc")
+    prec = afs_term_precision(torch, prog)
+    line = dict(phase="genome", wall_s=wall, setup_s=meter["setup_seconds"],
+                ms_per_iter_without_setup=ms_iter, chunks_before_after_cap=down[0] if down
+                else [len(chunks)] * 2, launches=counts["smc"], afs_term=prec,
+                ingest_s=t_read, write_s=t_write)
+    print(f"genome fit: {len(post)} finite models in {wall:.2f} s (reading, chunking, "
+          f"graph set-up {meter['setup_seconds']:.3f} s included); {ms_iter:.3f} ms an "
+          f"iteration without set-up; chunks {line['chunks_before_after_cap']} before / after "
+          f"the 5*S*niter cap; launches {counts['smc']}")
+    print(f"genome fit: AFS term of the initial cloud (n = {prec['n']}), float32 against "
+          f"float64: max relative difference {prec['max_rel']:.3e}")
+    if not prec["max_rel"] <= 1e-5:
+        fail(f"the float32 AFS term is off its float64 value by {prec['max_rel']:.3e} > 1e-5")
+
+    # d. the command line, in this process
+    post_path = out / "post.npz"
+    for mod in ops.values():
+        mod.reset_counts()
+    t0 = time.perf_counter()
+    rc = cli(["fit", vcf_gz, vcf_gz, "--region", f"chr2:1-{end}", "--region", f"chr1:1-{end}",
+              "--samples", *samples, "--hold-out", "--niter", str(CLI_NITER),
+              "--particles", str(GENOME_FIT["num_particles"]),
+              "--out", str(post_path), "--seed", "1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_counts = ops["smc"].counts()
+    models = results.load_posterior(str(post_path))
+    print(f"genome cli: exit {rc} in {cli_s:.2f} s; {len(models)} models read back from "
+          f"{post_path.name}; launches {cli_counts}")
+    if rc != 0 or len(models) != GENOME_FIT["num_particles"]:
+        fail(f"the command line exited {rc} and wrote {len(models)} models")
+    if cli_counts != expected_counts("smc", CLI_NITER):
+        fail(f"the command line's fit launched {cli_counts}; expected "
+             f"{expected_counts('smc', CLI_NITER)}")
+    line.update(cli_s=cli_s, cli_launches=cli_counts)
+    print(json.dumps(line))
+    return counts["smc"]
+
+
+def kernel_entry(name, source, replaces, launches, genome_launches, errs, gate, t, key):
+    """One kernel of the JSON summary line; `key` names its times in `t`.
+    `launches` counts phase 4 / 4b's fit of its path, `genome_launches`
+    phase 7's fit from genome files."""
     ms_bound, by = t[key + "_bound"]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, **errs, "gate": gate, "ms": t[key],
+            "launches": launches,
+            "launches_by_path": {"psmcfa (phase 4/4b)": launches,
+                                 "genome files (phase 7)": genome_launches},
+            **errs, "gate": gate, "ms": t[key],
             "plain_ms": t[key + "_plain"], "bound_ms": ms_bound, "bound_by": by,
             "library_ms": None}
 
@@ -1020,6 +1289,10 @@ def main() -> int:
     # 6. posterior reproduction against phlash_tpu.fit
     repro_phase(torch, ops)
 
+    # 7. from genome files to a posterior
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
+        gcounts = genome_phase(torch, ops, dev, tmp)
+
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:
         fail("JAX or phlash_tpu was imported")
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s before its summary")
@@ -1031,24 +1304,25 @@ def main() -> int:
     smc_gate = "rel: ll 1e-5, alpha and pstates 1e-4; B1 equal to B2 bitwise"
     print(json.dumps({"kernels": [
         kernel_entry("smc_forward", src + "smc_forward.cu", "phlash_tpu/ops/pallas_smc.py:358",
-                     counts["forward_cuda"] - counts["forward_cuda_residuals"], smc_fwd,
+                     counts["forward_cuda"] - counts["forward_cuda_residuals"],
+                     gcounts["forward_cuda"] - gcounts["forward_cuda_residuals"], smc_fwd,
                      smc_gate, t, "fwd"),
         kernel_entry("smc_forward_residuals", src + "smc_forward.cu",
                      "phlash_tpu/ops/pallas_smc.py:358", counts["forward_cuda_residuals"],
-                     smc_fwd, smc_gate, t, "fwd_res"),
+                     gcounts["forward_cuda_residuals"], smc_fwd, smc_gate, t, "fwd_res"),
         kernel_entry("smc_backward", src + "smc_backward.cu", "phlash_tpu/ops/pallas_smc.py:511",
-                     counts["backward_cuda"],
+                     counts["backward_cuda"], gcounts["backward_cuda"],
                      {"max_abs_err": errs["backward"]["abs"],
                       "max_normalized_err": errs["backward"]["grad"]},
                      "max|err| / max|plain| per gradient 2e-5", t, "bwd"),
         kernel_entry("packed_forward", src + "packed_forward.cu",
-                     "phlash_tpu/ops/pallas_hmm.py:162", pcounts["forward_cuda"],
+                     "phlash_tpu/ops/pallas_hmm.py:162", pcounts["forward_cuda"], 0,
                      {"max_abs_err": perrs["forward"]["abs"],
                       "max_rel_err_ll": perrs["forward"]["ll"],
                       "max_rel_err_ckpt": perrs["forward"]["ckpt"]},
                      "rel: ll 1e-5, ckpt 1e-4", pt, "fwd"),
         kernel_entry("packed_backward", src + "packed_backward.cu",
-                     "phlash_tpu/ops/pallas_hmm_vjp.py:155", pcounts["backward_cuda"],
+                     "phlash_tpu/ops/pallas_hmm_vjp.py:155", pcounts["backward_cuda"], 0,
                      {"max_abs_err": perrs["backward"]["abs"],
                       "max_normalized_err": perrs["backward"]["grad"]},
                      "max|err| / max|plain| per gradient 2e-5", pt, "bwd"),

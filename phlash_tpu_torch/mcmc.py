@@ -17,7 +17,9 @@ chunk_size, minibatch_size, learning_rate, sigma, theta, mutation_rate,
 truth (a DemographicModel: mutation_rate = truth.theta; giving both raises
 ValueError), init (an MCMCParams: the initial cloud's centre),
 afs_transform, pattern, t1, tM, rho_over_theta, alpha, beta, elpd_cutoff,
-elpd_samples, max_samples (held-out rows, 20), return_final,
+elpd_samples, max_samples (held-out rows, 20), num_workers (processes that
+read and chunk contigs from files, see data.init_mcmc_data; None: one per
+CPU), return_final,
 double_precision_params (a float64 cloud and assembly), double_precision
 and kernel_seg_len (see kernel.py: float64 kernel state on "dense" and
 "scan" only; a segment length on "dense" only), steps_per_call (10 on CUDA,
@@ -25,9 +27,12 @@ and kernel_seg_len (see kernel.py: float64 kernel state on "dense" and
 (True; a tqdm bar when tqdm imports) and callback: called after each call
 with the cloud as one batched DemographicModel in per-window-base units
 (rescaled by the mutation rate when known), read back to the host once a
-call; phlash_tpu's default is its live plot, the port's is None (no read
-back).  New in the port: device (default "cuda"; no card means an error,
-never a CPU fallback), seed and kernel_backend, the likelihood algorithm:
+call.  Without a callback, fit uses liveplot.liveplot_cb (a live plot in a
+Jupyter notebook with plotly) and, where that raises, none: then nothing is
+read back between calls.  `data` and `test_data` are data.Contig objects
+(contig(), RawContig, VcfContig, TreeSequenceContig).  New in the port:
+device (default "cuda"; no card means an error, never a CPU fallback),
+seed and kernel_backend, the likelihood algorithm:
 "smc" (the default; phlash_tpu's "pallas"), "packed" (phlash_tpu's
 "pallas_mxu"; needs overlap=0), "dense" or "scan"; see kernel.py.  The
 device decides between the hand CUDA kernels and their plain versions.
@@ -37,8 +42,7 @@ cloud and every call's minibatch indices) with `seed` itself, and the
 held-out ELPD's (its chunk subsets) with a seed derived from `seed` and
 ELPD_STREAM.  So the ELPD cadence leaves the step stream alone, as
 phlash_tpu's fold_in does, and a checkpoint stores both generators' states.
-phlash_tpu's key (use seed), mesh and num_workers > 1 raise
-NotImplementedError when set.
+phlash_tpu's key (use seed) and mesh raise NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ import numpy as np
 import torch
 
 from phlash_tpu_torch.checkpoint import AsyncCheckpointWriter, TrainCheckpoint, load_checkpoint
-from phlash_tpu_torch.data import RawContig, chunk_het_matrix, init_mcmc_data
+from phlash_tpu_torch.data import Contig, chunk_het_matrix, init_mcmc_data
 from phlash_tpu_torch.kernel import check_backend, get_kernel, resolve_device
 from phlash_tpu_torch.model import log_density_batched
 from phlash_tpu_torch.params import MCMCParams
@@ -70,13 +74,12 @@ _OPTIONS = {
     "niter", "num_particles", "window_size", "overlap", "chunk_size", "minibatch_size",
     "learning_rate", "sigma", "theta", "mutation_rate", "truth", "init", "afs_transform",
     "pattern", "t1", "tM", "rho_over_theta", "alpha", "beta", "elpd_cutoff", "elpd_samples",
-    "max_samples", "return_final", "double_precision_params", "double_precision",
+    "max_samples", "num_workers", "return_final", "double_precision_params", "double_precision",
     "kernel_seg_len", "steps_per_call", "check_every", "checkpoint_path", "save_every",
     "progress", "callback",
 }
-# phlash_tpu.fit options without a counterpart here, with the value that
-# means "off" (which is accepted)
-_NOT_IMPLEMENTED = {"mesh": None, "key": None, "num_workers": 1}
+# phlash_tpu.fit options without a counterpart here (None is accepted)
+_NOT_IMPLEMENTED = ("mesh", "key")
 CHECK_EVERY = 10  # iterations between finiteness checks (each one syncs the device)
 ELPD_EVERY = 10  # iterations between held-out ELPD evaluations
 SAVE_EVERY = 50  # iterations between checkpoint saves
@@ -88,8 +91,7 @@ def _check_options(options: dict) -> None:
         if k in _OPTIONS:
             continue
         if k in _NOT_IMPLEMENTED:
-            off = _NOT_IMPLEMENTED[k]
-            if v is None or (isinstance(v, (bool, int)) and v == off):
+            if v is None:
                 continue
             hint = " (use seed=)" if k == "key" else ""
             raise NotImplementedError(f"fit option {k}={v!r} is not implemented{hint}")
@@ -155,7 +157,7 @@ class HeldOutELPD:
             ).mean()
 
 
-def held_out_elpd(prog: TrainingProgram, test_data: RawContig, *, span: int, overlap: int,
+def held_out_elpd(prog: TrainingProgram, test_data: Contig, *, span: int, overlap: int,
                   elpd_samples: int | None, device, kernel_backend: str, max_samples: int = 20,
                   double_precision: bool = False, seg_len=None) -> HeldOutELPD:
     """The held-out ELPD of the first `max_samples` rows of `test_data` for
@@ -193,7 +195,7 @@ def _progress(calls, enabled: bool):
     return tqdm.tqdm(calls, disable=not enabled, desc="fitting model")
 
 
-def fit(data: list[RawContig], test_data: RawContig = None, *, device="cuda", seed: int = 1,
+def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: int = 1,
         kernel_backend: str = None, **options) -> list[DemographicModel]:
     """Sample demographic models from the posterior.
 
@@ -216,7 +218,8 @@ def fit(data: list[RawContig], test_data: RawContig = None, *, device="cuda", se
     window_size = options.get("window_size", 100)
     overlap = options.get("overlap", 500)
 
-    afs, chunks = init_mcmc_data(data, window_size, overlap, options.get("chunk_size"))
+    afs, chunks = init_mcmc_data(data, window_size, overlap, options.get("chunk_size"),
+                                 options.get("max_samples", 20), options.get("num_workers"))
     del data
 
     # cap the device-resident data at what the run can visit
@@ -244,6 +247,14 @@ def fit(data: list[RawContig], test_data: RawContig = None, *, device="cuda", se
 
     spc = prog.steps_per_call
     callback = options.get("callback")
+    if callback is None:
+        try:
+            from phlash_tpu_torch.liveplot import liveplot_cb
+
+            callback = liveplot_cb(truth=options.get("truth"))
+        except Exception as e:  # no live-plot backend: read nothing back between calls
+            logger.debug("no live plot: %s", e)
+            callback = None
     elpd_cutoff = options.get("elpd_cutoff", 100)
     check_every = options.get("check_every", CHECK_EVERY)
     ckpt_path = options.get("checkpoint_path")

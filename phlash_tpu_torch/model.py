@@ -17,6 +17,7 @@ import math
 import torch
 
 from phlash_tpu_torch.params import MCMCParams, PSMCParams
+from phlash_tpu_torch.size_history import SizeHistory
 
 
 def log_prior(mcp: MCMCParams) -> torch.Tensor:
@@ -27,6 +28,21 @@ def log_prior(mcp: MCMCParams) -> torch.Tensor:
     lp = lp - mcp.alpha * (torch.diff(mcp.log_c) ** 2).sum(-1)
     flat = mcp.flatten()
     return lp - mcp.beta * (flat * flat).sum(-1)
+
+
+def log_afs(eta: SizeHistory, afs: torch.Tensor, afs_transform: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """(B,) AFS composite log-likelihood of the observed (n-1,) spectrum under
+    each history's expected spectrum, both through afs_transform (identity
+    when None), in the dtype of eta."""
+    n = afs.shape[-1] + 1
+    dtype = eta.c.dtype
+    T = (torch.eye(n - 1, dtype=dtype, device=eta.c.device)
+         if afs_transform is None else afs_transform.to(dtype))
+    T_afs = T @ afs.to(dtype)  # constant across particles
+    etbl = eta.etbl(n)  # (B, n-1)
+    esfs = etbl / etbl.sum(-1, keepdim=True)
+    return torch.special.xlogy(T_afs, (T * esfs[:, None, :]).sum(-1)).sum(-1)
 
 
 def log_density_batched(
@@ -52,14 +68,7 @@ def log_density_batched(
     l_hmm = kern.loglik_batched(pp.replace(pi=pis), inds).sum(1)
 
     if afs is not None:
-        n = afs.shape[-1] + 1
-        dtype = l_prior.dtype
-        T = (torch.eye(n - 1, dtype=dtype, device=l_prior.device)
-             if afs_transform is None else afs_transform.to(dtype))
-        T_afs = T @ afs.to(dtype)  # constant across particles
-        etbl = dms.eta.etbl(n)  # (B, n-1)
-        esfs = etbl / etbl.sum(-1, keepdim=True)
-        l_afs = torch.special.xlogy(T_afs, (T * esfs[:, None, :]).sum(-1)).sum(-1)
+        l_afs = log_afs(dms.eta, afs, afs_transform)
     else:
         l_afs = torch.zeros_like(l_prior)
 

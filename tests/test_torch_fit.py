@@ -71,7 +71,11 @@ def test_import_leaves_jax_out():
     "Importing the port loads neither JAX nor phlash_tpu."
     code = ("import sys, phlash_tpu_torch, phlash_tpu_torch.convert, phlash_tpu_torch.cband, "
             "phlash_tpu_torch.hmm, phlash_tpu_torch.ppoly, phlash_tpu_torch.repro, "
-            "phlash_tpu_torch.results, phlash_tpu_torch.sim; "
+            "phlash_tpu_torch.results, phlash_tpu_torch.sim, phlash_tpu_torch.data, "
+            "phlash_tpu_torch.io, phlash_tpu_torch.io.bcf, phlash_tpu_torch.io.tabix, "
+            "phlash_tpu_torch.mp, phlash_tpu_torch.plot, phlash_tpu_torch.liveplot, "
+            "phlash_tpu_torch.__main__; "
+            "phlash_tpu_torch.fit, phlash_tpu_torch.contig, phlash_tpu_torch.plot_posterior; "
             "bad = [m for m in ('jax', 'phlash_tpu') if m in sys.modules]; "
             "sys.exit(f'imported {bad}' if bad else 0)")
     path = os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")])
@@ -100,7 +104,7 @@ def test_backend_device_mismatch_raises(device, backend):
 
 
 @pytest.mark.parametrize("option", [
-    dict(num_workers=2), dict(mesh=object()), dict(key=7),
+    dict(mesh=object()), dict(key=7),
 ], ids=lambda d: next(iter(d)))
 def test_unimplemented_options_raise(psmcfa, option):
     with pytest.raises(NotImplementedError):

@@ -77,6 +77,20 @@ Phases, each of which prints its own lines and aborts the run on failure:
    relative of float64; and `python -m phlash_tpu_torch fit` called
    in-process on the .vcf.gz (chr2 held out, 20 iterations, exact launch
    counts) writes a posterior of 500 models that load_posterior reads.
+8. the multi-GPU path and the last of the periphery: (a) phase 4's two
+   fits again with mesh=make_mesh(1), a (1, 1) mesh over NCCL whose
+   collectives the CUDA graphs capture: the same exact launch counts,
+   particles within 1e-6 relative of phase 4's (bitwise equality printed),
+   the collective counter's calls and bytes, ms per graphed iteration in
+   turns with the unsharded programs of phase 4c (unsharded, meshed,
+   meshed, unsharded), and what NCCL says to two ranks on this one device;
+   (b) sim.simulate_hmm at L = 10,000,000 under the bottleneck, timed, its
+   het rate within 4 standard errors of its law and a path's state
+   marginal and transition counts by chi-square (p > 1e-3), then the
+   repo's canonical end-to-end drive on the port: three
+   simulated contigs of 20,000 windows as .psmcfa, psmc(...) on the card,
+   the posterior median of c in [0.5, 2]; (c) profiling.trace around one
+   graphed call of the smc program: the trace file names the smc kernels.
 `--profile` also prints torch.profiler tables of eager and graphed steps
 of each path, with the device busy share.
 The last two lines are a JSON summary of the kernels (B1-B5) and the
@@ -535,9 +549,10 @@ def run_slice(torch, ops, dev, path: Path, backend: str, overlap: int):
 
 
 def build_program(torch, dev, path: Path, backend: str, overlap: int, num_particles=500,
-                  minibatch_size=5, chunk_size=2000, niter=NITER):
+                  minibatch_size=5, chunk_size=2000, niter=NITER, mesh=None):
     """One path's training program on the slice's data, the first contig held
-    out, its chunks, and the held-out ELPD on that contig."""
+    out, its chunks, and the held-out ELPD on that contig (sharded over
+    `mesh` if given)."""
     from phlash_tpu_torch.data import RawContig, init_mcmc_data
     from phlash_tpu_torch.mcmc import held_out_elpd
     from phlash_tpu_torch.training import build_training
@@ -546,7 +561,7 @@ def build_program(torch, dev, path: Path, backend: str, overlap: int, num_partic
     afs, chunks = init_mcmc_data(contigs, 100, overlap, chunk_size)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     prog = build_training(chunks, afs, window_size=100, overlap=overlap, device=dev,
-                          generator=gen, kernel_backend=backend,
+                          generator=gen, kernel_backend=backend, mesh=mesh,
                           options=dict(num_particles=num_particles,
                                        minibatch_size=minibatch_size, niter=niter))
     elpd = held_out_elpd(prog, held, span=int(chunks.shape[-1]), overlap=overlap,
@@ -1173,15 +1188,222 @@ def genome_phase(torch, ops: dict, dev, tmp: str) -> dict:
     return counts["smc"]
 
 
-def kernel_entry(name, source, replaces, launches, genome_launches, errs, gate, t, key):
+# phase 8b: the simulator at chromosome scale, then the canonical end-to-end drive
+SIM_L = 10_000_000
+DRIVE = dict(niter=40, num_particles=24, overlap=100, chunk_size=2000, num_workers=1,
+             progress=False, elpd_cutoff=30)
+
+# two ranks of one NCCL group on the one device (phase 8a)
+NCCL_PROBE = """
+import datetime, sys, torch, torch.distributed as dist
+rank, store = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="file://" + store, rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+t = torch.ones(1, device="cuda")
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print("two ranks on one device: all_reduce gave", t.item())
+dist.destroy_process_group()
+"""
+
+
+def nccl_two_ranks(tmp: str, seconds: float = 180.0) -> list[str]:
+    """Start two NCCL ranks on device 0 and report what they print (NCCL
+    refuses a duplicate GPU); every process is killed at the deadline."""
+    store = Path(tmp) / "nccl_probe_store"
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_PROBE, str(r), str(store)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    deadline = time.monotonic() + seconds
+    report = []
+    for r, p in enumerate(procs):
+        try:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out = p.communicate()[0] + f"\n(killed after {seconds:.0f} s)"
+        keep = [ln for ln in out.splitlines()
+                if "Duplicate GPU" in ln or "two ranks on one device" in ln or "killed" in ln]
+        report.append(f"rank {r} exit {p.returncode}: "
+                      + (" | ".join(keep[:2]) or " | ".join(out.strip().splitlines()[-2:])))
+    return report
+
+
+def mesh_phase(torch, ops: dict, dev, tmp: str, want: dict, progs: dict) -> dict:
+    """Phase 8a: phase 4's fits with mesh=make_mesh(1) (NCCL, world size 1):
+    exact launch counts, particles against phase 4's `want` models, the
+    collectives, graphed ms an iteration in turns with phase 4c's unsharded
+    programs `progs`, and the two-ranks-on-one-device probe.  Returns each
+    path's launch counts."""
+    import torch.distributed as dist
+
+    import phlash_tpu_torch
+    from phlash_tpu_torch.parallel import make_mesh, mesh as comms
+
+    mesh = make_mesh(1)
+    print(f"mesh: {tuple(mesh.mesh.shape)} (p, d) over {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}, device {torch.cuda.current_device()}")
+    path = Path(tmp) / "smoke.psmcfa"
+    write_psmcfa(path)
+    out = {}
+    for backend, overlap in PATHS:
+        for mod in (*ops.values(), comms):
+            mod.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models = phlash_tpu_torch.psmc([str(path)], device="cuda", kernel_backend=backend,
+                                       niter=NITER, overlap=overlap, mesh=mesh, **SLICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: mod.counts() for name, mod in ops.items()}
+        colls = comms.collectives()
+        if counts[backend] != expected_counts(backend):
+            fail(f"the meshed {backend} fit launched {counts[backend]}; expected "
+                 f"{expected_counts(backend)}")
+        if any(any(c.values()) for name, c in counts.items() if name != backend):
+            fail(f"the meshed {backend} fit launched another backend's kernels")
+        step_keys = ("all_reduce/d/rows", "all_reduce/d/density", "all_gather/p/cloud")
+        if any(colls.get(k, (0, 0))[0] != NITER + 1 for k in step_keys):
+            fail(f"the meshed {backend} fit ran {colls}; expected {NITER + 1} of each of "
+                 f"{step_keys} (the iterations and the capture's eager warm-up)")
+        step_bytes = sum(colls[k][1] for k in step_keys)
+        err = max(max(max_rel(g.eta.c, w.eta.c), max_rel(g.eta.t, w.eta.t))
+                  for g, w in zip(models, want[backend]))
+        same = all(torch.equal(g.eta.c, w.eta.c) and torch.equal(g.eta.t, w.eta.t)
+                   for g, w in zip(models, want[backend]))
+        print(f"mesh {backend}: psmc(niter={NITER}, overlap={overlap}, mesh=make_mesh(1)) took "
+              f"{wall:.2f} s; launch counts {counts[backend]}; against phase 4's unsharded "
+              f"fit: max rel err {err:.3e} over eta.c and eta.t, bitwise equal: {same}")
+        print(f"mesh {backend}: collectives (calls, bytes a call) {colls}; {step_bytes} B an "
+              "SVGD iteration")
+        if len(models) != len(want[backend]) or not err <= 1e-6:
+            fail(f"the meshed {backend} fit differs from the unsharded one by {err:.3e}")
+        out[backend] = dict(launches=counts[backend], max_rel_err=err, bitwise=same,
+                            collectives=colls, bytes_per_iter=step_bytes, wall_s=wall)
+
+    # graphed ms an iteration, unsharded and meshed, in turns
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    for backend, overlap in PATHS:
+        meshed = build_program(torch, dev, path, backend, overlap, mesh=mesh)[0]
+        ms = {"unsharded": [], "mesh": []}
+        for which in ("unsharded", "mesh", "mesh", "unsharded"):
+            prog = progs[backend] if which == "unsharded" else meshed
+            ms[which].append(time_graphed(torch, prog, gen)[0])
+        for (k, elpd), sec in meshed.step.setup_seconds.items():
+            print(f"mesh {backend}: graph ({k} iterations, ELPD {elpd}) warm-up "
+                  f"{sec['warmup']:.3f} s, capture and instantiation {sec['capture']:.3f} s")
+        print(f"mesh {backend}: graphed ms an iteration in turns (unsharded, mesh, mesh, "
+              f"unsharded): {ms['unsharded'][0]:.3f}, {ms['mesh'][0]:.3f}, {ms['mesh'][1]:.3f}, "
+              f"{ms['unsharded'][1]:.3f}")
+        out[backend]["graphed_ms"] = ms
+    out["two_ranks_one_device"] = nccl_two_ranks(tmp)
+    for line in out["two_ranks_one_device"]:
+        print(f"mesh: NCCL, {line}")
+    print(json.dumps(dict(phase="mesh", **{b: {k: v for k, v in out[b].items()
+                                               if k != "collectives"} for b, _ in PATHS})))
+    return {b: out[b]["launches"] for b, _ in PATHS}
+
+
+def sim_phase(torch, dev, tmp: str) -> dict:
+    """Phase 8b: simulate_hmm at L = SIM_L on the card, its law, and the
+    canonical end-to-end drive on the port (as phlash_tpu's: bottleneck
+    truth, 3 x 20,000 windows, 24 particles, 40 iterations)."""
+    import numpy as np
+
+    import phlash_tpu_torch
+    from phlash_tpu_torch import sim
+
+    dm = sim.bottleneck_demography()
+    seconds = []
+    for k in range(2):  # the first call includes the lazy start of its CUDA kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        contig = sim.simulate_hmm(dm, SIM_L, seed=SEED + 90 + k)
+        seconds.append(time.perf_counter() - t0)
+    A, pi, e1 = sim.hmm_arrays(dm, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, obs = sim.simulate_path(A, pi, e1, SIM_L, torch.Generator(device=dev).manual_seed(
+        SEED + 92))
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    An, e1n = A.cpu().numpy(), e1.cpu().numpy()
+    st = sim.hmm_path_stats(states.cpu().numpy(), obs.cpu().numpy(), An, e1n)
+    het = float((contig.het_matrix == 1).mean())
+    print(f"simulate_hmm: L={SIM_L} on the card in {seconds[0]:.3f} s (first call), "
+          f"{seconds[1]:.3f} s (second), host copy included; het rate {het:.6f} against "
+          f"sum pi' emis1 {st['het_expected']:.6f} +- {st['het_se']:.2e} (one standard error)")
+    print(f"simulate_hmm: a path of {SIM_L} states ({t_path:.3f} s): het rate "
+          f"{st['het_rate']:.6f}; state marginal chi2 {st['marginal_chi2']:.2f} on "
+          f"{st['marginal_cells'] - 1} df, p {st['marginal_p']:.3g}; transitions chi2 "
+          f"{st['transition_chi2']:.1f} on {st['transition_df']} df, p {st['transition_p']:.3g}")
+    if contig.het_matrix.shape != (1, SIM_L) or abs(het - st["het_expected"]) > 4 * st["het_se"]:
+        fail("simulate_hmm's het rate is off its law by more than 4 standard errors")
+    if abs(st["het_rate"] - st["het_expected"]) > 4 * st["het_se"]:
+        fail("the path's het rate is off its law by more than 4 standard errors")
+    if not (st["marginal_p"] > 1e-3 and st["transition_p"] > 1e-3):
+        fail("the simulated path disagrees with its HMM by chi-square")
+
+    # the canonical end-to-end drive, on the port
+    truth = sim.bottleneck_demography(theta=1e-2)
+    code = np.array(["N", "T", "K"])
+    psmcfa = Path(tmp) / "s.psmcfa"
+    with open(psmcfa, "w") as f:
+        for i in range(3):
+            c = sim.simulate_hmm(truth, L=20_000, seed=i)
+            f.write(f">chr{i}\n" + "".join(code[c.het_matrix[0] + 1]) + "\n")
+    t0 = time.perf_counter()
+    post = phlash_tpu_torch.psmc([str(psmcfa)], device="cuda", **DRIVE)
+    wall = time.perf_counter() - t0
+    c = torch.stack([m.eta.c for m in post])
+    med = float(c.median())
+    print(f"canonical drive: psmc on 3 x 20,000 simulated windows, {len(post)} models in "
+          f"{wall:.2f} s; posterior median of c {med:.4f} (median over particles a epoch: "
+          f"{[f'{x:.3g}' for x in c.median(0).values.tolist()]})")
+    if len(post) != DRIVE["num_particles"] or not 0.5 <= med <= 2.0:
+        fail(f"the canonical drive's posterior median of c is {med:.4f}, outside [0.5, 2]")
+    line = dict(phase="simulate_hmm", L=SIM_L, seconds=seconds, simulate_hmm_het_rate=het,
+                path_seconds=t_path, path=st, drive_median_c=med, drive_s=wall)
+    print(json.dumps(line))
+    return line
+
+
+def trace_phase(torch, prog, dev, tmp: str) -> dict:
+    """Phase 8c: profiling.trace around one graphed call of `prog` (the smc
+    program): the trace file exists and names the smc kernels."""
+    from phlash_tpu_torch.profiling import trace
+    from phlash_tpu_torch.training import clone_state
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 95)
+    inds = torch.randint(prog.N, (prog.steps_per_call, prog.S), generator=gen, device=dev)
+    state = prog.state
+    with trace(str(Path(tmp) / "trace")) as log_dir:
+        state, _ = prog.step(state, inds)
+        torch.cuda.synchronize()
+    prog.state = clone_state(state)
+    files = sorted(Path(log_dir).glob("*.pt.trace.json"))
+    text = files[0].read_text() if files else ""
+    names = {k: text.count(k) for k in ("smc_forward_kernel", "smc_backward_kernel",
+                                         "cudaGraphLaunch")}
+    print(f"trace: {len(files)} file(s) under the log directory, "
+          f"{files[0].name if files else None} ({len(text)} B); mentions {names}")
+    if len(files) != 1 or not (names["smc_forward_kernel"] and names["smc_backward_kernel"]):
+        fail("profiling.trace wrote no trace naming the smc kernels")
+    return names
+
+
+def kernel_entry(name, source, replaces, launches, genome_launches, mesh_launches, errs, gate,
+                 t, key):
     """One kernel of the JSON summary line; `key` names its times in `t`.
     `launches` counts phase 4 / 4b's fit of its path, `genome_launches`
-    phase 7's fit from genome files."""
+    phase 7's fit from genome files, `mesh_launches` phase 8a's meshed fit."""
     ms_bound, by = t[key + "_bound"]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "launches_by_path": {"psmcfa (phase 4/4b)": launches,
-                                 "genome files (phase 7)": genome_launches},
+                                 "genome files (phase 7)": genome_launches,
+                                 "mesh of one (phase 8a)": mesh_launches},
             **errs, "gate": gate, "ms": t[key],
             "plain_ms": t[key + "_plain"], "bound_ms": ms_bound, "bound_by": by,
             "library_ms": None}
@@ -1253,8 +1475,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
         path = Path(tmp) / "smoke.psmcfa"
         write_psmcfa(path)
-        (counts, smc_models), (pcounts, _) = (run_slice(torch, ops, dev, path, b, ov)
-                                              for b, ov in PATHS)
+        (counts, smc_models), (pcounts, packed_models) = (run_slice(torch, ops, dev, path, b, ov)
+                                                          for b, ov in PATHS)
         built = {b: build_program(torch, dev, path, b, ov) for b, ov in PATHS}
         fit_inputs = {"initial cloud": packed_fit_inputs(torch, *built["packed"][:2], dev)}
         smc_inputs = {f"initial cloud, {k}": v
@@ -1293,6 +1515,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
         gcounts = genome_phase(torch, ops, dev, tmp)
 
+    # 8. the meshed fit, simulate_hmm and the profiler block
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
+        mcounts = mesh_phase(torch, ops, dev, tmp, {"smc": smc_models, "packed": packed_models},
+                             {b: prog for b, (prog, _, _) in built.items()})
+        sim_phase(torch, dev, tmp)
+        trace_phase(torch, built["smc"][0], dev, tmp)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:
         fail("JAX or phlash_tpu was imported")
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s before its summary")
@@ -1305,24 +1538,30 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_entry("smc_forward", src + "smc_forward.cu", "phlash_tpu/ops/pallas_smc.py:358",
                      counts["forward_cuda"] - counts["forward_cuda_residuals"],
-                     gcounts["forward_cuda"] - gcounts["forward_cuda_residuals"], smc_fwd,
+                     gcounts["forward_cuda"] - gcounts["forward_cuda_residuals"],
+                     mcounts["smc"]["forward_cuda"] - mcounts["smc"]["forward_cuda_residuals"],
+                     smc_fwd,
                      smc_gate, t, "fwd"),
         kernel_entry("smc_forward_residuals", src + "smc_forward.cu",
                      "phlash_tpu/ops/pallas_smc.py:358", counts["forward_cuda_residuals"],
-                     gcounts["forward_cuda_residuals"], smc_fwd, smc_gate, t, "fwd_res"),
+                     gcounts["forward_cuda_residuals"], mcounts["smc"]["forward_cuda_residuals"],
+                     smc_fwd, smc_gate, t, "fwd_res"),
         kernel_entry("smc_backward", src + "smc_backward.cu", "phlash_tpu/ops/pallas_smc.py:511",
                      counts["backward_cuda"], gcounts["backward_cuda"],
+                     mcounts["smc"]["backward_cuda"],
                      {"max_abs_err": errs["backward"]["abs"],
                       "max_normalized_err": errs["backward"]["grad"]},
                      "max|err| / max|plain| per gradient 2e-5", t, "bwd"),
         kernel_entry("packed_forward", src + "packed_forward.cu",
                      "phlash_tpu/ops/pallas_hmm.py:162", pcounts["forward_cuda"], 0,
+                     mcounts["packed"]["forward_cuda"],
                      {"max_abs_err": perrs["forward"]["abs"],
                       "max_rel_err_ll": perrs["forward"]["ll"],
                       "max_rel_err_ckpt": perrs["forward"]["ckpt"]},
                      "rel: ll 1e-5, ckpt 1e-4", pt, "fwd"),
         kernel_entry("packed_backward", src + "packed_backward.cu",
                      "phlash_tpu/ops/pallas_hmm_vjp.py:155", pcounts["backward_cuda"], 0,
+                     mcounts["packed"]["backward_cuda"],
                      {"max_abs_err": perrs["backward"]["abs"],
                       "max_normalized_err": perrs["backward"]["grad"]},
                      "max|err| / max|plain| per gradient 2e-5", pt, "bwd"),

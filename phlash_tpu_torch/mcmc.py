@@ -42,7 +42,21 @@ cloud and every call's minibatch indices) with `seed` itself, and the
 held-out ELPD's (its chunk subsets) with a seed derived from `seed` and
 ELPD_STREAM.  So the ELPD cadence leaves the step stream alone, as
 phlash_tpu's fold_in does, and a checkpoint stores both generators' states.
-phlash_tpu's key (use seed) and mesh raise NotImplementedError when set.
+phlash_tpu's key raises NotImplementedError when set (use seed).
+
+mesh (parallel.make_mesh()): the multi-GPU fit, one process per device
+(`torchrun --nproc-per-node N script.py`; phlash_tpu runs one program over
+its devices instead).  Every rank reads the data and draws the same cloud
+and indices from the same generators; it keeps its block of particles
+(mesh axis "p", which must divide num_particles: a cloud is not padded)
+and of chunks and held-out chunks ("d"), and the sharded step and ELPD
+exchange what parallel/mesh.py lists.  The ELPD is the mean over every
+particle, and the finiteness check reads every rank, so every rank takes
+the same branch.  The checkpoint holds the whole cloud and both
+generators, written by rank 0; a resume on any mesh whose p divides the
+cloud continues it as if uninterrupted.  The callback and the progress bar
+run on rank 0 with the whole cloud, and every rank returns the same list
+of models.
 """
 
 from __future__ import annotations
@@ -52,11 +66,14 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from phlash_tpu_torch.checkpoint import AsyncCheckpointWriter, TrainCheckpoint, load_checkpoint
 from phlash_tpu_torch.data import Contig, chunk_het_matrix, init_mcmc_data
 from phlash_tpu_torch.kernel import check_backend, get_kernel, resolve_device
-from phlash_tpu_torch.model import log_density_batched
+from phlash_tpu_torch.model import log_density_batched, log_density_rows
+from phlash_tpu_torch.parallel import mesh as comms
 from phlash_tpu_torch.params import MCMCParams
 from phlash_tpu_torch.profiling import StepMeter
 from phlash_tpu_torch.size_history import DemographicModel, SizeHistory
@@ -76,10 +93,10 @@ _OPTIONS = {
     "pattern", "t1", "tM", "rho_over_theta", "alpha", "beta", "elpd_cutoff", "elpd_samples",
     "max_samples", "num_workers", "return_final", "double_precision_params", "double_precision",
     "kernel_seg_len", "steps_per_call", "check_every", "checkpoint_path", "save_every",
-    "progress", "callback",
+    "progress", "callback", "mesh",
 }
 # phlash_tpu.fit options without a counterpart here (None is accepted)
-_NOT_IMPLEMENTED = ("mesh", "key")
+_NOT_IMPLEMENTED = ("key",)
 CHECK_EVERY = 10  # iterations between finiteness checks (each one syncs the device)
 ELPD_EVERY = 10  # iterations between held-out ELPD evaluations
 SAVE_EVERY = 50  # iterations between checkpoint saves
@@ -93,8 +110,7 @@ def _check_options(options: dict) -> None:
         if k in _NOT_IMPLEMENTED:
             if v is None:
                 continue
-            hint = " (use seed=)" if k == "key" else ""
-            raise NotImplementedError(f"fit option {k}={v!r} is not implemented{hint}")
+            raise NotImplementedError(f"fit option {k}={v!r} is not implemented (use seed=)")
         raise TypeError(f"fit got an unknown option {k!r}")
 
 
@@ -131,15 +147,19 @@ class HeldOutELPD:
     `N` chunks, drawn afresh by `draw` (all of them when S == N).
     `self(particles, inds)` is the mean held-out log density over the
     particles, a 0-d tensor, through the forward kernel alone; it runs
-    inside a captured call, so it reads nothing back to the host."""
+    inside a captured call, so it reads nothing back to the host.  With
+    `chunks` (a mesh's block of the held-out chunks) it takes this rank's
+    block of particles and returns the mean over every particle, the same
+    on every rank (parallel/mesh.reduce_elpd)."""
 
     init: MCMCParams
     kern: object
-    warmup: torch.Tensor  # (N, overlap) int8
+    warmup: torch.Tensor  # (N, overlap) int8; with a mesh, this rank's rows
     afs: torch.Tensor | None
     afs_transform: torch.Tensor | None
     N: int
     S: int
+    chunks: comms.ShardedChunks | None = None
 
     def draw(self, generator: torch.Generator) -> torch.Tensor:
         "The (S,) chunk indices of one evaluation, without replacement."
@@ -149,12 +169,25 @@ class HeldOutELPD:
         return torch.randperm(self.N, generator=generator, device=dev)[: self.S]
 
     def __call__(self, particles: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+        if self.chunks is not None:
+            return self._sharded(particles, inds)
         with torch.no_grad():  # forward kernel only, no residuals
             return log_density_batched(
                 self.init.unflatten(particles), c=(0.0, 1.0, 1.0), inds=inds,
                 warmup=self.warmup[inds], kern=self.kern, afs=self.afs,
                 afs_transform=self.afs_transform,
             ).mean()
+
+    def _sharded(self, particles: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+        mesh = self.chunks.mesh
+        with torch.no_grad():
+            warm, rows = self.chunks.fetch(inds)
+            mine = comms.share(mesh, len(inds))
+            total = log_density_rows(
+                self.init.unflatten(particles), (0.0, 1.0, 1.0), warm[mine], rows[mine],
+                self.kern, self.afs, self.afs_transform,
+                prior_and_afs=mesh.get_local_rank(comms.CHUNK_AXIS) == 0)
+            return comms.reduce_elpd(mesh, total)
 
 
 def held_out_elpd(prog: TrainingProgram, test_data: Contig, *, span: int, overlap: int,
@@ -174,15 +207,23 @@ def held_out_elpd(prog: TrainingProgram, test_data: Contig, *, span: int, overla
     if test_afs is not None and prog.afs_transform is not None:
         if prog.afs_transform.shape[1] == len(test_afs):
             T = prog.afs_transform
+
+    def make_kernel(body: np.ndarray):
+        return get_kernel(M=prog.init.M, data=np.ascontiguousarray(body), device=device,
+                          backend=kernel_backend, double_precision=double_precision,
+                          seg_len=seg_len)
+
+    S = min(N, int(elpd_samples or max(prog.S, 4)))
+    if prog.mesh is not None:  # this rank's block of the held-out chunks
+        sharded = comms.shard_chunks(prog.mesh, test_chunks[:, :overlap],
+                                     test_chunks[:, overlap:], make_kernel, what="elpd_rows")
+        return HeldOutELPD(init=prog.init, kern=sharded.kern, warmup=sharded.warmup,
+                           afs=test_afs, afs_transform=T, N=N, S=S, chunks=sharded)
     return HeldOutELPD(
-        init=prog.init,
-        kern=get_kernel(M=prog.init.M, data=np.ascontiguousarray(test_chunks[:, overlap:]),
-                        device=device, backend=kernel_backend,
-                        double_precision=double_precision, seg_len=seg_len),
+        init=prog.init, kern=make_kernel(test_chunks[:, overlap:]),
         warmup=torch.as_tensor(np.ascontiguousarray(test_chunks[:, :overlap]),
                                dtype=torch.int8, device=device),
-        afs=test_afs, afs_transform=T, N=N,
-        S=min(N, int(elpd_samples or max(prog.S, 4))),
+        afs=test_afs, afs_transform=T, N=N, S=S,
     )
 
 
@@ -213,6 +254,22 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
                                    options.get("double_precision", False),
                                    options.get("kernel_seg_len"))
     dev = resolve_device(device)
+    mesh = options.get("mesh")
+    if mesh is not None:
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh of parallel.make_mesh, got {type(mesh)}")
+        if mesh.device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot fit on device {device!r}")
+        comms.particle_sharding(mesh, options.get("num_particles", 500))  # p must divide it
+    rank0 = mesh is None or dist.get_rank() == 0
+
+    def whole(t: torch.Tensor) -> torch.Tensor:
+        "The whole cloud's rows of this rank's block `t`, on every rank."
+        return t if mesh is None else comms.gather_rows(mesh, t, "particles")
+
+    def whole_state(s):
+        return s if mesh is None else comms.gather_state(mesh, s)
+
     gen, elpd_gen = generators(seed, dev)
     niter = options.get("niter", 1000)
     window_size = options.get("window_size", 100)
@@ -233,7 +290,7 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
 
     prog = build_training(chunks, afs, window_size=window_size, overlap=overlap,
                           options=options, device=dev, generator=gen,
-                          kernel_backend=kernel_backend)
+                          kernel_backend=kernel_backend, mesh=mesh)
     state = prog.state
     call, elpd = prog.step, None
     if test_data is not None:
@@ -262,29 +319,34 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
     start, ema, best = 0, None, None  # best = (iteration, ema, state snapshot)
     writer = None
     if ckpt_path:
-        writer = AsyncCheckpointWriter()
-        resumed = load_checkpoint(ckpt_path, state)
+        writer = AsyncCheckpointWriter() if rank0 else None
+        resumed = load_checkpoint(ckpt_path, whole_state(state))
         if resumed is not None:
-            state, start, ema = resumed.state, resumed.step, resumed.ema
+            place = (lambda s: s) if mesh is None else (lambda s: comms.place_state(mesh, s))
+            state, start, ema = place(resumed.state), resumed.step, resumed.ema
             for g, s in zip((gen, elpd_gen), resumed.rng_states):
                 g.set_state(s)
             if resumed.best_state is not None:
-                best = (resumed.best_step, resumed.best_ema, resumed.best_state)
+                best = (resumed.best_step, resumed.best_ema, place(resumed.best_state))
             if start % spc:
                 logger.warning("resuming from iteration %d, which is not a multiple of "
                                "steps_per_call=%d; call boundaries realign from there",
                                start, spc)
 
-    def train_checkpoint(step: int) -> TrainCheckpoint:
-        return TrainCheckpoint(
-            step=step, state=state, rng_states=(gen.get_state(), elpd_gen.get_state()), ema=ema,
+    def save(step: int) -> None:
+        "The checkpoint of `step`, whole (a collective under a mesh), to rank 0's writer."
+        ckpt = TrainCheckpoint(
+            step=step, state=whole_state(state),
+            rng_states=(gen.get_state(), elpd_gen.get_state()), ema=ema,
             best_step=best[0] if best else step, best_ema=best[1] if best else None,
-            best_state=best[2] if best else None,
+            best_state=whole_state(best[2]) if best else None,
         )
+        if writer is not None:
+            writer.save(ckpt_path, ckpt)  # snapshots at hand-off
 
-    meter = StepMeter(sites_per_step=float(prog.S) * len(state.particles)
+    meter = StepMeter(sites_per_step=float(prog.S) * prog.num_particles
                       * int(prog.kern.data.shape[-1]))
-    pbar = _progress(range(start, niter, spc), options.get("progress", True))
+    pbar = _progress(range(start, niter, spc), options.get("progress", True) and rank0)
     patience = 0
     next_check = next_elpd = start
     next_save = start + save_every
@@ -296,7 +358,9 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
         state, e_dev = call(state, inds, elpd.draw(elpd_gen) if want_elpd else None)
         if i >= next_check or i + k >= niter:
             next_check = i + check_every
-            if not bool(torch.isfinite(state.particles).all()):
+            finite = (bool(torch.isfinite(state.particles).all()) if mesh is None
+                      else comms.all_finite(mesh, state.particles))
+            if not finite:
                 raise RuntimeError(f"non-finite particles at iteration {i}")
         meter.tick(k)
         last = i + k
@@ -315,25 +379,30 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
                 pbar.set_description(f"elpd={ema:.2f} patience={patience}")
         # saved after the call's ELPD, so that the saved ema and best state
         # go with the saved state (a resume then evaluates at its first call)
-        if writer is not None and last >= next_save:
+        if ckpt_path and last >= next_save:
             next_save = last + save_every
             saved_at = last
-            writer.save(ckpt_path, train_checkpoint(last))  # snapshots at hand-off
+            save(last)
         if stop:
             logger.info("ELPD has not improved in %d iterations; stopping early", elpd_cutoff)
             break
         if callback is not None:
-            callback(cloud(prog, state.particles))
-    if writer is not None:
+            particles = whole(state.particles)
+            if rank0:
+                callback(cloud(prog, particles))
+    if ckpt_path:
         if last != saved_at and last > start:
             # leave the run's final state on disk, so that a rerun with the
             # same arguments resumes at niter and takes no step
-            writer.save(ckpt_path, train_checkpoint(last))
-        writer.wait()
+            save(last)
+        if writer is not None:
+            writer.wait()
     meter.setup_seconds = sum((sum(s.values()) for s in call.setup_seconds.values()), 0.0)
     logger.info("fit finished: %s", meter.summary(), extra={"step_meter": meter})
     particles = state.particles
     if best is not None and not options.get("return_final", False):
         logger.info("returning best-ELPD state from iteration %d", best[0])
         particles = best[2].particles
-    return _models(prog, particles)
+    # under a mesh, a collective after rank 0's last write: no rank returns
+    # (and reads the checkpoint again in a next fit) before it is on disk
+    return _models(prog, whole(particles))

@@ -45,6 +45,42 @@ def log_afs(eta: SizeHistory, afs: torch.Tensor, afs_transform: torch.Tensor | N
     return torch.special.xlogy(T_afs, (T * esfs[:, None, :]).sum(-1)).sum(-1)
 
 
+def log_density_rows(
+    mcps: MCMCParams,  # leaves with a leading particle axis B
+    c,  # (3,) weights: prior, HMM, AFS
+    warmup: torch.Tensor,  # (S, overlap) int8 prefix observations
+    rows: torch.Tensor,  # (S, L) int8 body rows of the kernel's data
+    kern,  # a kernel of kernel.get_kernel
+    afs: torch.Tensor | None,  # (n-1,) observed spectrum, or None
+    afs_transform: torch.Tensor | None = None,
+    prior_and_afs: bool = True,
+) -> torch.Tensor:
+    """(B,) weighted log-densities on the given chunk rows, unmasked.  With
+    prior_and_afs=False only the chunks' likelihood term: a rank of a mesh's
+    chunk axis other than the first (parallel/mesh.py) adds just its share."""
+    dms = mcps.to_dm()
+    pp = PSMCParams.from_dm(dms)  # leaves (B, M)
+
+    S = warmup.shape[0]
+    if S == 0:  # a mesh rank with no share of this minibatch
+        l_hmm = torch.zeros_like(pp.pi[:, 0])
+    else:
+        if warmup.shape[1] == 0:  # no prefix context: pi passes through
+            pis = pp.pi[:, None, :].expand(-1, S, -1)
+        else:
+            pis = kern.filter_batched(pp, warmup)  # (B, S, M)
+        l_hmm = kern.loglik_rows(pp.replace(pi=pis), rows).sum(1)
+    if not prior_and_afs:
+        return c[1] * l_hmm
+
+    l_prior = log_prior(mcps)
+    if afs is not None:
+        l_afs = log_afs(dms.eta, afs, afs_transform)
+    else:
+        l_afs = torch.zeros_like(l_prior)
+    return c[0] * l_prior + c[1] * l_hmm + c[2] * l_afs
+
+
 def log_density_batched(
     mcps: MCMCParams,  # leaves with a leading particle axis B
     c,  # (3,) weights: prior, HMM, AFS
@@ -55,22 +91,5 @@ def log_density_batched(
     afs_transform: torch.Tensor | None = None,
 ) -> torch.Tensor:
     "(B,) weighted log-densities; -inf where any component is non-finite."
-    dms = mcps.to_dm()
-    pp = PSMCParams.from_dm(dms)  # leaves (B, M)
-
-    S = warmup.shape[0]
-    if warmup.shape[1] == 0:  # no prefix context: pi passes through
-        pis = pp.pi[:, None, :].expand(-1, S, -1)
-    else:
-        pis = kern.filter_batched(pp, warmup)  # (B, S, M)
-
-    l_prior = log_prior(mcps)
-    l_hmm = kern.loglik_batched(pp.replace(pi=pis), inds).sum(1)
-
-    if afs is not None:
-        l_afs = log_afs(dms.eta, afs, afs_transform)
-    else:
-        l_afs = torch.zeros_like(l_prior)
-
-    total = c[0] * l_prior + c[1] * l_hmm + c[2] * l_afs
+    total = log_density_rows(mcps, c, warmup, kern.data[inds], kern, afs, afs_transform)
     return torch.where(torch.isfinite(total), total, torch.full_like(total, -math.inf))

@@ -87,9 +87,13 @@ class DenseKernel(nn.Module):
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
         """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
         except pi, (B, S, M): the per-chunk initial distributions."""
+        return self.loglik_rows(pp, self.data[inds])
+
+    def loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
+        "loglik_batched on the body rows (S, L) themselves (a mesh fetches them, see parallel/)."
         if self.double_precision:
             pp = pp.to(torch.float64)
-        return forward_ll_dense(pp, self.data[inds], self.seg_len)[1]
+        return forward_ll_dense(pp, rows, self.seg_len)[1]
 
     def filter_batched(self, pp: PSMCParams, warmup: torch.Tensor) -> torch.Tensor:
         """Filtered state after the warmup prefixes, (B, S, M), differentiable.

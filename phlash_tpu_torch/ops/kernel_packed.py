@@ -80,5 +80,9 @@ class PackedKernel(nn.Module):
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
         """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
         except pi, (B, S, M): the per-chunk initial distributions."""
-        rows = self.data[inds].contiguous()
-        return packed_op(dense_transition(pp), pp.emis0, pp.emis1, pp.pi, rows, self.seg_len)
+        return self.loglik_rows(pp, self.data[inds])
+
+    def loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
+        "loglik_batched on rows (S, L') of `data`, padding included (a mesh fetches them)."
+        return packed_op(dense_transition(pp), pp.emis0, pp.emis1, pp.pi, rows.contiguous(),
+                         self.seg_len)

@@ -74,8 +74,11 @@ class SMCKernel(nn.Module):
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
         """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
         except pi, (B, S, M): the per-chunk initial distributions."""
-        rows = self.data[inds].contiguous()
-        ll, _ = smc_op(pp, pp.pi, rows)
+        return self.loglik_rows(pp, self.data[inds])
+
+    def loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
+        "loglik_batched on the body rows (S, L) themselves (a mesh fetches them, see parallel/)."
+        ll, _ = smc_op(pp, pp.pi, rows.contiguous())
         return ll
 
     def filter_batched(self, pp: PSMCParams, warmup: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,16 @@
-"""Throughput counter of the training loop.
+"""Throughput counter of the training loop, and a profiler block.
 
-Port of phlash_tpu/profiling.py:17-46: `StepMeter` tracks SVGD iterations
-per second and HMM Msites per second on the host clock.  phlash_tpu's
-`trace` (a jax.profiler block) waits for the periphery; `chip_smoke.py
---profile` runs torch.profiler over the port's steps.
+Port of phlash_tpu/profiling.py: `StepMeter` tracks SVGD iterations per
+second and HMM Msites per second on the host clock; `trace` profiles a
+block with torch.profiler (phlash_tpu: jax.profiler) and writes its trace
+where TensorBoard's profiler plugin, chrome://tracing or Perfetto read it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import tempfile
 import time
 from dataclasses import dataclass, field
 
@@ -45,3 +48,22 @@ class StepMeter:
             f"{self._steps} steps, {self.steps_per_sec:.2f} it/s, "
             f"{self.msites_per_sec:.0f} Msites/s, graph set-up {self.setup_seconds:.3f} s"
         )
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = None):
+    """Profile the enclosed block with torch.profiler, CPU and (where there
+    is a card) CUDA activities, and write a Chrome trace
+    `<host>_<pid>.<time>.pt.trace.json` under `log_dir` (default
+    phlash_tpu_torch_trace in the temporary directory, /tmp unless TMPDIR
+    says otherwise) when the block exits.  Yields log_dir."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "phlash_tpu_torch_trace")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield log_dir

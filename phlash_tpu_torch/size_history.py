@@ -1,15 +1,15 @@
 """Piecewise-constant coalescent size histories and demographic models.
 
-Port of phlash_tpu/size_history.py:32-226,277-360.  ``SizeHistory(t, c)``
+Port of phlash_tpu/size_history.py:32-360.  ``SizeHistory(t, c)``
 holds breakpoints t (t[..., 0] == 0) and per-epoch pair-coalescence rates c
 as tensors whose leading axes are batch axes (one row per particle), so the
 fit path's methods and `__call__` work on one model or on the whole particle
 cloud at once.  The evaluation methods built on the hazard PPoly (`R`,
 `density`, `sf`, `cdf`, `mu`, `quantile`, `balance`, `tv`, `l2`) take one
 model: 1-D t and c.  `quantile` solves on the host with scipy, and `tv` and
-`l2` build their union grids on the host, as phlash_tpu does.  `draw`,
-`to_demes` and `from_demography` (matplotlib, demes, msprime) are not
-ported.
+`l2` build their union grids on the host, as phlash_tpu does.  `to_demes`,
+`from_demography` and `draw` (one model too) exchange with demes and
+msprime and plot with matplotlib, each an optional import.
 """
 
 from __future__ import annotations
@@ -218,6 +218,59 @@ class SizeHistory:
         mid = (grid[:-1] + grid[1:]) / 2.0
         d2 = (self(mid, Ne=True) - other(mid, Ne=True)) ** 2 * torch.diff(grid)
         return torch.sqrt(d2.sum())
+
+    # -- interop / plotting ---------------------------------------------------
+    def to_demes(self, deme_name: str = "pop"):
+        "Export as a demes.Graph of constant-size epochs (needs the optional `demes`)."
+        import demes
+
+        self._one("to_demes")
+        b = demes.Builder()
+        epochs = [dict(end_time=float(ti), start_size=float(Ne), end_size=float(Ne),
+                       size_function="constant")
+                  for ti, Ne in zip(self.t.tolist(), self.Ne.tolist())]
+        b.add_deme(deme_name, epochs=epochs[::-1])
+        return b.resolve()
+
+    @classmethod
+    def from_demography(cls, demo, dtype=torch.float64, device="cpu") -> "SizeHistory":
+        """From a single-population msprime.Demography (needs the optional
+        `msprime`): its size trajectory at every generation up to the last
+        epoch start, kept where it changes."""
+        import msprime
+
+        assert isinstance(demo, msprime.Demography)
+        if demo.num_populations > 1:
+            raise ValueError("only single-population demographies are supported")
+        dbg = demo.debug()
+        t = np.arange(1 + dbg.epoch_start_time.max())
+        Ne = dbg.population_size_trajectory(steps=t).squeeze()
+        keep = np.insert(Ne[1:] != Ne[:-1], 0, True)
+        as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+        return cls(t=as_t(t[keep]), c=as_t(1.0 / (2.0 * Ne[keep])))
+
+    def draw(self, ax=None, density: bool = False, c: float = 1.0, **kwargs) -> None:
+        "Plot Ne(t), or the coalescence density, on a matplotlib axis (default: the current one)."
+        self._one("draw")
+        if ax is None:
+            import matplotlib.pyplot as plt
+
+            ax = plt.gca()
+        if density:
+            x = np.geomspace(float(self.t[1]), 2.0 * float(self.t[-1]), 1000)
+            ax.plot(x, self.density(c)(x).cpu().numpy(), **kwargs)
+            return
+        t, Ne = self.t.cpu().numpy(), self.Ne.cpu().numpy()
+        kw = dict(kwargs)
+        kw.update(label=None, marker=".")
+        ax.scatter(t[-1:], Ne[-1:], **kw)
+        ax.set_xscale("log")
+        ax.set_yscale("log")
+        ax.spines[["right", "top"]].set_visible(False)
+        ax.set_xlabel("Generations")
+        ax.set_ylabel("$N_e$")
+        kwargs.setdefault("drawstyle", "steps-post")
+        ax.plot(t, Ne, **kwargs)
 
 
 def _tv_pwc(R1: PPoly, R2: PPoly) -> torch.Tensor:

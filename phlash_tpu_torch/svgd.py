@@ -42,15 +42,18 @@ def median_bandwidth(sq_dists: torch.Tensor, num_particles: int) -> torch.Tensor
     return torch.clamp_min(med**2 / math.log(P), 1e-12)
 
 
-def svgd_direction(flat_particles: torch.Tensor, flat_grads: torch.Tensor) -> torch.Tensor:
-    "SVGD update direction for flattened particles (P, D)."
+def svgd_direction(flat_particles: torch.Tensor, flat_grads: torch.Tensor,
+                   rows: slice = slice(None)) -> torch.Tensor:
+    """SVGD update direction for flattened particles (P, D), at the particles
+    `rows` (all by default; a rank of a mesh's particle axis takes its
+    block: the bandwidth and the sums still run over every particle)."""
     P = flat_particles.shape[0]
     diffs = flat_particles[:, None, :] - flat_particles[None, :, :]  # (P, P, D)
     sq = (diffs**2).sum(-1)
     h = median_bandwidth(sq, P)
-    K = torch.exp(-sq / h)
+    K = torch.exp(-sq[rows] / h)
     attract = K @ flat_grads
-    repulse = (2.0 / h) * (K @ flat_particles - K.sum(1, keepdim=True) * flat_particles)
+    repulse = (2.0 / h) * (K @ flat_particles - K.sum(1, keepdim=True) * flat_particles[rows])
     return (attract - repulse) / P
 
 
@@ -109,11 +112,15 @@ class SVGD:
     """SVGD: a batched log-density gradient plus amsgrad.
 
     grad_fn(particles (P, D), **density_kwargs) -> (P, D) gradients of each
-    particle's log-density."""
+    particle's log-density.  With `gather` the state holds one block of the
+    cloud (a rank of a mesh's particle axis): gather(particles, grads) ->
+    (every particle, every gradient, this block's rows), and the step moves
+    the block along its rows of the direction (parallel/mesh.py)."""
 
-    def __init__(self, grad_fn: Callable, optimizer: AMSGrad):
+    def __init__(self, grad_fn: Callable, optimizer: AMSGrad, gather: Callable = None):
         self.grad_fn = grad_fn
         self.optimizer = optimizer
+        self.gather = gather
 
     def init(self, particles: torch.Tensor) -> SVGDState:
         return SVGDState(particles=particles, opt_state=self.optimizer.init(particles))
@@ -125,7 +132,10 @@ class SVGD:
             # it is carried by the kernel-weighted attraction instead of
             # poisoning the optimizer moments
             grads = torch.where(torch.isfinite(grads), grads, torch.zeros_like(grads))
-            phi = svgd_direction(state.particles, grads)
+            if self.gather is None:
+                phi = svgd_direction(state.particles, grads)
+            else:
+                phi = svgd_direction(*self.gather(state.particles, grads))
             # the optimizer descends; SVGD ascends the density
             updates, opt_state = self.optimizer.update(-phi, state.opt_state)
             return SVGDState(particles=state.particles + updates, opt_state=opt_state)

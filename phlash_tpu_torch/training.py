@@ -21,6 +21,12 @@ What a step may do, so that its capture replays right: no host sync (no
 host (constants are built once per device: size_history._pair_counts,
 _W_tensor, params._expand_index), no random draw, and no Python number
 that changes from one step to the next (the amsgrad count is a tensor).
+
+With `mesh=` (parallel.make_mesh) the program is one rank's part of a
+multi-GPU fit: every rank draws the same initial cloud from the same
+generator and keeps its block of particles; it uploads only its block of
+chunks; and `base_step` is the sharded SVGD step, whose collectives
+(parallel/mesh.py) a CUDA graph captures with the kernels.
 """
 
 from __future__ import annotations
@@ -35,16 +41,17 @@ import torch
 
 from phlash_tpu_torch.afs import default_afs_transform
 from phlash_tpu_torch.kernel import check_backend, get_kernel
-from phlash_tpu_torch.model import log_density_batched
+from phlash_tpu_torch.model import log_density_batched, log_density_rows
 from phlash_tpu_torch.ops import packed, smc
+from phlash_tpu_torch.parallel import mesh as comms
 from phlash_tpu_torch.params import MCMCParams
 from phlash_tpu_torch.svgd import SVGD, AMSGrad, SVGDState
 from phlash_tpu_torch.utils import Pattern
 
 logger = logging.getLogger(__name__)
 
-# the modules whose launch counters a graph replay adds to
-_COUNTED = (smc, packed)
+# the modules whose launch (and collective) counters a graph replay adds to
+_COUNTED = (smc, packed, comms)
 
 
 def make_multi_step(step: Callable, k: int) -> Callable:
@@ -175,7 +182,7 @@ class Caller:
                 g.elpd.copy_(elpd)
         torch.cuda.synchronize(dev)
         for mod, b in zip(_COUNTED, before):
-            n = {name: v - b[name] for name, v in mod.counts().items()}
+            n = {name: v - b.get(name, 0) for name, v in mod.counts().items()}
             mod.add_counts({name: -v for name, v in n.items()})
             g.launches.append(n)
         self.setup_seconds[key] = dict(warmup=t1 - t0, capture=time.perf_counter() - t1)
@@ -206,6 +213,8 @@ class TrainingProgram:
     window_size: int
     mutation_rate: float | None
     steps_per_call: int = 1
+    num_particles: int = 0  # the whole cloud's, whatever the mesh
+    mesh: object = None  # the DeviceMesh of a sharded program
 
 
 def batched_grad(init: MCMCParams) -> Callable:
@@ -220,9 +229,30 @@ def batched_grad(init: MCMCParams) -> Callable:
     return grad_fn
 
 
+def sharded_grad(init: MCMCParams, chunks: comms.ShardedChunks) -> Callable:
+    """grad_fn for SVGD on one rank of a mesh: the minibatch rows fetched
+    from their owners, this rank's particle block on its share of them
+    (the prior and the AFS term on the chunk axis's first rank only), and
+    the gradients summed over the chunk axis (parallel/mesh.py)."""
+    mesh = chunks.mesh
+    first = mesh.get_local_rank(comms.CHUNK_AXIS) == 0
+
+    def grad_fn(flat: torch.Tensor, c, inds: torch.Tensor, kern, afs, afs_transform=None):
+        warm, rows = chunks.fetch(inds)
+        mine = comms.share(mesh, len(inds))
+        x = flat.detach().requires_grad_(True)
+        total = log_density_rows(init.unflatten(x), c, warm[mine], rows[mine], kern, afs,
+                                 afs_transform, prior_and_afs=first)
+        g = torch.autograd.grad(total.sum(), x)[0] if total.requires_grad else torch.zeros_like(x)
+        return comms.reduce_density(mesh, g, total.detach())
+
+    return grad_fn
+
+
 def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: int,
                    overlap: int, options: dict, device: torch.device,
-                   generator: torch.Generator, kernel_backend: str = None) -> TrainingProgram:
+                   generator: torch.Generator, kernel_backend: str = None,
+                   mesh=None) -> TrainingProgram:
     """Assemble particles, kernel and the step functions from chunked data.
     kernel_backend: "smc" (default), "packed" (overlap 0 only), "dense" or
     "scan".  `generator` draws the initial cloud; `fit` draws the minibatch
@@ -230,7 +260,9 @@ def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: i
     build_training that shape the program: truth (sets mutation_rate),
     init (the cloud's centre, an MCMCParams), afs_transform,
     double_precision_params (a float64 cloud and assembly), and
-    double_precision and kernel_seg_len (see kernel.py)."""
+    double_precision and kernel_seg_len (see kernel.py).  mesh: a
+    parallel.make_mesh DeviceMesh (see the module docstring); its particle
+    axis must divide num_particles."""
     double_precision = options.get("double_precision", False)
     seg_len = options.get("kernel_seg_len")
     kernel_backend = check_backend(kernel_backend, overlap, double_precision, seg_len)
@@ -301,26 +333,47 @@ def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: i
                         device=device)
     particles = x0 + options.get("sigma", 1.0) ** 0.5 * noise
 
-    svgd = SVGD(batched_grad(init), AMSGrad(learning_rate=options.get("learning_rate", 0.1)))
-    state = svgd.init(particles)
-
+    optimizer = AMSGrad(learning_rate=options.get("learning_rate", 0.1))
     warmup_host, data_host = np.split(chunks, [overlap], axis=1)
-    warmup_dev = torch.as_tensor(np.ascontiguousarray(warmup_host), dtype=torch.int8,
-                                 device=device)
-    kern = get_kernel(M=init.M, data=np.ascontiguousarray(data_host), device=device,
-                      backend=kernel_backend, double_precision=double_precision, seg_len=seg_len)
+
+    def make_kernel(body: np.ndarray):
+        return get_kernel(M=init.M, data=np.ascontiguousarray(body), device=device,
+                          backend=kernel_backend, double_precision=double_precision,
+                          seg_len=seg_len)
 
     # unbiased minibatch gradients: HMM term scaled by N / S
     weights = (1.0, N / S, 1.0)
 
-    def one_step(state: SVGDState, inds: torch.Tensor) -> SVGDState:
-        "One SVGD step on the minibatch chunks `inds` (S,), drawn with replacement."
-        return svgd.step(state, c=weights, inds=inds, warmup=warmup_dev[inds], kern=kern,
-                         afs=afs, afs_transform=afs_transform)
+    if mesh is None:
+        svgd = SVGD(batched_grad(init), optimizer)
+        state = svgd.init(particles)
+        warmup_dev = torch.as_tensor(np.ascontiguousarray(warmup_host), dtype=torch.int8,
+                                     device=device)
+        kern = make_kernel(data_host)
+
+        def one_step(state: SVGDState, inds: torch.Tensor) -> SVGDState:
+            "One SVGD step on the minibatch chunks `inds` (S,), drawn with replacement."
+            return svgd.step(state, c=weights, inds=inds, warmup=warmup_dev[inds], kern=kern,
+                             afs=afs, afs_transform=afs_transform)
+    else:
+        if device.type != mesh.device_type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot fit on device {device}")
+        rows = comms.particle_sharding(mesh, num_particles)
+        sharded = comms.shard_chunks(mesh, warmup_host, data_host, make_kernel)
+        svgd = SVGD(sharded_grad(init, sharded), optimizer,
+                    gather=lambda x, g: comms.gather_cloud(mesh, x, g))
+        state = svgd.init(particles[rows].clone())
+        warmup_dev, kern = sharded.warmup, sharded.kern
+
+        def one_step(state: SVGDState, inds: torch.Tensor) -> SVGDState:
+            "One sharded SVGD step on the minibatch chunks `inds` (S,), the same on every rank."
+            return svgd.step(state, c=weights, inds=inds, kern=kern, afs=afs,
+                             afs_transform=afs_transform)
 
     return TrainingProgram(
         state=state, step=Caller(one_step), base_step=one_step, init=init, kern=kern,
         warmup=warmup_dev, afs=afs, afs_transform=afs_transform, N=N, S=S,
         window_size=window_size, mutation_rate=mutation_rate,
         steps_per_call=resolve_steps_per_call(options.get("steps_per_call"), device, niter),
+        num_particles=num_particles, mesh=mesh,
     )

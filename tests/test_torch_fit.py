@@ -74,7 +74,11 @@ def test_import_leaves_jax_out():
             "phlash_tpu_torch.results, phlash_tpu_torch.sim, phlash_tpu_torch.data, "
             "phlash_tpu_torch.io, phlash_tpu_torch.io.bcf, phlash_tpu_torch.io.tabix, "
             "phlash_tpu_torch.mp, phlash_tpu_torch.plot, phlash_tpu_torch.liveplot, "
-            "phlash_tpu_torch.__main__; "
+            "phlash_tpu_torch.__main__, phlash_tpu_torch.parallel, "
+            "phlash_tpu_torch.parallel.mesh, phlash_tpu_torch.profiling; "
+            "from phlash_tpu_torch.sim import simulate_hmm, simulate_dataset, hmm_path_stats, "
+            "stdpopsim_dataset, simulate_scrm, parse_scrm_stream, compute_truth; "
+            "from phlash_tpu_torch.parallel import make_mesh, shard_training_step; "
             "phlash_tpu_torch.fit, phlash_tpu_torch.contig, phlash_tpu_torch.plot_posterior; "
             "bad = [m for m in ('jax', 'phlash_tpu') if m in sys.modules]; "
             "sys.exit(f'imported {bad}' if bad else 0)")
@@ -103,11 +107,14 @@ def test_backend_device_mismatch_raises(device, backend):
         get_kernel(16, np.zeros((2, 16), np.int8), device=device, backend=backend)
 
 
-@pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(key=7),
-], ids=lambda d: next(iter(d)))
-def test_unimplemented_options_raise(psmcfa, option):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("option,error", [
+    pytest.param(dict(mesh=object()), TypeError, id="mesh"),
+    pytest.param(dict(key=7), NotImplementedError, id="key"),
+])
+def test_unimplemented_options_raise(psmcfa, option, error):
+    """key has no counterpart (seed= does its work); mesh is implemented
+    (tests/test_torch_parallel.py) and refuses what is not a DeviceMesh."""
+    with pytest.raises(error):
         phlash_tpu_torch.psmc([psmcfa], device="cpu", niter=1, **option)
 
 

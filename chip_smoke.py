@@ -91,6 +91,14 @@ Phases, each of which prints its own lines and aborts the run on failure:
    simulated contigs of 20,000 windows as .psmcfa, psmc(...) on the card,
    the posterior median of c in [0.5, 2]; (c) profiling.trace around one
    graphed call of the smc program: the trace file names the smc kernels.
+9. the port's bench: `python -m phlash_tpu_torch bench` from the checkout's
+   root in a subprocess (with a deadline), its JSON line echoed as
+   `bench: ...`; the phase fails unless the line has a value, the bench's
+   gate (smc kernels against their plain float64 version) is within ll
+   1e-5 relative and gradients 2e-5 normalized, every timed window
+   launched its hand kernels (B1 fwd-only, B2 + B3 fwd+grad and the smc
+   SVGD step, B4 / B5 the packed windows) and nothing else, every roofline
+   share lies in (0, 1], and the card it names is phase 1's.
 `--profile` also prints torch.profiler tables of eager and graphed steps
 of each path, with the device busy share.
 The last two lines are a JSON summary of the kernels (B1-B5) and the
@@ -114,8 +122,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20240601
-PEAK_FP32 = 67e12  # FLOP/s: H100 SXM float32 outside the tensor cores (data sheet, 700 W)
-PEAK_BYTES = 3.35e12  # B/s: H100 SXM HBM3
 PATTERNS = {8: "8*1", 16: "14*1+1*2", 32: "32*1", 64: "64*1"}
 FIT_SHAPE = (500, 5, 2000)  # (B, S, L) of the fit's likelihood call, where phase 5 times
 
@@ -781,38 +787,13 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the least time for `flops` float32 operations and
-    `nbytes` of device-memory traffic, whichever is larger."""
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
-# float32 operations per live site of one instance, counted from the kernels'
-# source at M states (a fused multiply-add counts as 2):
-#   smc_forward   S(a): M adds; per state b*S + d*a + vv*P: 5, P += u*a: 2;
-#                 emission: M; per 8-site period: sum, M divisions, log, add
-#   smc_backward  the period rebuild (as the forward) + per site in reverse:
-#                 S(x), u*x, P(.): 3M; per state v: 5, v*y, route, f*y: 3,
-#                 db/dd/dvv: 6; vv*vbar, S, b*vbar, P: 4M; du: 2M; xbar: 4M;
-#                 per period the boundary adjoint: ~7M
-#   packed_fwd    alpha A: 2M^2; emission M; sum M; division M; log, add: 2
-#   packed_bwd    the segment rebuild (2M^2 + 3M) + per site in reverse: u, c,
-#                 alpha: 3M; <abar, alpha>: 2M; ubar: 3M; w: M; w A^T: 2M^2;
-#                 dA += alpha_prev w: 2M^2; v*ubar, routed add: 2M
-def flops_per_site(name: str, M: int) -> float:
-    return {
-        "smc_forward": 9 * M + (2 * M + 3) / 8,
-        "smc_backward": 9 * M + (2 * M + 3) / 8 + 27 * M + 7 * M / 8,
-        "packed_forward": 2 * M * M + 3 * M + 2,
-        "packed_backward": (2 * M * M + 3 * M) + (4 * M * M + 12 * M),
-    }[name]
-
-
 def kernel_timing(torch, smc, dev, fit_inputs: dict):
     """Phase 5: each SMC' kernel and its plain version at the fit shape,
     float32, with the kernels' launch geometry; then B2 and B3 on the smc
-    fit's own inputs (`fit_inputs`, label -> smc_fit_inputs' dict)."""
+    fit's own inputs (`fit_inputs`, label -> smc_fit_inputs' dict).  The
+    bounds are roofline.py's."""
+    from phlash_tpu_torch import roofline
+
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     (B, S, L), M = FIT_SHAPE, 16
     params, pi, obs = random_instances(torch, M, B, S, L, dev, gen)
@@ -832,15 +813,9 @@ def kernel_timing(torch, smc, dev, fit_inputs: dict):
     }
     sites = B * S * L
     live = B * float((obs != -2).sum())
-    f4 = 4 * B * S * M  # one float32 (B, S, M) tensor, in bytes
-    par = 6 * 4 * B * M  # the six (B, M) parameter rows
-    ps_bytes = ps_p.numel() * 4
-    t["fwd_bound"] = bound(flops_per_site("smc_forward", M) * live,
-                           par + f4 + obs.numel() + 4 * B * S + f4)
-    t["fwd_res_bound"] = bound(flops_per_site("smc_forward", M) * live,
-                               par + f4 + obs.numel() + 4 * B * S + f4 + ps_bytes)
-    t["bwd_bound"] = bound(flops_per_site("smc_backward", M) * live,
-                           par + obs.numel() + ps_bytes + 4 * B * S + f4 + 7 * f4)
+    for key, name in (("fwd", "smc_forward"), ("fwd_res", "smc_forward_residuals"),
+                      ("bwd", "smc_backward")):
+        t[key + "_bound"] = roofline.kernel_bound(name, M, B, S, L, live)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"timing at B={B} S={S} L={L} M={M} (float32); bounds: B1 {t['fwd_bound'][0]:.4f} ms "
           f"({t['fwd_bound'][1]}), B2 {t['fwd_res_bound'][0]:.4f} ms ({t['fwd_res_bound'][1]}), "
@@ -876,6 +851,7 @@ def packed_timing(torch, packed, dev, fit_inputs: dict):
     """Phase 5b: the packed kernels and their plain versions at the fit
     shape, float32, with the kernels' launch geometry; then the kernels on
     `fit_inputs` (label -> packed_fit_inputs' triple)."""
+    from phlash_tpu_torch import roofline
     from phlash_tpu_torch.ops.packing import dense_transition
     from phlash_tpu_torch.params import PSMCParams
 
@@ -904,13 +880,8 @@ def packed_timing(torch, packed, dev, fit_inputs: dict):
         A, e0, e1, obs, packed.forward_packed(A, e0, e1, pi, obs)[1], gbar), 2)
     sites = B * S * L
     live = B * float((obs != -2).sum())
-    f4 = 4 * B * S * M
-    par = 4 * B * M * M + 2 * 4 * B * M  # A and the two emission rows
-    t["fwd_bound"] = bound(flops_per_site("packed_forward", M) * live,
-                           par + f4 + obs.numel() + 4 * B * S)
-    t["bwd_bound"] = bound(flops_per_site("packed_backward", M) * live,
-                           par + obs.numel() + ck.numel() * 4 + 4 * B * S
-                           + 4 * B * S * M * M + 3 * f4)
+    for key, name in (("fwd", "packed_forward"), ("bwd", "packed_backward")):
+        t[key + "_bound"] = roofline.kernel_bound(name, M, B, S, L, live)
     print(f"packed timing at B={B} S={S} L={L} M={M} seg_len={packed.DEFAULT_SEG} (float32):")
     for key, what in (("fwd", "forward, no checkpoints"), ("bwd", "adjoint alone"),
                       ("fwd_grad", "forward with checkpoints + adjoint")):
@@ -1393,17 +1364,81 @@ def trace_phase(torch, prog, dev, tmp: str) -> dict:
     return names
 
 
-def kernel_entry(name, source, replaces, launches, genome_launches, mesh_launches, errs, gate,
-                 t, key):
+# phase 9: the bench's deadline, and what each of its timed windows must launch
+BENCH_SECONDS = 600
+BENCH_WINDOWS = {"fwd_only": ("B1",), "fwd_grad": ("B2", "B3"),
+                 "m32_fwd_only": ("B1",), "m32_fwd_grad": ("B2", "B3"),
+                 "m64_fwd_only": ("B1",), "m64_fwd_grad": ("B2", "B3"),
+                 "packed_fwd_only": ("B4",), "packed_fwd_grad": ("B4", "B5"),
+                 "smc_svgd_first_call": ("B2", "B3"), "smc_svgd": ("B2", "B3"),
+                 "packed_svgd_first_call": ("B4", "B5"), "packed_svgd": ("B4", "B5"),
+                 "baseline": ()}
+
+
+def bench_phase(card_name: str) -> dict:
+    """Phase 9: `python -m phlash_tpu_torch bench` in a subprocess from the
+    checkout's root, killed at BENCH_SECONDS; echoes its line and holds it
+    to its gate, its launch windows, its roofline shares and the card's
+    name.  Returns the bench's launches of each kernel over its windows."""
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, "-m", "phlash_tpu_torch", "bench"], cwd=ROOT,
+                             capture_output=True, text=True, timeout=BENCH_SECONDS)
+    except subprocess.TimeoutExpired:
+        fail(f"the bench did not finish in {BENCH_SECONDS} s")
+    wall = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    for line in lines:
+        print(f"bench: {line}")
+    if out.returncode != 0 or len(lines) != 1:
+        print(out.stderr[-4000:], file=sys.stderr)
+        fail(f"the bench exited {out.returncode} with {len(lines)} lines on its standard output")
+    res = json.loads(lines[0])
+    extra = res["extra"]
+    gate = extra["gate"]
+    e_g = max(gate["max_normalized_err_grad"].values())
+    print(f"bench: {wall:.1f} s; value {res['value']} Msites/s fwd+grad, vs_baseline "
+          f"{res['vs_baseline']}; gate ll {gate['max_rel_err_ll']:.3e}, gradients {e_g:.3e}; "
+          f"card {extra['device_name']}, {extra['power_limit']}; SM clock "
+          f"{extra['clocks_sm_mhz']} MHz, power draw {extra['power_draw_w']} W")
+    if not (gate["ok"] and gate["max_rel_err_ll"] <= 1e-5 and e_g <= 2e-5):
+        fail(f"the bench's gate failed: {gate}")
+    if res["value"] is None:
+        fail("the bench printed no value")
+    windows = extra["launches"]
+    if set(windows) != set(BENCH_WINDOWS):
+        fail(f"the bench timed the windows {sorted(windows)}; expected {sorted(BENCH_WINDOWS)}")
+    for name, kernels in BENCH_WINDOWS.items():
+        got = windows[name]
+        if set(got) != set(kernels) or len(set(got.values())) > 1 or not all(got.values()):
+            fail(f"the bench's {name} window launched {got}; expected each of {kernels} "
+                 "as often, and nothing else")
+    shares = {k: v for k, v in extra.items() if "roofline_fraction" in k}
+    if len(shares) != 4 or not all(v is not None and 0.0 < v <= 1.0 for v in shares.values()):
+        fail(f"the bench's roofline shares are not all in (0, 1]: {shares}")
+    if extra["device_name"] != card_name:
+        fail(f"the bench names the card {extra['device_name']!r}; phase 1 read {card_name!r}")
+    total = {}
+    for got in windows.values():
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+    print(f"bench: roofline shares {shares}; launches over its windows {total}")
+    return total
+
+
+def kernel_entry(name, source, replaces, launches, genome_launches, mesh_launches,
+                 bench_launches, errs, gate, t, key):
     """One kernel of the JSON summary line; `key` names its times in `t`.
     `launches` counts phase 4 / 4b's fit of its path, `genome_launches`
-    phase 7's fit from genome files, `mesh_launches` phase 8a's meshed fit."""
+    phase 7's fit from genome files, `mesh_launches` phase 8a's meshed fit,
+    `bench_launches` phase 9's bench over its timed windows."""
     ms_bound, by = t[key + "_bound"]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "launches_by_path": {"psmcfa (phase 4/4b)": launches,
                                  "genome files (phase 7)": genome_launches,
-                                 "mesh of one (phase 8a)": mesh_launches},
+                                 "mesh of one (phase 8a)": mesh_launches,
+                                 "bench (phase 9)": bench_launches},
             **errs, "gate": gate, "ms": t[key],
             "plain_ms": t[key + "_plain"], "bound_ms": ms_bound, "bound_by": by,
             "library_ms": None}
@@ -1526,6 +1561,10 @@ def main() -> int:
     if dist.is_initialized():
         dist.destroy_process_group()
 
+    # 9. the port's bench, in its own process
+    torch.cuda.empty_cache()
+    blaunch = bench_phase(smi.stdout.splitlines()[0].split(",")[0].strip())
+
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:
         fail("JAX or phlash_tpu was imported")
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s before its summary")
@@ -1540,28 +1579,27 @@ def main() -> int:
                      counts["forward_cuda"] - counts["forward_cuda_residuals"],
                      gcounts["forward_cuda"] - gcounts["forward_cuda_residuals"],
                      mcounts["smc"]["forward_cuda"] - mcounts["smc"]["forward_cuda_residuals"],
-                     smc_fwd,
-                     smc_gate, t, "fwd"),
+                     blaunch.get("B1", 0), smc_fwd, smc_gate, t, "fwd"),
         kernel_entry("smc_forward_residuals", src + "smc_forward.cu",
                      "phlash_tpu/ops/pallas_smc.py:358", counts["forward_cuda_residuals"],
                      gcounts["forward_cuda_residuals"], mcounts["smc"]["forward_cuda_residuals"],
-                     smc_fwd, smc_gate, t, "fwd_res"),
+                     blaunch.get("B2", 0), smc_fwd, smc_gate, t, "fwd_res"),
         kernel_entry("smc_backward", src + "smc_backward.cu", "phlash_tpu/ops/pallas_smc.py:511",
                      counts["backward_cuda"], gcounts["backward_cuda"],
-                     mcounts["smc"]["backward_cuda"],
+                     mcounts["smc"]["backward_cuda"], blaunch.get("B3", 0),
                      {"max_abs_err": errs["backward"]["abs"],
                       "max_normalized_err": errs["backward"]["grad"]},
                      "max|err| / max|plain| per gradient 2e-5", t, "bwd"),
         kernel_entry("packed_forward", src + "packed_forward.cu",
                      "phlash_tpu/ops/pallas_hmm.py:162", pcounts["forward_cuda"], 0,
-                     mcounts["packed"]["forward_cuda"],
+                     mcounts["packed"]["forward_cuda"], blaunch.get("B4", 0),
                      {"max_abs_err": perrs["forward"]["abs"],
                       "max_rel_err_ll": perrs["forward"]["ll"],
                       "max_rel_err_ckpt": perrs["forward"]["ckpt"]},
                      "rel: ll 1e-5, ckpt 1e-4", pt, "fwd"),
         kernel_entry("packed_backward", src + "packed_backward.cu",
                      "phlash_tpu/ops/pallas_hmm_vjp.py:155", pcounts["backward_cuda"], 0,
-                     mcounts["packed"]["backward_cuda"],
+                     mcounts["packed"]["backward_cuda"], blaunch.get("B5", 0),
                      {"max_abs_err": perrs["backward"]["abs"],
                       "max_normalized_err": perrs["backward"]["grad"]},
                      "max|err| / max|plain| per gradient 2e-5", pt, "bwd"),

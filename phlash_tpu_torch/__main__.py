@@ -5,8 +5,9 @@ tree-sequence inputs, save the posterior, optionally plot it.  The flags are
 phlash_tpu's, plus --device (default cuda; cpu for a run without a card);
 --seed seeds the fit.  Each VCF / BCF input takes the next --region in
 order, so two regions of one file are read by naming the file twice.
-phlash_tpu's `bench` subcommand runs its JAX benchmark and has no
-counterpart here.
+`bench` (phlash_tpu/__main__.py:60-66 runs the JAX bench.py) runs the
+port's own measurement, bench.py in this package, and prints its one JSON
+line; it takes --device (default cuda) and no shape flags.
 """
 
 from __future__ import annotations
@@ -38,6 +39,13 @@ def _add_fit(sub):
     return p
 
 
+def _add_bench(sub):
+    p = sub.add_parser("bench", help="time the hand kernels and the SVGD step; one JSON line")
+    p.add_argument("--device", default="cuda",
+                   help='torch device: "cuda" (default) or "cpu" (the plain versions)')
+    return p
+
+
 def _load_contigs(args):
     from phlash_tpu_torch.data import RawContig, contig
 
@@ -60,7 +68,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="phlash_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_fit(sub)
+    _add_bench(sub)
     args = ap.parse_args(argv)
+    if args.cmd == "bench":
+        from phlash_tpu_torch.bench import main as bench
+
+        return bench(device=args.device)
 
     from phlash_tpu_torch.mcmc import fit
     from phlash_tpu_torch.results import save_posterior

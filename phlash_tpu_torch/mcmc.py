@@ -397,12 +397,15 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
             save(last)
         if writer is not None:
             writer.wait()
+        if mesh is not None:
+            # every rank waits for rank 0's last write, so that none reads
+            # the checkpoint (in a next fit) before it is on disk; the
+            # all-gather over p below joins only rank 0's p group
+            comms.barrier(mesh, "saved")
     meter.setup_seconds = sum((sum(s.values()) for s in call.setup_seconds.values()), 0.0)
     logger.info("fit finished: %s", meter.summary(), extra={"step_meter": meter})
     particles = state.particles
     if best is not None and not options.get("return_final", False):
         logger.info("returning best-ELPD state from iteration %d", best[0])
         particles = best[2].particles
-    # under a mesh, a collective after rank 0's last write: no rank returns
-    # (and reads the checkpoint again in a next fit) before it is on disk
     return _models(prog, whole(particles))

@@ -286,6 +286,11 @@ def all_finite(mesh: DeviceMesh, t: torch.Tensor) -> bool:
     return not bool(_all_reduce(bad, mesh, None, "finite"))
 
 
+def barrier(mesh: DeviceMesh, what: str) -> None:
+    "Every rank of the world waits here for every other (one all-reduce of one element)."
+    _all_reduce(torch.zeros(1, device=mesh.device_type), mesh, None, what)
+
+
 # -- (place, step) -------------------------------------------------------------
 
 

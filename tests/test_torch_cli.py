@@ -92,13 +92,18 @@ def test_cli_default_device_is_the_card(inputs, tmp_path):
 
 
 def test_module_entry_point():
-    "`python -m phlash_tpu_torch fit --help` lists --device; `bench` is not a subcommand."
+    """`python -m phlash_tpu_torch fit --help` and `bench --help` list
+    --device; `bench` on a host without a card exits non-zero, refused."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT),
                                                        os.environ.get("PYTHONPATH", "")]))
     run = [sys.executable, "-m", "phlash_tpu_torch"]
-    ok = subprocess.run(run + ["fit", "--help"], cwd=ROOT, env=env, capture_output=True,
-                        text=True, timeout=120)
-    assert ok.returncode == 0 and "--device" in ok.stdout, ok.stderr
+    for cmd in ("fit", "bench"):
+        ok = subprocess.run(run + [cmd, "--help"], cwd=ROOT, env=env, capture_output=True,
+                            text=True, timeout=120)
+        assert ok.returncode == 0 and "--device" in ok.stdout, ok.stderr
+    if torch.cuda.is_available():
+        return
     bench = subprocess.run(run + ["bench"], cwd=ROOT, env=env, capture_output=True, text=True,
                            timeout=120)
-    assert bench.returncode == 2 and "invalid choice" in bench.stderr
+    assert bench.returncode != 0 and "no CUDA device" in bench.stderr, bench.stderr
+    assert bench.stdout == ""

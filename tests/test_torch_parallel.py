@@ -10,6 +10,9 @@ test_parallel.py:119-163 is read from the port's collective counter.
 
 Each world size is one spawn of its ranks, which run every case and
 return numpy arrays; the parent computes the unsharded and the JAX side.
+Rank 0 writes its checkpoints WRITE_DELAY seconds late, as a loaded host
+may: a rank that read the file before its last write was on disk would
+resume at another iteration than rank 0 and hang the world.
 The ranks import this module, so JAX is imported only inside the tests.
 Every process group has a 60 s timeout and every rank a join deadline, so
 a dead rank fails its test instead of hanging the suite.
@@ -39,6 +42,7 @@ INDS = np.array([[0, 200], [77, 3], [255, 255]])  # k = 3 rows of S = 2 chunk in
 AFS = np.array([50.0, 20.0, 10.0, 5.0, 2.0])
 TIMEOUT = datetime.timedelta(seconds=60)
 JOIN_SECONDS = 240
+WRITE_DELAY = 0.5  # seconds rank 0's checkpoint writer waits before each write
 NITER = 20  # iterations of the fits
 FIT = dict(device="cpu", kernel_backend="smc", num_particles=P, chunk_size=BODY,
            overlap=OVERLAP, minibatch_size=2, steps_per_call=2, elpd_samples=2,
@@ -148,9 +152,23 @@ def _shapes(world: int) -> dict:
     return out
 
 
+def _slow_writes() -> None:
+    "Delay every checkpoint write of this process by WRITE_DELAY seconds."
+    from phlash_tpu_torch import checkpoint
+
+    save = checkpoint.save_checkpoint
+
+    def slow(*args, **kw):
+        time.sleep(WRITE_DELAY)
+        return save(*args, **kw)
+
+    checkpoint.save_checkpoint = slow
+
+
 def _rank_main(rank: int, world: int, store: str, tmp: str, out: str) -> None:
     "One rank: every case under a (2, world // 2) mesh over gloo, pickled to `out`.rank."
     torch.set_num_threads(1)
+    _slow_writes()
     try:
         dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                                 world_size=world, timeout=TIMEOUT)

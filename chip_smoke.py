@@ -21,14 +21,24 @@ Phases, each of which prints its own lines and aborts the run on failure:
    kernels' checkpoint period (which the library reports and
    ops/packed.DEFAULT_SEG must equal); after phase 4c also on the packed
    fit's own late inputs;
+3c. the assembly kernels (A1 forward, A2 its gradient; ops/assembly.py)
+   against their plain versions, at a ragged P = 37 for every M of PATTERNS
+   at n - 1 = 0, 8 (through the default AFS transform) and 15, and at the
+   fit's P = 500, M = 16 also at the fit's n - 1 = 1 and the bench's 9,
+   with six edge particles on the branches' thresholds: float64 values
+   rtol 1e-10 (pi against max pi) and gradients 1e-8 of max|plain|;
+   float32 finite and no worse than twice the plain float32 version's
+   error against float64 (or 4 ulps), leaves 1e-4 relative, pi 1e-6
+   absolute, the edge particles' gradient within 1e-4 of max|plain|;
 4. the slice: phlash_tpu_torch.psmc on a seeded .psmcfa at 500 particles,
    S=5, chunks of 2000 + 500 overlap, 30 iterations (kernel_backend "smc"),
    by the default CUDA graph replays of steps_per_call = 10 iterations with
    the held-out ELPD fused into each call; the launch counters (which count
    replays) must show exactly the expected launches of the SMC' CUDA
-   kernels (expected_counts) and nothing else;
+   kernels and of A1 / A2 (expected_counts: every iteration one of each,
+   every ELPD one A1) and nothing else;
 4b. the same with kernel_backend="packed" and overlap 0: only the packed
-   CUDA kernels run;
+   CUDA kernels and A1 / A2 run;
 4c. ms per SVGD iteration of both paths, eager (base_step) and graphed
    (calls of 10), timed in turns (smc, packed, packed, smc), with each
    graph's warm-up and capture time;
@@ -47,7 +57,9 @@ Phases, each of which prints its own lines and aborts the run on failure:
 5b. packed kernel (B4, B5) and plain times at the same shape, with the
    kernels' launch geometry, then the packed kernels on the packed fit's
    own inputs (its initial particle cloud, and its particles after the
-   timed steps);
+   timed steps); then A1 and A2 and their plain times on the smc fit's
+   500 particles and AFS term (and at n - 1 = 15), beside their bounds and
+   the launch floor (a one-element add);
 5c. the scan backend (hmm.ScanKernel, plain PyTorch, float32) against the
    smc backend through the hand kernels at B=8, S=2, L=500: ll rtol 1e-4,
    gradients at normalized error 2e-5;
@@ -96,13 +108,14 @@ Phases, each of which prints its own lines and aborts the run on failure:
    `bench: ...`; the phase fails unless the line has a value, the bench's
    gate (smc kernels against their plain float64 version) is within ll
    1e-5 relative and gradients 2e-5 normalized, every timed window
-   launched its hand kernels (B1 fwd-only, B2 + B3 fwd+grad and the smc
-   SVGD step, B4 / B5 the packed windows) and nothing else, every roofline
-   share lies in (0, 1], and the card it names is phase 1's.
+   launched its hand kernels in proportion (B1 fwd-only, B2 + B3 fwd+grad,
+   B4 / B5 the packed windows, A1 / A2 their own windows; the SVGD steps
+   also A1 + A2 once an iteration) and nothing else, every roofline share
+   lies in (0, 1], and the card it names is phase 1's.
 `--profile` also prints torch.profiler tables of eager and graphed steps
 of each path, with the device busy share.
-The last two lines are a JSON summary of the kernels (B1-B5) and the
-result line.
+The last two lines are a JSON summary of the kernels (B1-B5, A1, A2) and
+the result line.
 It exits non-zero, printing no result, without a CUDA device or when the
 package is not beside it.
 """
@@ -367,6 +380,195 @@ def check_scan(torch, dev) -> dict:
     return {"ll": e_ll, "grad": e_g}
 
 
+# phase 3c: the assembly kernels (A1, A2).  (P, patterns, AFS sizes n - 1)
+# of the checks: a ragged P (37: the last block of 128 threads partly idle)
+# at every M of PATTERNS, and the fit's P = 500 at M = 16 with the fit's own
+# AFS size as well (1: one diploid, its one-row transform) and the bench's
+# (9); each at float64 and float32.
+ASSEMBLY_SHAPES = ((37, (8, 16, 32, 64), (0, 8, 15)), (500, (16,), (0, 1, 8, 9, 15)))
+AFS_TRANSFORMED = (1, 8, 9)  # n - 1 through the fit's default_afs_transform; 15 without
+N_EDGE = 6  # assembly_cloud's edge particles, first
+EDGE_GRAD = 1e-4  # the edge particles' float32 gradient, normalized: the leaves' relative limit
+EPS32 = 2.0 ** -23  # float32's machine epsilon
+
+
+def assembly_cloud(torch, pattern: str, P: int, gen, dtype):
+    """(init, x (P, D)): coordinates around the default model, the first six
+    where the assembly's branches and clamps switch (as
+    tests/test_torch_assembly.py's edge particles): a first sub-interval
+    short enough for _expQ2's tiny branch, sub-intervals under 1e-8 (the
+    degenerate override), c_tr exactly 0 (softplus at 0), c_tr = 5 over a
+    long grid (expm1inv's x > 10, the p_surv and 1e-20 clamps), rho above c
+    (the w > 0 swap), and a wide spread of rates."""
+    import math
+
+    from phlash_tpu_torch.params import MCMCParams
+    from phlash_tpu_torch.utils import Pattern
+
+    K = len(Pattern(pattern))
+    init = MCMCParams.from_linear(pattern, t1=1e-4, tM=15.0, c=[1.0] * K, theta=1e-2, rho=1e-2,
+                                  alpha=0.3, beta=0.01, device=gen.device)
+    x0 = init.flatten()
+    x = x0 + 0.5 * torch.randn(P, x0.shape[0], generator=gen, device=gen.device,
+                               dtype=torch.float64)
+    x[0, 0] = math.log(2e-7)
+    x[1, 0] = math.log(1e-9)
+    x[2, 2:2 + K] = 0.0
+    x[3, 1], x[3, 2:2 + K] = math.log(60.0), 5.0
+    x[4, 2:2 + K], x[4, -1] = -5.0, 6.0
+    x[5, 2:2 + K] = torch.linspace(-6.0, 5.0, K, dtype=torch.float64, device=gen.device)
+    return init.to(dtype=dtype), x.to(dtype).contiguous()
+
+
+def assembly_afs(torch, n_minus_1: int, gen, dtype):
+    """(afs, afs_transform) on the card in `dtype`, with a zero count where
+    n - 1 > 1, the transform the fit's default where n - 1 is in
+    AFS_TRANSFORMED; (None, None) for 0."""
+    import numpy as np
+
+    from phlash_tpu_torch.afs import default_afs_transform
+
+    if n_minus_1 == 0:
+        return None, None
+    afs = torch.randint(1, 60, (n_minus_1,), generator=gen, device=gen.device).to(dtype)
+    if n_minus_1 > 1:
+        afs[1] = 0.0
+    T = None
+    if n_minus_1 in AFS_TRANSFORMED:
+        T = torch.as_tensor(default_afs_transform(afs.cpu().numpy().astype(np.float64)),
+                            dtype=dtype, device=gen.device).contiguous()
+    return afs, T
+
+
+def leaf_errors(torch, a, b, f32: bool) -> list:
+    """Per leaf (PSMC_FIELDS order) the gate's measure of a against b: pi
+    against max pi (its first entry is 1 minus a sum and cancels); float64
+    every other leaf entrywise relative; float32 relative above 1e-12
+    (tests/test_torch_params.py's measure)."""
+    from phlash_tpu_torch.params import PSMC_FIELDS
+
+    out = []
+    for f, name in enumerate(PSMC_FIELDS):
+        x, y = a[:, f].double(), b[:, f].double()
+        if name == "pi":
+            out.append(float((x - y).abs().max()) / (1.0 if f32 else float(y.abs().max())))
+            continue
+        m = y.abs() > (1e-12 if f32 else 0.0)
+        out.append(float(((x - y).abs() / y.abs())[m].max()) if bool(m.any()) else 0.0)
+    return out
+
+
+def f32_errors(torch, k, k_g, p, p_g, want, want_g, terms: int) -> dict:
+    """The float32 gate's measures of one set of particles: the kernels' (k,
+    k_g) and the plain version's (p, p_g) errors against plain float64 (want,
+    want_g): per leaf, the prior and (terms 2) the AFS term relative, the
+    gradient normalized; the largest of the kernels' values' errors over
+    max(2x the plain one's, 4 ulps), and the gradient's; and whether every
+    kernel output is finite."""
+    k_l, p_l = (leaf_errors(torch, o[0], want[0], f32=True) for o in (k, p))
+    k_t = [max_rel(a, b) for a, b in zip(k[1:1 + terms], want[1:1 + terms])]
+    p_t = [max_rel(a, b) for a, b in zip(p[1:1 + terms], want[1:1 + terms])]
+    e_kg, e_pg = normalized(k_g, want_g), normalized(p_g, want_g)
+    over = lambda kk, pp: kk / max(2 * pp, 4 * EPS32)  # noqa: E731
+    finite = all(bool(torch.isfinite(t).all()) for t in (*k, k_g))
+    return dict(leaves=k_l, plain_leaves=p_l, terms=k_t, plain_terms=p_t, grad=e_kg,
+                plain_grad=e_pg, ratio_values=max(map(over, [*k_l, *k_t], [*p_l, *p_t])),
+                ratio_grad=over(e_kg, e_pg), finite=finite,
+                max_abs_fwd=max_abs(k[0], want[0]), max_abs_grad=max_abs(k_g, want_g))
+
+
+def check_assembly(torch, dev) -> dict:
+    """Phase 3c: A1 and A2 (ops/assembly.py) against their plain versions on
+    the card at ASSEMBLY_SHAPES.  float64, every particle: leaves, prior and
+    AFS term rtol 1e-10 (pi against max pi), the gradient of a random dot
+    with the outputs within 1e-8 of max|plain|.  float32, the N_EDGE edge
+    particles and the rest each on their own: every output finite, each
+    value against the plain float64 version no worse than twice the plain
+    float32 version's own error (or 4 float32 ulps), the leaves within 1e-4
+    relative (above 1e-12) and pi within 1e-6 absolute; the gradient on the
+    rest under the same 2x rule, on the edge particles within EDGE_GRAD of
+    max|plain float64|.  There (a sub-interval under 1e-8 gives gradients
+    of ~1e7) the plain float32 gradient moves by 2.6e-7 to 5.9e-7 of
+    max|grad| when its inputs move by one ulp (tools/torch_assembly_edges.py),
+    so a ratio to its own error compares two draws of rounding noise.  Every case is checked and printed before
+    a failure ends the phase.  Returns the largest errors."""
+    from phlash_tpu_torch.ops import assembly
+    from phlash_tpu_torch.params import PSMC_FIELDS
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    errs = {"f64_values": 0.0, "f64_grad": 0.0, "f32_leaves": 0.0, "f32_grad": 0.0,
+            "f32_over_plain": 0.0, "f32_edge_grad": 0.0, "max_abs_fwd": 0.0,
+            "max_abs_grad": 0.0}
+    failures = []
+    for P, Ms, afs_sizes in ASSEMBLY_SHAPES:
+        for M in Ms:
+            pattern = PATTERNS[M]
+            init, x = assembly_cloud(torch, pattern, P, gen, torch.float64)
+            for nm1 in afs_sizes:
+                where = f"M={M} P={P} n-1={nm1}"
+                afs, T = assembly_afs(torch, nm1, gen, torch.float64)
+                g = [torch.randn(s, generator=gen, device=dev, dtype=torch.float64)
+                     for s in ((P, 7, M), (P,), (P,))]
+                want = assembly.assemble_plain(init, x, afs, T)
+                want_g = assembly.assemble_vjp_plain(init, x, afs, T, *g)
+                got = assembly.forward_cuda(init, x, afs, T)
+                got_g = assembly.backward_cuda(init, x, afs, T, *g)
+                torch.cuda.synchronize()
+                e_leaves = leaf_errors(torch, got[0], want[0], f32=False)
+                e_terms = [max_rel(a, b) for a, b in zip(got[1:], want[1:])]
+                e_g = normalized(got_g, want_g)
+                errs["f64_values"] = max(errs["f64_values"], *e_leaves, *e_terms)
+                errs["f64_grad"] = max(errs["f64_grad"], e_g)
+                if not (max(*e_leaves, *e_terms) <= 1e-10 and e_g <= 1e-8):
+                    failures.append(f"{where}, float64: leaves "
+                                    f"{dict(zip(PSMC_FIELDS, e_leaves))}, prior / AFS term "
+                                    f"{e_terms}, gradient {e_g:.3e}")
+
+                # float32: the kernels and the plain version, each against float64
+                i32, x32 = init.to(dtype=torch.float32), x.float().contiguous()
+                a32 = None if afs is None else afs.float()
+                T32 = None if T is None else T.float().contiguous()
+                g32 = [t.float().contiguous() for t in g]
+                k = assembly.forward_cuda(i32, x32, a32, T32)
+                k_g = assembly.backward_cuda(i32, x32, a32, T32, *g32)
+                p = assembly.assemble_plain(i32, x32, a32, T32)
+                p_g = assembly.assemble_vjp_plain(i32, x32, a32, T32, *g32)
+                torch.cuda.synchronize()
+                parts = {}
+                for part, sl in (("edge", slice(0, N_EDGE)), ("rest", slice(N_EDGE, None))):
+                    e = parts[part] = f32_errors(
+                        torch, [o[sl] for o in k], k_g[sl], [o[sl] for o in p], p_g[sl],
+                        [o[sl] for o in want], want_g[sl], 2 if nm1 else 1)
+                    limits = [1e-4] * 6 + [1e-6]
+                    grad_ok = (e["grad"] <= EDGE_GRAD if part == "edge"
+                               else e["ratio_grad"] <= 1.0)
+                    if (not e["finite"] or e["ratio_values"] > 1.0 or not grad_ok
+                            or any(v > lim for v, lim in zip(e["leaves"], limits))):
+                        failures.append(
+                            f"{where}, float32, {part} particles, against float64: finite "
+                            f"{e['finite']}, leaves {e['leaves']} (plain {e['plain_leaves']}), "
+                            f"prior / AFS term {e['terms']} (plain {e['plain_terms']}), "
+                            f"gradient {e['grad']:.3e} (plain {e['plain_grad']:.3e})")
+                    errs["f32_leaves"] = max(errs["f32_leaves"], *e["leaves"])
+                    errs["max_abs_fwd"] = max(errs["max_abs_fwd"], e["max_abs_fwd"])
+                    errs["max_abs_grad"] = max(errs["max_abs_grad"], e["max_abs_grad"])
+                    key = "f32_edge_grad" if part == "edge" else "f32_grad"
+                    errs[key] = max(errs[key], e["grad"])
+                    errs["f32_over_plain"] = max(errs["f32_over_plain"], e["ratio_values"],
+                                                 0.0 if part == "edge" else e["ratio_grad"])
+                r, ed = parts["rest"], parts["edge"]
+                print(f"assembly {where}: float64 max rel err {max(*e_leaves, *e_terms):.3e}, "
+                      f"gradient {e_g:.3e}; float32 leaves {max(r['leaves']):.3e} (plain "
+                      f"{max(r['plain_leaves']):.3e}), gradient {r['grad']:.3e} (plain "
+                      f"{r['plain_grad']:.3e}), {max(r['ratio_values'], r['ratio_grad']):.2f} "
+                      f"of the gate; edge particles' float32 values "
+                      f"{ed['ratio_values']:.2f} of the gate, gradient {ed['grad']:.3e} "
+                      f"(plain {ed['plain_grad']:.3e}; limit {EDGE_GRAD:g})")
+    if failures:
+        fail("assembly kernels disagree with their plain version at " + "; ".join(failures))
+    return errs
+
+
 # (kernel_backend, overlap) of the phase-6 fits; the committed phlash_tpu.fit
 # posterior of each overlap is tests/data/torch_posterior_overlap<overlap>.npz
 REPRO_PATHS = (("smc", 500), ("packed", 0))
@@ -423,17 +625,13 @@ def repro_phase(torch, ops: dict) -> list[dict]:
         fail(f"the fixture's niter {niter} is not a multiple of {SPC}")
     # per fit: niter iterations by replay of one graph plus its eager warm-up
     # iteration; no held-out data, so no ELPD
-    steps = niter + 1
     log = logging.getLogger("phlash_tpu_torch.mcmc")
     meters, level = Records(logging.INFO), log.level
     log.addHandler(meters)
     log.setLevel(logging.INFO)
     out = []
     for backend, overlap in REPRO_PATHS:
-        want = (dict(forward_cuda=2 * steps, forward_cuda_residuals=2 * steps,
-                     backward_cuda=2 * steps, forward_plain=0, backward_plain=0)
-                if backend == "smc" else
-                dict(forward_cuda=steps, backward_cuda=steps, forward_plain=0, backward_plain=0))
+        want = expected_counts(backend, niter, elpd=False)
         pooled, walls, captures = [], [], []
         for seed in seeds:
             for mod in ops.values():
@@ -447,12 +645,8 @@ def repro_phase(torch, ops: dict) -> list[dict]:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             captures.append(meters.meters.pop()["setup_seconds"])
-            counts = {name: mod.counts() for name, mod in ops.items()}
-            if counts[backend] != want:
-                fail(f"the {backend} repro fit (seed {seed}) launched {counts[backend]}; "
-                     f"expected {want}")
-            if any(any(c.values()) for name, c in counts.items() if name != backend):
-                fail(f"the {backend} repro fit launched another backend's kernels")
+            check_counts({name: mod.counts() for name, mod in ops.items()}, want,
+                         f"the {backend} repro fit (seed {seed})")
             if len(post) != P or not all(torch.isfinite(m.eta.c).all() and (m.eta.c > 0).all()
                                          for m in post):
                 fail(f"the {backend} repro fit (seed {seed}) did not return {P} finite models")
@@ -505,25 +699,38 @@ SPC = 10  # steps_per_call, the CUDA default: one graph replay per 10 iterations
 SLICE = dict(num_particles=500, minibatch_size=5, chunk_size=2000)
 
 
-def expected_counts(backend: str, niter: int = NITER) -> dict:
-    """Launches of a fit with held-out data (phases 4, 4b, 7): niter (a
-    multiple of SPC) iterations by graph replay, an ELPD in each of the
-    niter / SPC calls (its cadence, 10 iterations, is one call), and the
-    eager warm-up iteration and ELPD before the one capture.  An smc
-    iteration runs the warm-up filter and the likelihood, each B2 + B3; its
-    ELPD two B1.  A packed iteration runs B4 + B5, its ELPD one B4."""
-    steps, elpds = niter + 1, niter // SPC + 1
+def expected_counts(backend: str, niter: int = NITER, elpd: bool = True) -> dict:
+    """Launches of a fit (phases 4, 4b, 7, 8a with held-out data; phase 6
+    without), by ops module: niter (a multiple of SPC) iterations by graph
+    replay, an ELPD in each of the niter / SPC calls (its cadence, 10
+    iterations, is one call), and the eager warm-up iteration (and ELPD)
+    before the one capture.  An smc iteration runs the warm-up filter and
+    the likelihood, each B2 + B3; its ELPD two B1.  A packed iteration runs
+    B4 + B5, its ELPD one B4.  Every iteration runs A1 + A2 (the assembly and
+    its gradient), every ELPD one A1; the other backend's module launches
+    nothing."""
+    steps, elpds = niter + 1, (niter // SPC + 1 if elpd else 0)
+    none = dict(forward_cuda=0, backward_cuda=0, forward_plain=0, backward_plain=0)
+    out = {"smc": dict(none, forward_cuda_residuals=0), "packed": dict(none),
+           "assembly": dict(none, forward_cuda=steps + elpds, backward_cuda=steps)}
     if backend == "smc":
-        return dict(forward_cuda=2 * steps + 2 * elpds, forward_cuda_residuals=2 * steps,
-                    backward_cuda=2 * steps, forward_plain=0, backward_plain=0)
-    return dict(forward_cuda=steps + elpds, backward_cuda=steps, forward_plain=0,
-                backward_plain=0)
+        out["smc"].update(forward_cuda=2 * steps + 2 * elpds, forward_cuda_residuals=2 * steps,
+                          backward_cuda=2 * steps)
+    else:
+        out["packed"].update(forward_cuda=steps + elpds, backward_cuda=steps)
+    return out
+
+
+def check_counts(counts: dict, want: dict, what: str) -> None:
+    "Fail unless every ops module launched exactly what `want` (expected_counts) says."
+    if counts != want:
+        fail(f"{what} launched {counts}; expected {want}")
 
 
 def run_slice(torch, ops, dev, path: Path, backend: str, overlap: int):
     """Phases 4 / 4b: the fit path through the public entry point with
     `backend`; ops maps backend -> its ops module (launch counters).  Returns
-    this backend's counts and the models."""
+    every module's counts and the models."""
     import phlash_tpu_torch
 
     for mod in ops.values():
@@ -537,11 +744,7 @@ def run_slice(torch, ops, dev, path: Path, backend: str, overlap: int):
     counts = {name: mod.counts() for name, mod in ops.items()}
     print(f"slice {backend}: psmc(niter={NITER}, overlap={overlap}) took {wall:.2f} s "
           f"(graph capture included); launch counts {counts}")
-    ours, want = counts[backend], expected_counts(backend)
-    if ours != want:
-        fail(f"the {backend} fit launched {ours}; expected {want}")
-    if any(any(c.values()) for name, c in counts.items() if name != backend):
-        fail(f"the {backend} fit launched another backend's kernels")
+    check_counts(counts, expected_counts(backend), f"the {backend} fit")
     if len(models) != 500:
         fail(f"expected 500 models, got {len(models)}")
     for m in models:
@@ -551,7 +754,7 @@ def run_slice(torch, ops, dev, path: Path, backend: str, overlap: int):
     Ne = torch.stack([0.5 / m.eta.c for m in models])
     print(f"slice {backend}: 500 finite models; median Ne(t) over particles at M epochs: "
           f"{[f'{x:.4g}' for x in Ne.median(0).values.tolist()]}")
-    return ours, models
+    return counts, models
 
 
 def build_program(torch, dev, path: Path, backend: str, overlap: int, num_particles=500,
@@ -651,10 +854,17 @@ def time_graphed(torch, prog, gen, calls: int = 4):
     return (t1 - t0) / (calls * k) * 1e3, (t_enqueued - t0) / (calls * k) * 1e3
 
 
-def profile_steps(torch, prog, gen, b: str, graphed: bool):
+HAND_KERNELS = ("smc_forward_kernel", "smc_backward_kernel", "packed_forward_kernel",
+                "packed_backward_kernel", "assembly_forward_kernel", "assembly_backward_kernel")
+
+
+def profile_steps(torch, prog, gen, b: str, graphed: bool, tables: bool = True) -> dict:
     """torch.profiler over 20 graphed iterations (2 calls) or 5 eager ones of
-    `prog`: the tables, and the device busy share (kernel and copy time on
-    the card over the host time of the window)."""
+    `prog`, per iteration: device time (kernels and copies), kernels on the
+    card (the hand kernels apart), the hand kernels' device time, the
+    host's kernel and graph launch calls, and the busy share (device time
+    over the window's wall time, which the profiler stretches).  Prints
+    them, and with `tables` the profiler's tables."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
@@ -673,18 +883,30 @@ def profile_steps(torch, prog, gen, b: str, graphed: bool):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     prog.state = clone_state(state)
-    events = p.events()
-    dev_ms = sum(e.time_range.elapsed_us() for e in events
-                 if e.device_type == DeviceType.CUDA) / 1e3
-    launches = {name: sum(e.name == name for e in events)
-                for name in ("cudaLaunchKernel", "cudaGraphLaunch")}
-    what = "graphed" if graphed else "eager"
     iters = n_calls * k
-    print(f"profile of {iters} {what} SVGD iterations, {b}: device time {dev_ms / iters:.3f} ms "
-          f"an iteration, wall {wall / iters:.3f} ms an iteration, device busy share "
-          f"{dev_ms / wall:.3f}; host calls {launches}")
-    print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-    print(p.key_averages().table(sort_by="self_cpu_time_total", row_limit=12))
+    events = p.events()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in on_card if not e.name.startswith(("Memcpy", "Memset"))]
+    hand = [e for e in kernels if any(h in e.name for h in HAND_KERNELS)]
+    dev_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3
+    out = dict(device_ms_per_iter=dev_ms / iters,
+               hand_kernel_ms_per_iter=sum(e.time_range.elapsed_us() for e in hand) / 1e3 / iters,
+               kernels_per_iter=len(kernels) / iters, hand_kernels_per_iter=len(hand) / iters,
+               other_kernels_per_iter=(len(kernels) - len(hand)) / iters,
+               host_calls_per_iter={name: sum(e.name == name for e in events) / iters
+                                    for name in ("cudaLaunchKernel", "cudaGraphLaunch")},
+               busy_share=dev_ms / wall, wall_ms_per_iter_profiled=wall / iters)
+    what = "graphed" if graphed else "eager"
+    print(f"profile of {iters} {what} SVGD iterations, {b}: device time "
+          f"{out['device_ms_per_iter']:.3f} ms an iteration ({out['hand_kernel_ms_per_iter']:.3f} "
+          f"in hand kernels), wall {out['wall_ms_per_iter_profiled']:.3f} ms an iteration, "
+          f"device busy share {out['busy_share']:.3f}; kernels an iteration "
+          f"{out['hand_kernels_per_iter']:g} hand + {out['other_kernels_per_iter']:g} other; "
+          f"host calls an iteration {out['host_calls_per_iter']}")
+    if tables:
+        print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+        print(p.key_averages().table(sort_by="self_cpu_time_total", row_limit=12))
+    return out
 
 
 def step_timing(torch, progs: dict, profile: bool) -> dict:
@@ -844,6 +1066,55 @@ def kernel_timing(torch, smc, dev, fit_inputs: dict):
         t_bwd = time_ms(torch, lambda: smc.backward_cuda(fp, fobs, ps, g, ab), 20)
         print(f"  smc fit inputs, {label}: B2 {t_fwd:.4f} ms, B3 {t_bwd:.4f} ms; "
               f"smallest period-state entry {float(ps[ps > 0].min()):.3e}")
+    return t
+
+
+def assembly_timing(torch, dev, prog) -> dict:
+    """Phase 5, the assembly: A1 and A2 (CUDA events, mean of 20 launches)
+    and their plain versions (mean of 2 calls after one warm-up) on the smc
+    fit's program `prog` (its particles after the timed steps, float32, its
+    AFS term: n - 1 = 1 from one diploid), then A1 and A2 at n - 1 = 15 (the
+    genome-file fit's n = 16); beside them the launch floor (a one-element
+    add, mean of 20) and roofline.py's bounds."""
+    from phlash_tpu_torch import roofline
+    from phlash_tpu_torch.ops import assembly, build
+
+    lib = build.load_library()
+    init, x = prog.init, prog.state.particles.contiguous()
+    P, D = x.shape
+    M = init.M
+    cases = {"fit": (prog.afs, prog.afs_transform)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    cases["n-1=15"] = assembly_afs(torch, 15, gen, x.dtype)
+    t = {}
+    for label, (afs, T) in cases.items():
+        nm1 = 0 if afs is None else afs.shape[0]
+        R = 0 if afs is None else (nm1 if T is None else T.shape[0])
+        outs = assembly.forward_cuda(init, x, afs, T)
+        g = tuple(torch.randn(o.shape, generator=gen, device=dev, dtype=x.dtype) for o in outs)
+        key = "" if label == "fit" else "_n16"
+        t["a1" + key] = time_ms(torch, lambda: assembly.forward_cuda(init, x, afs, T), 20)
+        t["a2" + key] = time_ms(torch, lambda: assembly.backward_cuda(init, x, afs, T, *g), 20)
+        if label == "fit":
+            t["a1_plain"] = time_ms(torch, lambda: assembly.assemble_plain(init, x, afs, T), 2)
+            t["a2_plain"] = time_ms(torch, lambda: assembly.assemble_vjp_plain(
+                init, x, afs, T, *g), 2)
+            for k, name in (("a1", "assembly_forward"), ("a2", "assembly_backward")):
+                t[k + "_bound"] = roofline.assembly_bound(name, P, M, D, nm1, R,
+                                                          x.element_size())
+            t["shape"] = dict(P=P, M=M, D=D, n_minus_1=nm1, R=R, dtype=str(x.dtype))
+        print(f"assembly timing, {label} (P={P}, M={M}, D={D}, n-1={nm1}, {x.dtype}): "
+              f"A1 {t['a1' + key]:.4f} ms, A2 {t['a2' + key]:.4f} ms a launch")
+    one = torch.zeros(1, device=dev)
+    t["launch_floor"] = time_ms(torch, lambda: one.add_(1.0), 20)
+    threads = lib.lib.phlash_assembly_threads_per_block()
+    print(f"  bounds: A1 {t['a1_bound'][0]:.6f} ms ({t['a1_bound'][1]}), A2 "
+          f"{t['a2_bound'][0]:.6f} ms ({t['a2_bound'][1]}); launch floor (a one-element add) "
+          f"{t['launch_floor']:.4f} ms")
+    print(f"  plain: A1's {t['a1_plain']:.2f} ms, A2's {t['a2_plain']:.2f} ms")
+    print(f"  launch geometry: A1 {-(-P // threads)} blocks of {threads} threads (a thread a "
+          f"particle), A2 {-(-P * D // threads)} blocks of {threads} (a thread a particle and "
+          f"coordinate)")
     return t
 
 
@@ -1042,7 +1313,7 @@ def genome_phase(torch, ops: dict, dev, tmp: str) -> dict:
     the files; (b) the ingestion gates; (c) phlash_tpu_torch.fit from the
     .vcf.gz with a spawn pool of 2 readers, by graph replay with the fused
     ELPD on chr2, with exact launch counts; (d) the command line in-process.
-    Returns the phase's launch counts of the smc kernels."""
+    Returns the fit's launch counts, by ops module."""
     import numpy as np
 
     import phlash_tpu_torch
@@ -1098,11 +1369,7 @@ def genome_phase(torch, ops: dict, dev, tmp: str) -> dict:
     finally:
         mlog.removeHandler(fitlog)
         mlog.setLevel(level)
-    want = expected_counts("smc")
-    if counts["smc"] != want:
-        fail(f"the genome-file fit launched {counts['smc']}; expected {want}")
-    if any(counts["packed"].values()):
-        fail("the genome-file fit launched the packed kernels")
+    check_counts(counts, expected_counts("smc"), "the genome-file fit")
     if len(post) != GENOME_FIT["num_particles"] or not all(
             torch.isfinite(m.eta.t).all() and torch.isfinite(m.eta.c).all()
             and (m.eta.c > 0).all() and np.isfinite(m.rho) for m in post):
@@ -1123,12 +1390,12 @@ def genome_phase(torch, ops: dict, dev, tmp: str) -> dict:
     prec = afs_term_precision(torch, prog)
     line = dict(phase="genome", wall_s=wall, setup_s=meter["setup_seconds"],
                 ms_per_iter_without_setup=ms_iter, chunks_before_after_cap=down[0] if down
-                else [len(chunks)] * 2, launches=counts["smc"], afs_term=prec,
+                else [len(chunks)] * 2, launches=counts, afs_term=prec,
                 ingest_s=t_read, write_s=t_write)
     print(f"genome fit: {len(post)} finite models in {wall:.2f} s (reading, chunking, "
           f"graph set-up {meter['setup_seconds']:.3f} s included); {ms_iter:.3f} ms an "
           f"iteration without set-up; chunks {line['chunks_before_after_cap']} before / after "
-          f"the 5*S*niter cap; launches {counts['smc']}")
+          f"the 5*S*niter cap; launches {counts}")
     print(f"genome fit: AFS term of the initial cloud (n = {prec['n']}), float32 against "
           f"float64: max relative difference {prec['max_rel']:.3e}")
     if not prec["max_rel"] <= 1e-5:
@@ -1145,18 +1412,16 @@ def genome_phase(torch, ops: dict, dev, tmp: str) -> dict:
               "--out", str(post_path), "--seed", "1"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    cli_counts = ops["smc"].counts()
+    cli_counts = {name: mod.counts() for name, mod in ops.items()}
     models = results.load_posterior(str(post_path))
     print(f"genome cli: exit {rc} in {cli_s:.2f} s; {len(models)} models read back from "
           f"{post_path.name}; launches {cli_counts}")
     if rc != 0 or len(models) != GENOME_FIT["num_particles"]:
         fail(f"the command line exited {rc} and wrote {len(models)} models")
-    if cli_counts != expected_counts("smc", CLI_NITER):
-        fail(f"the command line's fit launched {cli_counts}; expected "
-             f"{expected_counts('smc', CLI_NITER)}")
+    check_counts(cli_counts, expected_counts("smc", CLI_NITER), "the command line's fit")
     line.update(cli_s=cli_s, cli_launches=cli_counts)
     print(json.dumps(line))
-    return counts["smc"]
+    return counts
 
 
 # phase 8b: the simulator at chromosome scale, then the canonical end-to-end drive
@@ -1229,11 +1494,7 @@ def mesh_phase(torch, ops: dict, dev, tmp: str, want: dict, progs: dict) -> dict
         wall = time.perf_counter() - t0
         counts = {name: mod.counts() for name, mod in ops.items()}
         colls = comms.collectives()
-        if counts[backend] != expected_counts(backend):
-            fail(f"the meshed {backend} fit launched {counts[backend]}; expected "
-                 f"{expected_counts(backend)}")
-        if any(any(c.values()) for name, c in counts.items() if name != backend):
-            fail(f"the meshed {backend} fit launched another backend's kernels")
+        check_counts(counts, expected_counts(backend), f"the meshed {backend} fit")
         step_keys = ("all_reduce/d/rows", "all_reduce/d/density", "all_gather/p/cloud")
         if any(colls.get(k, (0, 0))[0] != NITER + 1 for k in step_keys):
             fail(f"the meshed {backend} fit ran {colls}; expected {NITER + 1} of each of "
@@ -1244,13 +1505,13 @@ def mesh_phase(torch, ops: dict, dev, tmp: str, want: dict, progs: dict) -> dict
         same = all(torch.equal(g.eta.c, w.eta.c) and torch.equal(g.eta.t, w.eta.t)
                    for g, w in zip(models, want[backend]))
         print(f"mesh {backend}: psmc(niter={NITER}, overlap={overlap}, mesh=make_mesh(1)) took "
-              f"{wall:.2f} s; launch counts {counts[backend]}; against phase 4's unsharded "
+              f"{wall:.2f} s; launch counts {counts}; against phase 4's unsharded "
               f"fit: max rel err {err:.3e} over eta.c and eta.t, bitwise equal: {same}")
         print(f"mesh {backend}: collectives (calls, bytes a call) {colls}; {step_bytes} B an "
               "SVGD iteration")
         if len(models) != len(want[backend]) or not err <= 1e-6:
             fail(f"the meshed {backend} fit differs from the unsharded one by {err:.3e}")
-        out[backend] = dict(launches=counts[backend], max_rel_err=err, bitwise=same,
+        out[backend] = dict(launches=counts, max_rel_err=err, bitwise=same,
                             collectives=colls, bytes_per_iter=step_bytes, wall_s=wall)
 
     # graphed ms an iteration, unsharded and meshed, in turns
@@ -1366,13 +1627,17 @@ def trace_phase(torch, prog, dev, tmp: str) -> dict:
 
 # phase 9: the bench's deadline, and what each of its timed windows must launch
 BENCH_SECONDS = 600
-BENCH_WINDOWS = {"fwd_only": ("B1",), "fwd_grad": ("B2", "B3"),
-                 "m32_fwd_only": ("B1",), "m32_fwd_grad": ("B2", "B3"),
-                 "m64_fwd_only": ("B1",), "m64_fwd_grad": ("B2", "B3"),
-                 "packed_fwd_only": ("B4",), "packed_fwd_grad": ("B4", "B5"),
-                 "smc_svgd_first_call": ("B2", "B3"), "smc_svgd": ("B2", "B3"),
-                 "packed_svgd_first_call": ("B4", "B5"), "packed_svgd": ("B4", "B5"),
-                 "baseline": ()}
+# (kernel -> launches per unit: an smc SVGD iteration runs B2 and B3 twice,
+# the filter and the likelihood, and A1 and A2 once)
+_SMC_SVGD = {"B2": 2, "B3": 2, "A1": 1, "A2": 1}
+_PACKED_SVGD = {"B4": 1, "B5": 1, "A1": 1, "A2": 1}
+BENCH_WINDOWS = {"fwd_only": {"B1": 1}, "fwd_grad": {"B2": 1, "B3": 1},
+                 "m32_fwd_only": {"B1": 1}, "m32_fwd_grad": {"B2": 1, "B3": 1},
+                 "m64_fwd_only": {"B1": 1}, "m64_fwd_grad": {"B2": 1, "B3": 1},
+                 "packed_fwd_only": {"B4": 1}, "packed_fwd_grad": {"B4": 1, "B5": 1},
+                 "smc_svgd_first_call": _SMC_SVGD, "smc_svgd": _SMC_SVGD,
+                 "packed_svgd_first_call": _PACKED_SVGD, "packed_svgd": _PACKED_SVGD,
+                 "assembly_fwd": {"A1": 1}, "assembly_grad": {"A2": 1}, "baseline": {}}
 
 
 def bench_phase(card_name: str) -> dict:
@@ -1410,9 +1675,10 @@ def bench_phase(card_name: str) -> dict:
         fail(f"the bench timed the windows {sorted(windows)}; expected {sorted(BENCH_WINDOWS)}")
     for name, kernels in BENCH_WINDOWS.items():
         got = windows[name]
-        if set(got) != set(kernels) or len(set(got.values())) > 1 or not all(got.values()):
-            fail(f"the bench's {name} window launched {got}; expected each of {kernels} "
-                 "as often, and nothing else")
+        units = {got[k] / n for k, n in kernels.items() if k in got}
+        if set(got) != set(kernels) or len(units) > 1 or not all(got.values()):
+            fail(f"the bench's {name} window launched {got}; expected {kernels} in proportion "
+                 "(each at least once), and nothing else")
     shares = {k: v for k, v in extra.items() if "roofline_fraction" in k}
     if len(shares) != 4 or not all(v is not None and 0.0 < v <= 1.0 for v in shares.values()):
         fail(f"the bench's roofline shares are not all in (0, 1]: {shares}")
@@ -1422,7 +1688,9 @@ def bench_phase(card_name: str) -> dict:
     for got in windows.values():
         for k, n in got.items():
             total[k] = total.get(k, 0) + n
-    print(f"bench: roofline shares {shares}; launches over its windows {total}")
+    print(f"bench: roofline shares {shares}; launches over its windows {total}; assembly "
+          f"at {extra['assembly_particles']} particles: A1 {extra['assembly_fwd_ms']:.4f} ms, "
+          f"A2 {extra['assembly_grad_ms']:.4f} ms a launch")
     return total
 
 
@@ -1484,7 +1752,7 @@ def main() -> int:
     print(smi.stdout.strip())  # name, power limit
 
     # 2. build
-    from phlash_tpu_torch.ops import build, packed, smc
+    from phlash_tpu_torch.ops import assembly, build, packed, smc
 
     lib = build.load_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.1f} s")
@@ -1504,9 +1772,11 @@ def main() -> int:
     # 3. kernels against their plain versions
     errs = check_kernels(torch, smc, dev)
     perrs = check_packed_kernels(torch, packed, dev)
+    # 3c. the assembly kernels
+    aerrs = check_assembly(torch, dev)
 
     # 4. the slice, once per hand-kernel backend, by graph replays
-    ops = {"smc": smc, "packed": packed}
+    ops = {"smc": smc, "packed": packed, "assembly": assembly}
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
         path = Path(tmp) / "smoke.psmcfa"
         write_psmcfa(path)
@@ -1540,6 +1810,7 @@ def main() -> int:
     # 5. kernel times at the fit shape
     t = kernel_timing(torch, smc, dev, {**smc_inputs, **late})
     pt = packed_timing(torch, packed, dev, fit_inputs)
+    at = assembly_timing(torch, dev, built["smc"][0])
     # 5c. the scan backend against the smc kernels
     check_scan(torch, dev)
 
@@ -1574,35 +1845,66 @@ def main() -> int:
     smc_fwd = {"max_abs_err": errs["forward"]["abs"], "max_rel_err_ll": errs["forward"]["ll"],
                "max_rel_err_alpha_pstates": errs["forward"]["state"]}
     smc_gate = "rel: ll 1e-5, alpha and pstates 1e-4; B1 equal to B2 bitwise"
+    sc, pc, gc = counts["smc"], pcounts["packed"], gcounts["smc"]
+    msc, mpc = mcounts["smc"]["smc"], mcounts["packed"]["packed"]
+    asm = {b: (c["assembly"], mcounts[b]["assembly"]) for b, c in (("smc", counts),
+                                                                   ("packed", pcounts))}
+    asm_gate = ("float64: values rtol 1e-10 (pi against max pi), gradient 1e-8 of max|plain|; "
+                "float32, edge particles and the rest apart: finite, against plain float64 "
+                "within max(2x plain float32's error, 4 ulps), leaves 1e-4 rel, pi 1e-6 abs; "
+                "the edge particles' gradient within 1e-4 of max|plain float64|")
+    asm_errs = {"max_abs_err": aerrs["max_abs_fwd"], "max_rel_err_f64": aerrs["f64_values"],
+                "max_err_f32_leaves": aerrs["f32_leaves"],
+                "max_f32_err_over_gate": aerrs["f32_over_plain"]}
+    asm_grad_errs = {"max_abs_err": aerrs["max_abs_grad"],
+                     "max_normalized_err_f64": aerrs["f64_grad"],
+                     "max_normalized_err_f32": aerrs["f32_grad"],
+                     "max_f32_err_over_gate": aerrs["f32_over_plain"],
+                     "max_normalized_err_f32_edge": aerrs["f32_edge_grad"]}
+    replaces = "phlash_tpu/mcmc.py:259"  # the jitted step whose assembly XLA fuses
     print(json.dumps({"kernels": [
         kernel_entry("smc_forward", src + "smc_forward.cu", "phlash_tpu/ops/pallas_smc.py:358",
-                     counts["forward_cuda"] - counts["forward_cuda_residuals"],
-                     gcounts["forward_cuda"] - gcounts["forward_cuda_residuals"],
-                     mcounts["smc"]["forward_cuda"] - mcounts["smc"]["forward_cuda_residuals"],
+                     sc["forward_cuda"] - sc["forward_cuda_residuals"],
+                     gc["forward_cuda"] - gc["forward_cuda_residuals"],
+                     msc["forward_cuda"] - msc["forward_cuda_residuals"],
                      blaunch.get("B1", 0), smc_fwd, smc_gate, t, "fwd"),
         kernel_entry("smc_forward_residuals", src + "smc_forward.cu",
-                     "phlash_tpu/ops/pallas_smc.py:358", counts["forward_cuda_residuals"],
-                     gcounts["forward_cuda_residuals"], mcounts["smc"]["forward_cuda_residuals"],
+                     "phlash_tpu/ops/pallas_smc.py:358", sc["forward_cuda_residuals"],
+                     gc["forward_cuda_residuals"], msc["forward_cuda_residuals"],
                      blaunch.get("B2", 0), smc_fwd, smc_gate, t, "fwd_res"),
         kernel_entry("smc_backward", src + "smc_backward.cu", "phlash_tpu/ops/pallas_smc.py:511",
-                     counts["backward_cuda"], gcounts["backward_cuda"],
-                     mcounts["smc"]["backward_cuda"], blaunch.get("B3", 0),
+                     sc["backward_cuda"], gc["backward_cuda"], msc["backward_cuda"],
+                     blaunch.get("B3", 0),
                      {"max_abs_err": errs["backward"]["abs"],
                       "max_normalized_err": errs["backward"]["grad"]},
                      "max|err| / max|plain| per gradient 2e-5", t, "bwd"),
         kernel_entry("packed_forward", src + "packed_forward.cu",
-                     "phlash_tpu/ops/pallas_hmm.py:162", pcounts["forward_cuda"], 0,
-                     mcounts["packed"]["forward_cuda"], blaunch.get("B4", 0),
+                     "phlash_tpu/ops/pallas_hmm.py:162", pc["forward_cuda"], 0,
+                     mpc["forward_cuda"], blaunch.get("B4", 0),
                      {"max_abs_err": perrs["forward"]["abs"],
                       "max_rel_err_ll": perrs["forward"]["ll"],
                       "max_rel_err_ckpt": perrs["forward"]["ckpt"]},
                      "rel: ll 1e-5, ckpt 1e-4", pt, "fwd"),
         kernel_entry("packed_backward", src + "packed_backward.cu",
-                     "phlash_tpu/ops/pallas_hmm_vjp.py:155", pcounts["backward_cuda"], 0,
-                     mcounts["packed"]["backward_cuda"], blaunch.get("B5", 0),
+                     "phlash_tpu/ops/pallas_hmm_vjp.py:155", pc["backward_cuda"], 0,
+                     mpc["backward_cuda"], blaunch.get("B5", 0),
                      {"max_abs_err": perrs["backward"]["abs"],
                       "max_normalized_err": perrs["backward"]["grad"]},
                      "max|err| / max|plain| per gradient 2e-5", pt, "bwd"),
+        {**kernel_entry("assembly_forward", src + "assembly.cu", replaces,
+                        asm["smc"][0]["forward_cuda"], gcounts["assembly"]["forward_cuda"],
+                        asm["smc"][1]["forward_cuda"], blaunch.get("A1", 0), asm_errs,
+                        asm_gate, at, "a1"),
+         "launches_packed_path": asm["packed"][0]["forward_cuda"],
+         "launch_floor_ms": at["launch_floor"], "ms_n_minus_1_15": at["a1_n16"],
+         "shape": at["shape"]},
+        {**kernel_entry("assembly_backward", src + "assembly.cu", replaces,
+                        asm["smc"][0]["backward_cuda"], gcounts["assembly"]["backward_cuda"],
+                        asm["smc"][1]["backward_cuda"], blaunch.get("A2", 0), asm_grad_errs,
+                        asm_gate, at, "a2"),
+         "launches_packed_path": asm["packed"][0]["backward_cuda"],
+         "launch_floor_ms": at["launch_floor"], "ms_n_minus_1_15": at["a2_n16"],
+         "shape": at["shape"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -30,12 +30,17 @@ B = 500 particles x S = 5 chunks, L = 20,000 sites.  Parts, in order:
   step is a CUDA graph of steps_per_call = 10 iterations; minibatch indices
   drawn as mcmc.fit draws them.  The first call (warm-up and capture) is
   timed apart; then the best of 3 windows of 3 calls.  The same on
-  `packed` at overlap 0.
+  `packed` at overlap 0.  Each iteration runs the assembly kernels once
+  (A1 forward, A2 its gradient; ops/assembly.py) beside the HMM kernels;
+- the assembly alone on the `smc` program's 500 particles and AFS (9
+  entries): A1 and A2 ms a launch, the best of `reps` windows of `inner`
+  launches.
 
 Every timed window reads the launch counters (ops/smc.counts,
-ops/packed.counts; graph replays count through add_counts) and fails unless
-it launched exactly the kernels it is named for, once per call or
-iteration.  On the card each number stands beside the card's name and power
+ops/packed.counts, ops/assembly.counts; graph replays count through
+add_counts) and fails unless it launched exactly the kernels it is named
+for, once per call or iteration (the smc SVGD step twice each HMM kernel).
+On the card each number stands beside the card's name and power
 limit and its SM clock and power draw before and after the timed windows;
 roofline shares (roofline.py) above 1 fail the run.  `device="cpu"` runs
 the plain versions and leaves every device number null: no CPU time is
@@ -55,7 +60,7 @@ import torch
 from phlash_tpu_torch import roofline
 from phlash_tpu_torch.kernel import get_kernel, resolve_device
 from phlash_tpu_torch.mcmc import generators
-from phlash_tpu_torch.ops import packed, smc
+from phlash_tpu_torch.ops import assembly, packed, smc
 from phlash_tpu_torch.params import PSMC_FIELDS, PSMCParams
 from phlash_tpu_torch.size_history import DemographicModel
 from phlash_tpu_torch.training import build_training
@@ -80,6 +85,8 @@ LAUNCHES = {
     ("packed", "fwd_grad", "cpu"): ("packed_plain_forward", "packed_plain_backward"),
 }
 SVGD_PASSES = {"smc": 2, "packed": 1}  # fwd+grad passes an iteration (smc: filter and likelihood)
+# the assembly's forward and gradient, once an SVGD iteration, by device
+ASSEMBLY = {"cuda": ("A1", "A2"), "cpu": ("assembly_plain_forward", "assembly_plain_backward")}
 
 
 def workload(M: int = 16, B: int = 500, S: int = 5, L: int = 20_000, device="cuda"):
@@ -122,18 +129,22 @@ def passes(kern, pps: PSMCParams, inds: torch.Tensor):
 
 def launches() -> dict:
     "The hand kernels' launch counters and their plain versions' calls, by name."
-    s, p = smc.counts(), packed.counts()
+    s, p, a = smc.counts(), packed.counts(), assembly.counts()
     return {"B1": s["forward_cuda"] - s["forward_cuda_residuals"],
             "B2": s["forward_cuda_residuals"], "B3": s["backward_cuda"],
             "B4": p["forward_cuda"], "B5": p["backward_cuda"],
+            "A1": a["forward_cuda"], "A2": a["backward_cuda"],
             "smc_plain_forward": s["forward_plain"], "smc_plain_backward": s["backward_plain"],
             "packed_plain_forward": p["forward_plain"],
-            "packed_plain_backward": p["backward_plain"]}
+            "packed_plain_backward": p["backward_plain"],
+            "assembly_plain_forward": a["forward_plain"],
+            "assembly_plain_backward": a["backward_plain"]}
 
 
 class Launches:
     """The counters' deltas of each named window; `check` fails a window
-    that did not launch exactly `names` `n` times each, and nothing else."""
+    that did not launch exactly `names` `n` times each (and the kernels of
+    `extra`, name -> launches, as often as it says), and nothing else."""
 
     def __init__(self):
         self.windows: dict[str, dict] = {}
@@ -145,8 +156,8 @@ class Launches:
         self.windows[name] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         return out
 
-    def check(self, name: str, names: tuple, n: int) -> None:
-        want = {k: n for k in names}
+    def check(self, name: str, names: tuple, n: int, extra: dict | None = None) -> None:
+        want = {**{k: n for k in names}, **(extra or {})}
         if self.windows[name] != want:
             raise RuntimeError(f"the {name} window launched {self.windows[name]}; expected {want}")
 
@@ -272,10 +283,35 @@ def svgd_step(backend: str, overlap: int, dev: torch.device, chunks: np.ndarray,
     best = counted.count(f"{backend}_svgd", lambda: timed(state))
     names = LAUNCHES[(backend, "fwd_grad", dev.type)]
     warm = 1 if dev.type == "cuda" else 0  # the capture's eager warm-up iteration
-    counted.check(f"{backend}_svgd_first_call", names, SVGD_PASSES[backend] * (warm + k))
-    counted.check(f"{backend}_svgd", names, SVGD_PASSES[backend] * windows * calls * k)
-    return dict(ms_per_iter=best * 1e3, iters_per_sec=1.0 / best, steps_per_call=k,
-                capture_s=capture_s)
+    for window, iters in (("first_call", warm + k), ("", windows * calls * k)):
+        counted.check("_".join(filter(None, (backend, "svgd", window))), names,
+                      SVGD_PASSES[backend] * iters, dict.fromkeys(ASSEMBLY[dev.type], iters))
+    out = dict(ms_per_iter=best * 1e3, iters_per_sec=1.0 / best, steps_per_call=k,
+               capture_s=capture_s)
+    if backend == "smc":
+        out.update(assembly_timing(prog, dev, counted))
+    return out
+
+
+def assembly_timing(prog, dev: torch.device, counted: Launches, reps: int = 3,
+                    inner: int = 10) -> dict:
+    """A1 and A2 alone on `prog`'s particles, AFS and transform: ms a launch,
+    the best of `reps` windows of `inner` launches after a warm one."""
+    x, init, afs, T = prog.state.particles.contiguous(), prog.init, prog.afs, prog.afs_transform
+    leaves, l_prior, l_afs = assembly.forward(init, x, afs, T)
+    g = (torch.ones_like(leaves), torch.ones_like(l_prior), torch.ones_like(l_afs))
+    out = {}
+    for what, fn, kernel in (
+            ("fwd", lambda: assembly.forward(init, x, afs, T), ASSEMBLY[dev.type][0]),
+            ("grad", lambda: assembly.backward(init, x, afs, T, *g), ASSEMBLY[dev.type][1])):
+        def window(fn=fn):
+            fn()
+            _sync(dev)
+            return min(_ms_per_call(fn, dev, inner) for _ in range(reps))
+
+        out[f"assembly_{what}_ms"] = counted.count(f"assembly_{what}", window)
+        counted.check(f"assembly_{what}", (kernel,), 1 + reps * inner)
+    return out
 
 
 def roofline_share(ms: float, kernels: tuple, M: int, B: int, S: int, L: int) -> tuple:
@@ -385,7 +421,10 @@ def run(device="cuda", *, M: int = 16, B: int = 500, S: int = 5, L: int = 20_000
                 svgd_steps_per_call=steps["smc"]["steps_per_call"],
                 svgd_capture_s=steps["smc"]["capture_s"],
                 packed_svgd_step_ms_per_iter=steps["packed"]["ms_per_iter"],
-                packed_svgd_capture_s=steps["packed"]["capture_s"])
+                packed_svgd_capture_s=steps["packed"]["capture_s"],
+                assembly_fwd_ms=steps["smc"]["assembly_fwd_ms"],
+                assembly_grad_ms=steps["smc"]["assembly_grad_ms"],
+                assembly_particles=svgd_particles)
 
     # roofline shares of the kernels' bound at this shape (roofline.py)
     for prefix, value, kernels in (

@@ -1,10 +1,13 @@
 """Composite log-density: prior + chunked HMM likelihood + AFS likelihood.
 
 Port of phlash_tpu/model.py:32-41,91-145.  `log_density_batched` expands the
-particles' coordinates to HMM natural parameters once, filters each chunk's
-overlap prefix through the kernel to get per-chunk initial distributions,
-evaluates the chunk log-likelihoods through the same kernel, adds the AFS
-term, and combines with weights c = [prior, HMM, AFS] (the fit uses
+particles' coordinates to HMM natural parameters, the log prior and the AFS
+term in one op (ops/assembly.AssemblyOp: the hand kernels A1 / A2 on the
+card; on the CPU the params / transition code and ops/assembly's
+`log_prior` and `log_afs`, which this module re-exports),
+filters each chunk's overlap prefix through the kernel to get per-chunk
+initial distributions, evaluates the chunk log-likelihoods through the same
+kernel, and combines with weights c = [prior, HMM, AFS] (the fit uses
 [1, N/S, 1], so minibatch gradients are unbiased).  Particles are
 independent, so one backward pass of the summed densities gives every
 particle's gradient.
@@ -16,33 +19,9 @@ import math
 
 import torch
 
-from phlash_tpu_torch.params import MCMCParams, PSMCParams
-from phlash_tpu_torch.size_history import SizeHistory
-
-
-def log_prior(mcp: MCMCParams) -> torch.Tensor:
-    """Per-particle log prior: standard normal on log(rho/theta), an
-    alpha-weighted smoothness penalty on log c, a beta-weighted ridge."""
-    x = torch.log(mcp.rho_over_theta)
-    lp = -(math.log(2.0 * math.pi) + x**2) / 2.0
-    lp = lp - mcp.alpha * (torch.diff(mcp.log_c) ** 2).sum(-1)
-    flat = mcp.flatten()
-    return lp - mcp.beta * (flat * flat).sum(-1)
-
-
-def log_afs(eta: SizeHistory, afs: torch.Tensor, afs_transform: torch.Tensor | None = None
-            ) -> torch.Tensor:
-    """(B,) AFS composite log-likelihood of the observed (n-1,) spectrum under
-    each history's expected spectrum, both through afs_transform (identity
-    when None), in the dtype of eta."""
-    n = afs.shape[-1] + 1
-    dtype = eta.c.dtype
-    T = (torch.eye(n - 1, dtype=dtype, device=eta.c.device)
-         if afs_transform is None else afs_transform.to(dtype))
-    T_afs = T @ afs.to(dtype)  # constant across particles
-    etbl = eta.etbl(n)  # (B, n-1)
-    esfs = etbl / etbl.sum(-1, keepdim=True)
-    return torch.special.xlogy(T_afs, (T * esfs[:, None, :]).sum(-1)).sum(-1)
+from phlash_tpu_torch.ops import assembly
+from phlash_tpu_torch.ops.assembly import log_afs, log_prior  # noqa: F401  (the plain terms)
+from phlash_tpu_torch.params import MCMCParams
 
 
 def log_density_rows(
@@ -58,8 +37,7 @@ def log_density_rows(
     """(B,) weighted log-densities on the given chunk rows, unmasked.  With
     prior_and_afs=False only the chunks' likelihood term: a rank of a mesh's
     chunk axis other than the first (parallel/mesh.py) adds just its share."""
-    dms = mcps.to_dm()
-    pp = PSMCParams.from_dm(dms)  # leaves (B, M)
+    pp, l_prior, l_afs = assembly.assemble(mcps, afs, afs_transform)  # leaves (B, M)
 
     S = warmup.shape[0]
     if S == 0:  # a mesh rank with no share of this minibatch
@@ -73,11 +51,6 @@ def log_density_rows(
     if not prior_and_afs:
         return c[1] * l_hmm
 
-    l_prior = log_prior(mcps)
-    if afs is not None:
-        l_afs = log_afs(dms.eta, afs, afs_transform)
-    else:
-        l_afs = torch.zeros_like(l_prior)
     return c[0] * l_prior + c[1] * l_hmm + c[2] * l_afs
 
 

@@ -30,8 +30,9 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# the dtype the kernels of a device type take: the CUDA kernels are
-# float32-only; the plain versions (every other device) take any dtype
+# the dtype the HMM kernels of a device type take: the CUDA kernels B1-B5
+# are float32-only; the plain versions (every other device) take any dtype.
+# The assembly kernels (ops/assembly.py) take float32 and float64 alike.
 KERNEL_DTYPE = {"cuda": torch.float32}
 
 
@@ -81,6 +82,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_packed_period.restype = I
     lib.phlash_packed_states_per_lane.argtypes = [I]
     lib.phlash_packed_states_per_lane.restype = I
+    D = ctypes.c_double
+    lib.phlash_assembly_forward.argtypes = [I] + [P] * 5 + [I] * 5 + [D] * 3 + [P] * 5
+    lib.phlash_assembly_forward.restype = I
+    lib.phlash_assembly_backward.argtypes = [I] + [P] * 5 + [I] * 5 + [D] * 3 + [P] * 6
+    lib.phlash_assembly_backward.restype = I
+    lib.phlash_assembly_threads_per_block.argtypes = []
+    lib.phlash_assembly_threads_per_block.restype = I
     lib.phlash_cuda_error_string.argtypes = [I]
     lib.phlash_cuda_error_string.restype = ctypes.c_char_p
 

@@ -16,11 +16,15 @@ Kernels, by the names of the kernel table (ops/smc.py, ops/packed.py):
     packed_forward          B4 without checkpoints
     packed_forward_ckpt     B4 with its checkpoints (the fwd+grad pass)
     packed_backward         B5: adjoint of B4
+and, by `assembly_bound` (ops/assembly.py, in float32 or float64):
+    assembly_forward        A1: coordinates -> leaves, prior, AFS term
+    assembly_backward       A2: their gradient
 """
 
 from __future__ import annotations
 
 PEAK_FP32 = 67e12  # FLOP/s: H100 SXM float32 outside the tensor cores (data sheet, 700 W)
+PEAK_FP64 = 34e12  # FLOP/s: H100 SXM float64 outside the tensor cores (data sheet, 700 W)
 PEAK_BYTES = 3.35e12  # B/s: H100 SXM HBM3
 SMC_PERIOD = 8  # sites between rescalings: ops/smc.NORM_EVERY, a period-start state each
 PACKED_PERIOD = 8  # sites between checkpoints: ops/packed.DEFAULT_SEG
@@ -29,10 +33,11 @@ KERNELS = ("smc_forward", "smc_forward_residuals", "smc_backward", "packed_forwa
            "packed_forward_ckpt", "packed_backward")
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """(bound_ms, bound_by): the least time for `flops` float32 operations and
-    `nbytes` of device-memory traffic, whichever is larger."""
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time for `flops` operations at `peak`
+    (float32 by default) and `nbytes` of device-memory traffic, whichever
+    is larger."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -90,3 +95,53 @@ def kernel_bound(name: str, M: int, B: int, S: int, L: int,
             "packed_forward_ckpt": "packed_forward"}.get(name, name)
     sites = B * S * L if live is None else live
     return bound(flops_per_site(algo, M) * sites, kernel_bytes(name, M, B, S, L))
+
+
+# Operations of one particle's assembly, counted from csrc/assembly_common.cuh
+# (+, -, *, / and each libdevice exp / expm1 / log / log1p / sqrt count 1, so
+# the count is a floor on the instructions): the coordinates' transforms
+# (~13), the prior (10 K + 2 D + 6 over K rate groups), per finite interval
+# ~231 (the grid point, texp_mean, the two sub-interval blocks of _expQ2 at
+# ~70 each plus their occupancy update, the emissions, the diagonals, row 0
+# and pi), ~100 for the open last interval, and the AFS term: per pair count 12 per finite interval + 6, the
+# branch lengths' W product 2 (n - 1), the normalization 2 (n - 1) and
+# R (4 (n - 1) + 3) for the transform and xlogy.
+def assembly_flops(M: int, D: int, nm1: int, R: int) -> float:
+    "Operations of A1 for one particle at M intervals, D coordinates, n - 1 AFS entries."
+    K = D - 3
+    ops = 13 + (10 * K + 2 * D + 6) + 231 * (M - 1) + 100
+    if nm1:
+        ops += nm1 * (12 * (M - 1) + 6 + 2 * nm1) + 2 * nm1 + R * (4 * nm1 + 3)
+    return float(ops)
+
+
+# Operations a gradient needs, in forward passes: the forward once and its
+# reverse sweep at about twice that (the cheap-gradient principle's bound
+# of 3 for +, -, * and /; a libdevice function's derivative reuses its
+# value).  A2's own algorithm, D dual-number passes, does ~2.5 D of them:
+# that is its cost, not the work of the function it computes.
+GRAD_PASSES = 3
+
+
+def assembly_bound(name: str, P: int, M: int, D: int, nm1: int = 0, R: int = 0,
+                   elem: int = 4) -> tuple[float, str]:
+    """(bound_ms, bound_by) of A1 ("assembly_forward") or A2
+    ("assembly_backward") on P particles, in float32 (elem 4) or float64
+    (elem 8).  Bytes: the coordinates, the pattern's index (int64), the AFS
+    constants (afs, its transform, W) read once; A1 writes the (P, 7, M)
+    leaves and the two (P,) terms, A2 reads their cotangents and writes the
+    (P, D) gradient (the scratch buffer is the kernels' own and not
+    counted).  Operations: A1 assembly_flops a particle; A2 GRAD_PASSES
+    times that, what one reverse pass of A1 needs."""
+    consts = 8 * M + elem * (nm1 + R * nm1 + nm1 * nm1)
+    leaves = elem * (7 * P * M + 2 * P)
+    coords = elem * P * D
+    per = assembly_flops(M, D, nm1, R)
+    if name == "assembly_forward":
+        flops, nbytes = P * per, coords + consts + leaves
+    elif name == "assembly_backward":
+        flops = P * GRAD_PASSES * per
+        nbytes = coords + consts + leaves + coords
+    else:
+        raise ValueError(f"unknown assembly kernel {name!r}")
+    return bound(flops, nbytes, PEAK_FP32 if elem == 4 else PEAK_FP64)

@@ -2,10 +2,10 @@
 
 Port of phlash_tpu/training.py:34-243: given a chunk tensor and options,
 produce the initial particle cloud, `base_step(state, inds) -> state`, one
-SVGD iteration on the minibatch chunks `inds` (S,) (the warm-up filter, the
-likelihood and its gradient through the kernel pair, the SVGD + amsgrad
-update, all on `device`), and `step`, a `Caller` of `steps_per_call`
-iterations.
+SVGD iteration on the minibatch chunks `inds` (S,) (the assembly, the
+warm-up filter, the likelihood and their gradient through the kernels, the
+SVGD + amsgrad update, all on `device`), and `step`, a `Caller` of
+`steps_per_call` iterations.
 
 Minibatch indices are drawn outside the step.  `fit` draws a call's
 (k, S) index rows in one torch.randint from its generator (the counterpart
@@ -13,7 +13,7 @@ of jax.random.split(key, k)), and `make_multi_step(step, k)` runs k
 iterations on those rows.  On the CPU a call is that loop, eagerly.  On
 CUDA, `Caller` captures it once per (k, with the held-out ELPD or not) as a
 CUDA graph over static buffers and replays it: the counterpart of jax.jit
-over lax.scan, one graph launch in place of the ~2200 kernel launches that
+over lax.scan, one graph launch in place of the ~130 kernel launches that
 each iteration issues from Python.
 
 What a step may do, so that its capture replays right: no host sync (no
@@ -42,7 +42,7 @@ import torch
 from phlash_tpu_torch.afs import default_afs_transform
 from phlash_tpu_torch.kernel import check_backend, get_kernel
 from phlash_tpu_torch.model import log_density_batched, log_density_rows
-from phlash_tpu_torch.ops import packed, smc
+from phlash_tpu_torch.ops import assembly, packed, smc
 from phlash_tpu_torch.parallel import mesh as comms
 from phlash_tpu_torch.params import MCMCParams
 from phlash_tpu_torch.svgd import SVGD, AMSGrad, SVGDState
@@ -51,7 +51,7 @@ from phlash_tpu_torch.utils import Pattern
 logger = logging.getLogger(__name__)
 
 # the modules whose launch (and collective) counters a graph replay adds to
-_COUNTED = (smc, packed, comms)
+_COUNTED = (smc, packed, assembly, comms)
 
 
 def make_multi_step(step: Callable, k: int) -> Callable:

@@ -47,9 +47,9 @@ ADDED = {"device", "kernel", "device_name", "power_limit", "torch", "cuda", "gat
          "packed_roofline_fraction_fwd_grad", "packed_roofline_bound_by_fwd",
          "packed_roofline_bound_by_fwd_grad", "packed_fwd_grad_Msites_per_sec",
          "packed_fwd_only_Msites_per_sec", "svgd_capture_s", "packed_svgd_step_ms_per_iter",
-         "packed_svgd_capture_s"}
+         "packed_svgd_capture_s", "assembly_fwd_ms", "assembly_grad_ms", "assembly_particles"}
 PLAIN = {"smc_plain_forward", "smc_plain_backward", "packed_plain_forward",
-         "packed_plain_backward"}
+         "packed_plain_backward", "assembly_plain_forward", "assembly_plain_backward"}
 
 
 def jax_workload(M, B, S, L):
@@ -130,16 +130,21 @@ def test_line_on_the_cpu(capsys):
     assert extra["svgd_steps_per_call"] == 1  # the CPU steps eagerly, one iteration a call
     for k in ADDED - {"device", "kernel", "torch", "gate", "launches", "svgd_capture_s",
                       "packed_fwd_grad_Msites_per_sec", "packed_fwd_only_Msites_per_sec",
-                      "packed_svgd_step_ms_per_iter", "packed_svgd_capture_s"}:
+                      "packed_svgd_step_ms_per_iter", "packed_svgd_capture_s",
+                      "assembly_fwd_ms", "assembly_grad_ms", "assembly_particles"}:
         assert extra[k] is None, k
     windows = extra["launches"]
     assert set(windows) == {"fwd_only", "fwd_grad", "baseline", "m32_fwd_grad", "m32_fwd_only",
                             "m64_fwd_grad", "m64_fwd_only", "packed_fwd_grad", "packed_fwd_only",
                             "smc_svgd_first_call", "smc_svgd", "packed_svgd_first_call",
-                            "packed_svgd"}
+                            "packed_svgd", "assembly_fwd", "assembly_grad"}
     assert windows["baseline"] == {}
     assert windows["fwd_grad"] == {"smc_plain_forward": 2, "smc_plain_backward": 2}
-    assert windows["packed_svgd"] == {"packed_plain_forward": 9, "packed_plain_backward": 9}
+    assert windows["packed_svgd"] == {"packed_plain_forward": 9, "packed_plain_backward": 9,
+                                      "assembly_plain_forward": 9, "assembly_plain_backward": 9}
+    assert windows["assembly_fwd"] == {"assembly_plain_forward": 31}
+    assert windows["assembly_grad"] == {"assembly_plain_backward": 31}
+    assert extra["assembly_particles"] == 4 and extra["assembly_fwd_ms"] > 0
     assert all(set(w) <= PLAIN for w in windows.values())
 
 

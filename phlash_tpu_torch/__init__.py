@@ -32,6 +32,7 @@ _EXPORTS = {
 }
 
 __all__ = list(_EXPORTS)
+__version__ = "0.1.0"  # pyproject.toml's, as phlash_tpu.__version__
 
 
 def __getattr__(name):

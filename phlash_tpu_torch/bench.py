@@ -42,7 +42,18 @@ add_counts) and fails unless it launched exactly the kernels it is named
 for, once per call or iteration (the smc SVGD step twice each HMM kernel).
 On the card each number stands beside the card's name and power
 limit and its SM clock and power draw before and after the timed windows;
-roofline shares (roofline.py) above 1 fail the run.  `device="cpu"` runs
+roofline shares (roofline.py) above 1 fail the run, and so do the smc
+kernels' shares of the issue ceiling and of the shuffle path
+(`sm_issue_peak_fraction_*`, `sm_shuffle_peak_fraction_*`: their counted
+instructions a site over the data-sheet rates, roofline.issue_share; the
+counterpart of phlash_tpu's `vpu_issue_peak_fraction_*`).  The issue count
+is the source's, and two of its terms are estimates, not counts: a float
+division's instructions (roofline.DIV_NEXT) and logf's (roofline.LOGF); the
+built kernels' loops hold more instructions than the count (B1 99.9 against
+76.9 a lane-site, B3 231.5 against 198.9, tools/torch_sm_peak.py --sass on
+an H100), so the issue shares read low.  The shuffle count is exact.  The bench does
+not run the micro-kernel sweep (tools/torch_sm_peak.py), as phlash_tpu's
+does not run tools/vpu_peak.py.  `device="cpu"` runs
 the plain versions and leaves every device number null: no CPU time is
 written under a device's name.  No part's failure is caught.
 """
@@ -438,6 +449,14 @@ def run(device="cuda", *, M: int = 16, B: int = 500, S: int = 5, L: int = 20_000
                      else (None, None))
         line[f"{prefix}roofline_fraction_{what}"] = share
         line[f"{prefix}roofline_bound_by_{what}"] = by
+    # the smc kernels' share of the issue ceiling and of the shuffle path
+    # (roofline.issue_share), phlash_tpu's vpu_issue_peak_fraction_* on a TPU
+    for what, value, kernels in (("fwd", ours_fwd, ("smc_forward",)),
+                                 ("fwd_grad", ours, ("smc_forward_residuals", "smc_backward"))):
+        for pipe in ("issue", "shuffle"):
+            line[f"sm_{pipe}_peak_fraction_{what}"] = (
+                roofline.issue_share(sites / value / 1e3, kernels, M, B, S, L, pipe)
+                if on_card else None)
     line.update(clocks_sm_mhz=[s[0] for s in sample] if on_card else None,
                 power_draw_w=[s[1] for s in sample] if on_card else None,
                 peak_mem_MB=peak_mb, launches=counted.windows)

@@ -23,7 +23,8 @@ CPU), return_final,
 double_precision_params (a float64 cloud and assembly), double_precision
 and kernel_seg_len (see kernel.py: float64 kernel state on "dense" and
 "scan" only; a segment length on "dense" only), steps_per_call (10 on CUDA,
-1 on the CPU), check_every (10), checkpoint_path, save_every (50), progress
+1 on the CPU), check_every (10; 1 when the environment sets PHLASH_TPU_DEBUG,
+as in phlash_tpu), checkpoint_path, save_every (50), progress
 (True; a tqdm bar when tqdm imports) and callback: called after each call
 with the cloud as one batched DemographicModel in per-window-base units
 (rescaled by the mutation rate when known), read back to the host once a
@@ -62,6 +63,7 @@ of models.
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -98,9 +100,25 @@ _OPTIONS = {
 # phlash_tpu.fit options without a counterpart here (None is accepted)
 _NOT_IMPLEMENTED = ("key",)
 CHECK_EVERY = 10  # iterations between finiteness checks (each one syncs the device)
+DEBUG_ENV = "PHLASH_TPU_DEBUG"  # set (to anything but ""): a check after every call
 ELPD_EVERY = 10  # iterations between held-out ELPD evaluations
 SAVE_EVERY = 50  # iterations between checkpoint saves
 ELPD_STREAM = 0x0E1D  # derives the ELPD generator's seed (phlash_tpu's fold_in constant)
+
+
+def default_check_every() -> int:
+    """Iterations between finiteness checks when fit is given no check_every:
+    1 when DEBUG_ENV is set, else CHECK_EVERY (phlash_tpu/mcmc.py:316-323;
+    the reference's PHLASH_DEBUG_MODE)."""
+    return 1 if os.environ.get(DEBUG_ENV) else CHECK_EVERY
+
+
+def _check_finite(particles: torch.Tensor, mesh, i: int) -> None:
+    "Raise if a particle is not finite (a sync with the device; on a mesh, every rank's)."
+    finite = (bool(torch.isfinite(particles).all()) if mesh is None
+              else comms.all_finite(mesh, particles))
+    if not finite:
+        raise RuntimeError(f"non-finite particles at iteration {i}")
 
 
 def _check_options(options: dict) -> None:
@@ -313,7 +331,7 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
             logger.debug("no live plot: %s", e)
             callback = None
     elpd_cutoff = options.get("elpd_cutoff", 100)
-    check_every = options.get("check_every", CHECK_EVERY)
+    check_every = options.get("check_every", default_check_every())
     ckpt_path = options.get("checkpoint_path")
     save_every = options.get("save_every", SAVE_EVERY)
     start, ema, best = 0, None, None  # best = (iteration, ema, state snapshot)
@@ -358,10 +376,7 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
         state, e_dev = call(state, inds, elpd.draw(elpd_gen) if want_elpd else None)
         if i >= next_check or i + k >= niter:
             next_check = i + check_every
-            finite = (bool(torch.isfinite(state.particles).all()) if mesh is None
-                      else comms.all_finite(mesh, state.particles))
-            if not finite:
-                raise RuntimeError(f"non-finite particles at iteration {i}")
+            _check_finite(state.particles, mesh, i)
         meter.tick(k)
         last = i + k
         stop = False

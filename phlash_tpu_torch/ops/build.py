@@ -89,6 +89,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_assembly_backward.restype = I
     lib.phlash_assembly_threads_per_block.argtypes = []
     lib.phlash_assembly_threads_per_block.restype = I
+    lib.phlash_peak.argtypes = [I] * 3 + [P] * 3 + [I] * 3 + [P] * 2
+    lib.phlash_peak.restype = I
     lib.phlash_cuda_error_string.argtypes = [I]
     lib.phlash_cuda_error_string.restype = ctypes.c_char_p
 

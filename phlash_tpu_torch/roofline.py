@@ -19,6 +19,11 @@ Kernels, by the names of the kernel table (ops/smc.py, ops/packed.py):
 and, by `assembly_bound` (ops/assembly.py, in float32 or float64):
     assembly_forward        A1: coordinates -> leaves, prior, AFS term
     assembly_backward       A2: their gradient
+The SMC' kernels are bound by neither count but by the instructions their
+chain issues: `issue_per_site` / `shuffles_per_site` count them, and
+`issue_share` reads a time against the data-sheet issue ceiling or the
+shuffle path (the bench's sm_*_peak_fraction_*; ops/peak.py measures
+what the card sustains).
 """
 
 from __future__ import annotations
@@ -26,6 +31,18 @@ from __future__ import annotations
 PEAK_FP32 = 67e12  # FLOP/s: H100 SXM float32 outside the tensor cores (data sheet, 700 W)
 PEAK_FP64 = 34e12  # FLOP/s: H100 SXM float64 outside the tensor cores (data sheet, 700 W)
 PEAK_BYTES = 3.35e12  # B/s: H100 SXM HBM3
+SMS = 132  # H100 SXM streaming multiprocessors
+# The SM clock PEAK_FP32 implies (132 SMs x 128 FP32 lanes x 2 FLOP an FFMA):
+# 1.98 GHz.  phlash_tpu's bench derives its TPU clock the same way, from its
+# data-sheet peak (bench.py:180-187).
+CLOCK = PEAK_FP32 / (SMS * 128 * 2)
+# Data-sheet pipe ceilings, in warp-instructions a second: an SM has four
+# partitions, each dispatching one warp-instruction a clock and each with a
+# 32-lane FP32 pipe (4 warp-FFMA a clock); warp shuffles go through one
+# path at 32 results a clock (1 warp-SHFL).
+ISSUE_PEAK = 4 * SMS * CLOCK
+FFMA_PEAK = 4 * SMS * CLOCK
+SHFL_PEAK = 1 * SMS * CLOCK
 SMC_PERIOD = 8  # sites between rescalings: ops/smc.NORM_EVERY, a period-start state each
 PACKED_PERIOD = 8  # sites between checkpoints: ops/packed.DEFAULT_SEG
 
@@ -95,6 +112,94 @@ def kernel_bound(name: str, M: int, B: int, S: int, L: int,
             "packed_forward_ckpt": "packed_forward"}.get(name, name)
     sites = B * S * L if live is None else live
     return bound(flops_per_site(algo, M) * sites, kernel_bytes(name, M, B, S, L))
+
+
+# The SMC' kernels' issue count.  Their bound above counts FLOPs and bytes;
+# what limits them is the instructions a site's dependence chain issues
+# (ops/smc.py's design note), so the bench also reads their share of the
+# issue and shuffle ceilings.  States a lane at each M, as
+# csrc/smc_common.cuh PHLASH_SMC_INSTANCES builds them:
+SMC_SPL = {8: 2, 16: 4, 32: 2, 64: 4}
+SMC_KERNELS = ("smc_forward", "smc_forward_residuals", "smc_backward")
+# Two estimates, not counts (the SASS of their sequences was not counted on
+# the path that runs): an IEEE division, the divisor's reciprocal once, then
+# ~5 a quotient; libdevice logf without fast math, ~20.  The issue counts
+# below, and the bench's sm_issue_peak_fraction_*, rest on them.
+DIV_FIRST, DIV_NEXT = 3, 5
+LOGF = 20
+
+
+# Instructions one lane issues a site (all, and shuffles), counted from
+# csrc/smc_common.cuh and the kernels' loops at SPL states a lane, G = M / SPL
+# lanes an instance, lg = log2 G, R = lg - 2 doubling rounds:
+#   scan_pair   the lane's own suffix and prefix 2 (SPL - 2) FADD, the lane
+#               totals 2 (SPL - 1), three shuffles a scan (6 SHFL), their
+#               selects and sums 6 FSEL + 4 FADD, per doubling round 2 SHFL +
+#               2 FSEL + 4 FADD, the offsets 2 (SPL - 1) FADD:
+#               6 SPL - 4 + 4 R FADD, 6 + 2 R SHFL, 6 + 2 R FSEL
+#   advance     per state u a 1, v 3 (FMUL + 2 FFMA), the emission 2 FSEL +
+#               FMUL, the padding select 1: 8; per site the code's three
+#               compares
+#   butterfly   SPL - 1 FADD, lg SHFL + lg FADD
+#   smc_forward a site: scan_pair, advance, the code from shared memory
+#               (load, bounds compare, select) 3; a period of 8 sites: the
+#               butterfly, the clamp, SPL divisions by c, logf, the sum,
+#               the loop 3; with residuals (B2) the state's store 5
+#   smc_backward a site: the rebuild (scan_pair, advance); in reverse per
+#               state yb 1, v 3, v yb 1, de0 / de1 2 + 2, vbar 3, db / dd /
+#               dvv 3, vv vbar and b vbar 2 (17), scan_pair, per state du,
+#               xbar 2, the padding select (4), the code's compares 3; a
+#               period: the boundary state's load 3, the 8 codes 24, two
+#               butterflies, the clamp, SPL divisions and SPL products, SPL
+#               (2 FADD) and SPL divisions for ybar, the loop 3
+# The count is the source's; nvcc may fuse or share some of it (the
+# rebuild's v and emission factor recur in the reverse sweep), and
+# tools/torch_sm_peak.py --sass counts the built kernels' loops for the
+# cross-check in PERF.md.
+def _smc_lane_counts(name: str, M: int) -> tuple[float, float]:
+    spl = SMC_SPL[M]
+    lg = (M // spl).bit_length() - 1
+    R = lg - 2
+    scan, scan_shfl = (6 * spl - 4 + 4 * R) + 2 * (6 + 2 * R), 6 + 2 * R
+    advance = 8 * spl + 3
+    bfly, bfly_shfl = spl - 1 + 2 * lg, lg
+    div = DIV_FIRST + DIV_NEXT * spl
+    if name in ("smc_forward", "smc_forward_residuals"):
+        period = bfly + 1 + div + LOGF + 1 + 3 + (5 if name == "smc_forward_residuals" else 0)
+        return scan + advance + 3 + period / 8, scan_shfl + bfly_shfl / 8
+    reverse = 17 * spl + scan + 4 * spl + 3
+    period = 3 + 24 + 2 * bfly + 1 + div + spl + 2 * spl + div + 3
+    return scan + advance + reverse + period / 8, 2 * scan_shfl + 2 * bfly_shfl / 8
+
+
+def issue_per_site(name: str, M: int) -> float:
+    """Warp-instructions one instance (a group of G lanes, G / 32 of a warp)
+    issues a site in SMC' kernel `name`."""
+    if name not in SMC_KERNELS:
+        raise ValueError(f"unknown SMC' kernel {name!r}; expected one of {SMC_KERNELS}")
+    return _smc_lane_counts(name, M)[0] * (M // SMC_SPL[M]) / 32
+
+
+def shuffles_per_site(name: str, M: int) -> float:
+    "Warp-shuffles one instance issues a site in SMC' kernel `name`."
+    if name not in SMC_KERNELS:
+        raise ValueError(f"unknown SMC' kernel {name!r}; expected one of {SMC_KERNELS}")
+    return _smc_lane_counts(name, M)[1] * (M // SMC_SPL[M]) / 32
+
+
+def issue_share(ms: float, kernels: tuple, M: int, B: int, S: int, L: int,
+                pipe: str = "issue") -> float:
+    """The share of the issue ceiling (pipe "issue": all instructions over
+    ISSUE_PEAK) or of the shuffle path ("shuffle": SHFL over SHFL_PEAK) that
+    a call running the SMC' `kernels` once each over B * S * L sites in `ms`
+    reached.  A share outside (0, 1] means a wrong count, and raises."""
+    count, peak = {"issue": (issue_per_site, ISSUE_PEAK),
+                   "shuffle": (shuffles_per_site, SHFL_PEAK)}[pipe]
+    share = sum(count(k, M) for k in kernels) * B * S * L / peak / (ms * 1e-3)
+    if not 0.0 < share <= 1.0:
+        raise RuntimeError(f"{pipe} share {share} of {kernels} outside (0, 1]: the count is "
+                           f"wrong (measured {ms} ms at M={M}, B={B}, S={S}, L={L})")
+    return share
 
 
 # Operations of one particle's assembly, counted from csrc/assembly_common.cuh

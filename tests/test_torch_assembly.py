@@ -21,6 +21,10 @@ gradient of their dot with cotangents.
   test_torch_params' 1e-4 relative / 1e-6 absolute (pi).
 - AssemblyOp on the CPU equals the path it replaced bitwise, values and
   gradients, and its plain counters count exactly.
+- chip_smoke.py phase 3c's one-ulp spread (`ulp_spread`, one stacked call)
+  against its definition, one coordinate and direction a call, its gate's
+  reading (`ulp_ratio`) and resolution (`ulp_resolution`), and the gate
+  rehearsed on the host-compiled A2.
 - The CUDA wrappers refuse CPU tensors; the on-card check skips here.
 Inputs come from numpy seeds and hypothesis, at P = 7 to 37.
 """
@@ -422,6 +426,32 @@ def test_device_function_on_the_host(host_kernels, pattern, n_minus_1):
     assert k_g <= max(2 * p_g, 4 * EPS32), (k_g, p_g)
 
 
+@pytest.mark.parametrize("n_minus_1", [0, 8, 15])
+@pytest.mark.parametrize("pattern", ["8*1", "14*1+1*2", "32*1", "64*1"])
+def test_device_function_within_the_ulp_gate_on_the_host(host_kernels, pattern, n_minus_1):
+    """chip_smoke.py phase 3c's one-ulp gate rehearsed on the host: A2's
+    device code (host-compiled) in float32 within ULP_GATE one-ulp spreads
+    of the plain float32 gradient, the edge particles and the rest each on
+    their own (the readings print under pytest -s)."""
+    import chip_smoke
+
+    P = 7 if pattern == "64*1" else 19
+    x64 = _cloud(pattern, P, seed=21 + n_minus_1).contiguous()
+    afs, T = _afs_case(n_minus_1, transform=n_minus_1 == 8)
+    init32 = _init(pattern).to(dtype=torch.float32)
+    rng = np.random.default_rng(22)
+    g32 = [torch.as_tensor(rng.standard_normal(s), dtype=torch.float32).contiguous()
+           for s in ((P, 7, init32.M), (P,), (P,))]
+    x32 = x64.float().contiguous()
+    a32, T32 = (None, None) if afs is None else (afs.float(), None if T is None else T.float())
+    got = _host(host_kernels, init32, x32, a32, T32, g32)
+    plain, spread = chip_smoke.ulp_spread(torch, init32, x32, a32, T32, g32)
+    for part, sl in (("edge", slice(0, N_EDGE)), ("rest", slice(N_EDGE, None))):
+        ratio = chip_smoke.ulp_ratio(torch, got[sl], plain[sl], spread[sl])
+        print(f"{pattern} n-1={n_minus_1} {part}: {ratio:.2f} one-ulp spreads")
+        assert ratio <= chip_smoke.ULP_GATE, (part, ratio)
+
+
 # ---------------------------------------------------------------------------
 # AssemblyOp in the density, on the CPU
 # ---------------------------------------------------------------------------
@@ -484,6 +514,76 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         assembly.forward(init, x.to("meta"), None, None)
     assert assembly.counts() == dict(forward_cuda=0, backward_cuda=0, forward_plain=0,
                                      backward_plain=0)
+
+
+@pytest.mark.parametrize("pattern, nm1", [("8*1", 0), ("14*1+1*2", 3)])
+def test_phase_3c_ulp_spread_is_its_definition(pattern, nm1):
+    """ulp_spread's float32 plain gradient is the plain version's, and its
+    spread is, for each particle and gradient coordinate, the largest change
+    of that gradient when one input coordinate moves one ulp up or down,
+    computed here a coordinate and a direction a call; ulp_ratio reads the
+    largest error over spread (or 4 ulps of max|want|) by coordinate.  The
+    calls here stack their particles as often as ulp_spread's one call does:
+    the plain version rounds each particle alike within a call, but its AFS
+    product may round otherwise at another number of particles."""
+    import chip_smoke
+
+    P = N_EDGE + 3
+    init = _init(pattern, torch.float32)
+    x = _cloud(pattern, P, seed=21).float()
+    afs, T = _afs_case(nm1, transform=False)
+    afs = None if afs is None else afs.float()
+    M = Pattern(pattern).M
+    rng = np.random.default_rng(22)
+    g = [torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+         for s in ((P, 7, M), (P,), (P,))]
+    plain, spread = chip_smoke.ulp_spread(torch, init, x, afs, T, g)
+    n = 2 * x.shape[1] + 1
+
+    def grad(y):
+        return assembly.assemble_vjp_plain(
+            init, y.repeat(n, 1), afs, T, *(t.repeat(n, *([1] * (t.dim() - 1))) for t in g))[:P]
+
+    want = grad(x)
+    assert torch.equal(plain, want)
+    brute = torch.zeros_like(want)
+    for d in range(x.shape[1]):
+        for to in (math.inf, -math.inf):
+            moved = x.clone()
+            moved[:, d] = torch.nextafter(x[:, d], torch.full_like(x[:, d], to))
+            brute = torch.maximum(brute, (grad(moved) - want).abs())
+    torch.testing.assert_close(spread, brute, rtol=0, atol=0)
+    assert bool((spread > 0).any())
+
+    w64 = want.double()
+    k_g = want + 3 * spread  # an error of 3 spreads in every entry
+    floor = 4 * EPS32 * w64.abs().amax(0)
+    ratio = (3 * spread.double().amax(0)) / torch.maximum(spread.double().amax(0), floor)
+    assert chip_smoke.ulp_ratio(torch, k_g, w64, spread) == pytest.approx(float(ratio.max()),
+                                                                         rel=1e-6)
+    assert chip_smoke.ulp_ratio(torch, want, w64, spread) == 0.0
+
+
+def test_phase_3c_ulp_resolution_is_its_definition():
+    """ulp_resolution: a change of one coordinate by just over its reading
+    (over that coordinate's max) fails the one-ulp gate, by just under it
+    passes; the median and the worst over the coordinates."""
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(5)
+    ref = torch.randn(9, 4, generator=gen, dtype=torch.float64)
+    ref[:, 3] *= 1e-3
+    spread = torch.rand(9, 4, generator=gen, dtype=torch.float64) * 1e-6
+    spread[:, 1] = 0.0  # the 4-ulp floor
+    scale = ref.abs().amax(0)
+    want = chip_smoke.ULP_GATE * torch.maximum(spread.amax(0), 4 * EPS32 * scale) / scale
+    med, worst = chip_smoke.ulp_resolution(torch, ref, spread)
+    assert med == pytest.approx(float(want.median())) and worst == pytest.approx(float(want.max()))
+    for j in range(4):
+        for f, fails in ((1.001, True), (0.999, False)):
+            got = ref.clone()
+            got[0, j] += f * float(want[j] * scale[j])
+            assert (chip_smoke.ulp_ratio(torch, got, ref, spread) > chip_smoke.ULP_GATE) == fails
 
 
 @pytest.mark.cuda

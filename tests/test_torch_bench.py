@@ -39,7 +39,8 @@ ROOT = Path(__file__).resolve().parent.parent
 TINY = dict(B=2, S=2, L=160, L_base=40, gate_shape=(4, 2, 1200), svgd_chunks=(8, 120),
             svgd_particles=4, overlap=40, inner=1, reps=1)
 # extra keys the port's line adds to the JAX bench's, which drops
-# vpu_issue_peak_fraction_fwd / _fwd_grad (a TPU VPU's issue ceiling)
+# vpu_issue_peak_fraction_fwd / _fwd_grad (a TPU VPU's issue ceiling; the
+# H100's counterparts are sm_issue_peak_fraction_* and the shuffle path's)
 ADDED = {"device", "kernel", "device_name", "power_limit", "torch", "cuda", "gate", "launches",
          "clocks_sm_mhz", "power_draw_w", "peak_mem_MB",
          "roofline_fraction_fwd", "roofline_fraction_fwd_grad", "roofline_bound_by_fwd",
@@ -47,7 +48,9 @@ ADDED = {"device", "kernel", "device_name", "power_limit", "torch", "cuda", "gat
          "packed_roofline_fraction_fwd_grad", "packed_roofline_bound_by_fwd",
          "packed_roofline_bound_by_fwd_grad", "packed_fwd_grad_Msites_per_sec",
          "packed_fwd_only_Msites_per_sec", "svgd_capture_s", "packed_svgd_step_ms_per_iter",
-         "packed_svgd_capture_s", "assembly_fwd_ms", "assembly_grad_ms", "assembly_particles"}
+         "packed_svgd_capture_s", "assembly_fwd_ms", "assembly_grad_ms", "assembly_particles",
+         "sm_issue_peak_fraction_fwd", "sm_issue_peak_fraction_fwd_grad",
+         "sm_shuffle_peak_fraction_fwd", "sm_shuffle_peak_fraction_fwd_grad"}
 PLAIN = {"smc_plain_forward", "smc_plain_backward", "packed_plain_forward",
          "packed_plain_backward", "assembly_plain_forward", "assembly_plain_backward"}
 

@@ -75,7 +75,8 @@ def test_import_leaves_jax_out():
             "phlash_tpu_torch.io, phlash_tpu_torch.io.bcf, phlash_tpu_torch.io.tabix, "
             "phlash_tpu_torch.mp, phlash_tpu_torch.plot, phlash_tpu_torch.liveplot, "
             "phlash_tpu_torch.__main__, phlash_tpu_torch.parallel, "
-            "phlash_tpu_torch.parallel.mesh, phlash_tpu_torch.profiling; "
+            "phlash_tpu_torch.parallel.mesh, phlash_tpu_torch.profiling, "
+            "phlash_tpu_torch.ops.peak; "
             "from phlash_tpu_torch.sim import simulate_hmm, simulate_dataset, hmm_path_stats, "
             "stdpopsim_dataset, simulate_scrm, parse_scrm_stream, compute_truth; "
             "from phlash_tpu_torch.parallel import make_mesh, shard_training_step; "
@@ -121,3 +122,11 @@ def test_unimplemented_options_raise(psmcfa, option, error):
 def test_unknown_option_raises(psmcfa):
     with pytest.raises(TypeError, match="unknown option"):
         phlash_tpu_torch.psmc([psmcfa], device="cpu", niter=1, num_particle=4)
+
+
+def test_version_is_phlash_tpus():
+    "phlash_tpu_torch.__version__ is phlash_tpu's (pyproject.toml's), beside the lazy names."
+    import phlash_tpu
+
+    assert phlash_tpu_torch.__version__ == phlash_tpu.__version__ == "0.1.0"
+    assert "__version__" in dir(phlash_tpu_torch) and "fit" in dir(phlash_tpu_torch)

@@ -268,3 +268,33 @@ def test_packed_op_casts_at_the_kernel_boundary(monkeypatch):
     grads = torch.autograd.grad(ll.sum(), [A, e0, e1, pi])
     assert ll.dtype == torch.float64 and all(g.dtype == torch.float64 for g in grads)
     assert seen == [{torch.float32}, {torch.float32}]
+
+
+@pytest.mark.parametrize("debug", [None, "1"], ids=["unset", "set"])
+def test_check_every_default_follows_phlash_tpu_debug(contigs, monkeypatch, debug):
+    """fit's default check_every is phlash_tpu's: 1 with PHLASH_TPU_DEBUG set,
+    10 without (phlash_tpu/mcmc.py's rule, read from its fit and evaluated
+    here); an explicit check_every wins either way."""
+    import inspect
+    import os
+    import re
+
+    from phlash_tpu import mcmc as jax_mcmc
+
+    if debug is None:
+        monkeypatch.delenv("PHLASH_TPU_DEBUG", raising=False)
+    else:
+        monkeypatch.setenv("PHLASH_TPU_DEBUG", debug)
+    rule = re.search(r"default_check = (.+)", inspect.getsource(jax_mcmc.fit)).group(1)
+    want = eval(rule, {"_os": os})
+    assert mcmc.default_check_every() == want == (1 if debug else 10)
+
+    checked = []
+    real = mcmc._check_finite
+    monkeypatch.setattr(mcmc, "_check_finite",
+                        lambda p, mesh, i: (checked.append(i), real(p, mesh, i)))
+    mcmc.fit(contigs[0], niter=4, **FIT)  # one iteration a call on the CPU
+    assert checked == ([0, 1, 2, 3] if debug else [0, 3])
+    checked.clear()
+    mcmc.fit(contigs[0], niter=4, check_every=2, **FIT)
+    assert checked == [0, 2, 3]

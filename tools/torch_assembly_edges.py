@@ -5,12 +5,13 @@
 
 Runs chip_smoke.py's phase 3c (`check_assembly`: every case printed, and
 whether the gates held), then rebuilds its cloud at the fit's shape (500
-particles, pattern 14*1+1*2) and, at n - 1 = 0, 1 and 8, prints for each
+particles, pattern 14*1+1*2; chip_smoke.edges_cases, whose one-ulp gate
+phase 3c also reads) and, at n - 1 = 0, 1 and 8, prints for each
 of the six edge particles (chip_smoke.assembly_cloud) the float32
 gradient's error against the plain float64 version, A2's and the plain
 version's, both over the edge particles' max|grad|, and the plain float32
-gradient's spread when its float32 inputs move by one ulp (the largest
-change over 8 random up/down patterns); for the other particles also
+gradient's one-ulp spread (chip_smoke.ulp_spread: the largest change when
+one input coordinate moves by one ulp, up or down); for the other particles also
 where A2's largest error lies and the plain float32 version's error on
 the CPU.
 With --fmad-false every kernel is built with nvcc's --fmad=false (no
@@ -55,26 +56,15 @@ def main() -> int:
     except SystemExit:
         print("phase 3c: failed (above)")
 
-    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 30)
-    P, M = 500, 16
-    init, x = cs.assembly_cloud(torch, cs.PATTERNS[M], P, gen, torch.float64)
-    i32, x32 = init.to(dtype=torch.float32), x.float().contiguous()
-    for nm1 in (0, 1, 8):
-        afs, T = cs.assembly_afs(torch, nm1, gen, torch.float64)
-        g = [torch.randn(s, generator=gen, device=dev, dtype=torch.float64)
-             for s in ((P, 7, M), (P,), (P,))]
+    for nm1, init, x, afs, T, g in cs.edges_cases(torch, dev):
         want = assembly.assemble_vjp_plain(init, x, afs, T, *g)
+        i32, x32 = init.to(dtype=torch.float32), x.float().contiguous()
         a32 = None if afs is None else afs.float()
         T32 = None if T is None else T.float().contiguous()
         g32 = [t.float().contiguous() for t in g]
         plain = assembly.assemble_vjp_plain(i32, x32, a32, T32, *g32).double()
         kernel = assembly.backward_cuda(i32, x32, a32, T32, *g32).double()
-        spread = torch.zeros(P, dtype=torch.float64, device=dev)
-        for _ in range(8):
-            up = torch.randint(0, 2, x32.shape, generator=gen, device=dev).bool()
-            xp = torch.nextafter(x32, torch.where(up, torch.inf, -torch.inf)).contiguous()
-            moved = assembly.assemble_vjp_plain(i32, xp, a32, T32, *g32).double()
-            spread = torch.maximum(spread, (moved - plain).abs().amax(-1))
+        spread = cs.ulp_spread(torch, i32, x32, a32, T32, g32)[1].double().amax(-1)
         torch.cuda.synchronize()
         scale = float(want[:cs.N_EDGE].abs().max())
         print(f"n-1={nm1}: edge particles' max|grad| {scale:.3e}")

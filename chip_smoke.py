@@ -23,7 +23,8 @@ Phases, each of which prints its own lines and aborts the run on failure:
    fit's own late inputs;
 3c. the assembly kernels (A1 forward, A2 its gradient; ops/assembly.py)
    against their plain versions, at a ragged P = 37 for every M of PATTERNS
-   at n - 1 = 0, 8 (through the default AFS transform) and 15, and at the
+   at n - 1 = 0, 8 and 40 (both through the default AFS transform) and 15,
+   and at the
    fit's P = 500, M = 16 also at the fit's n - 1 = 1 and the bench's 9,
    with six edge particles on the branches' thresholds: float64 values
    rtol 1e-10 (pi against max pi) and gradients 1e-8 of max|plain|;
@@ -63,7 +64,8 @@ Phases, each of which prints its own lines and aborts the run on failure:
    own inputs (its initial particle cloud, and its particles after the
    timed steps); then A1 and A2 and their plain times on the smc fit's
    500 particles and AFS term (and at n - 1 = 15), beside their bounds and
-   the launch floor (a one-element add);
+   the launch floor (a one-element add), with their launch geometry (lanes
+   a particle, warps a block, shared memory) and ptxas registers / spills;
 5c. the scan backend (hmm.ScanKernel, plain PyTorch, float32) against the
    smc backend through the hand kernels at B=8, S=2, L=500: ll rtol 1e-4,
    gradients at normalized error 2e-5;
@@ -397,12 +399,13 @@ def check_scan(torch, dev) -> dict:
 
 
 # phase 3c: the assembly kernels (A1, A2).  (P, patterns, AFS sizes n - 1)
-# of the checks: a ragged P (37: the last block of 128 threads partly idle)
-# at every M of PATTERNS, and the fit's P = 500 at M = 16 with the fit's own
-# AFS size as well (1: one diploid, its one-row transform) and the bench's
-# (9); each at float64 and float32.
-ASSEMBLY_SHAPES = ((37, (8, 16, 32, 64), (0, 8, 15)), (500, (16,), (0, 1, 8, 9, 15)))
-AFS_TRANSFORMED = (1, 8, 9)  # n - 1 through the fit's default_afs_transform; 15 without
+# of the checks: a ragged P (37: the last block of 4 warps, a particle each,
+# partly idle) at every M of PATTERNS, with a large AFS (40: more pair
+# counts than a warp has lanes), and the fit's P = 500 at M = 16 with the
+# fit's own AFS size as well (1: one diploid, its one-row transform) and the
+# bench's (9); each at float64 and float32.
+ASSEMBLY_SHAPES = ((37, (8, 16, 32, 64), (0, 8, 15, 40)), (500, (16,), (0, 1, 8, 9, 15)))
+AFS_TRANSFORMED = (1, 8, 9, 40)  # n - 1 through the fit's default_afs_transform; 15 without
 N_EDGE = 6  # assembly_cloud's edge particles, first
 EDGE_GRAD = 1e-4  # the edge particles' float32 gradient, normalized: the leaves' relative limit
 EPS32 = 2.0 ** -23  # float32's machine epsilon
@@ -1218,13 +1221,39 @@ def kernel_timing(torch, smc, dev, fit_inputs: dict):
     return t
 
 
+def time_graph_ms(torch, fn, reps: int = 20, replays: int = 5) -> float:
+    """ms a call of `fn` on the card without the host's share: `reps` calls
+    captured in one CUDA graph (after a warm call on a side stream), then
+    `replays` replays timed by CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def assembly_timing(torch, dev, prog) -> dict:
-    """Phase 5, the assembly: A1 and A2 (CUDA events, mean of 20 launches)
-    and their plain versions (mean of 2 calls after one warm-up) on the smc
-    fit's program `prog` (its particles after the timed steps, float32, its
-    AFS term: n - 1 = 1 from one diploid), then A1 and A2 at n - 1 = 15 (the
-    genome-file fit's n = 16); beside them the launch floor (a one-element
-    add, mean of 20) and roofline.py's bounds."""
+    """Phase 5, the assembly: A1 and A2 on the card (a CUDA graph of 20
+    launches, replayed 5 times: the kernel without the wrapper's host time,
+    as the fit's graphed step runs it; and eager, CUDA events around 20
+    launches, mean) and their plain versions (mean of 2 calls after one
+    warm-up) on the smc fit's program `prog` (its particles after the timed
+    steps, float32, its AFS term: n - 1 = 1 from one diploid), then A1 and A2
+    at n - 1 = 15 (the genome-file fit's n = 16); beside them the launch
+    floor (a one-element add, both ways) and roofline.py's bounds."""
     from phlash_tpu_torch import roofline
     from phlash_tpu_torch.ops import assembly, build
 
@@ -1242,8 +1271,10 @@ def assembly_timing(torch, dev, prog) -> dict:
         outs = assembly.forward_cuda(init, x, afs, T)
         g = tuple(torch.randn(o.shape, generator=gen, device=dev, dtype=x.dtype) for o in outs)
         key = "" if label == "fit" else "_n16"
-        t["a1" + key] = time_ms(torch, lambda: assembly.forward_cuda(init, x, afs, T), 20)
-        t["a2" + key] = time_ms(torch, lambda: assembly.backward_cuda(init, x, afs, T, *g), 20)
+        a1 = lambda: assembly.forward_cuda(init, x, afs, T)  # noqa: E731
+        a2 = lambda: assembly.backward_cuda(init, x, afs, T, *g)  # noqa: E731
+        t["a1" + key], t["a2" + key] = time_graph_ms(torch, a1), time_graph_ms(torch, a2)
+        t["a1_eager" + key], t["a2_eager" + key] = time_ms(torch, a1, 20), time_ms(torch, a2, 20)
         if label == "fit":
             t["a1_plain"] = time_ms(torch, lambda: assembly.assemble_plain(init, x, afs, T), 2)
             t["a2_plain"] = time_ms(torch, lambda: assembly.assemble_vjp_plain(
@@ -1253,17 +1284,31 @@ def assembly_timing(torch, dev, prog) -> dict:
                                                           x.element_size())
             t["shape"] = dict(P=P, M=M, D=D, n_minus_1=nm1, R=R, dtype=str(x.dtype))
         print(f"assembly timing, {label} (P={P}, M={M}, D={D}, n-1={nm1}, {x.dtype}): "
-              f"A1 {t['a1' + key]:.4f} ms, A2 {t['a2' + key]:.4f} ms a launch")
+              f"A1 {t['a1' + key]:.4f} ms, A2 {t['a2' + key]:.4f} ms a launch by graph replay; "
+              f"eager A1 {t['a1_eager' + key]:.4f} ms, A2 {t['a2_eager' + key]:.4f} ms")
     one = torch.zeros(1, device=dev)
     t["launch_floor"] = time_ms(torch, lambda: one.add_(1.0), 20)
-    threads = lib.lib.phlash_assembly_threads_per_block()
+    t["launch_floor_graph"] = time_graph_ms(torch, lambda: one.add_(1.0))
     print(f"  bounds: A1 {t['a1_bound'][0]:.6f} ms ({t['a1_bound'][1]}), A2 "
           f"{t['a2_bound'][0]:.6f} ms ({t['a2_bound'][1]}); launch floor (a one-element add) "
-          f"{t['launch_floor']:.4f} ms")
+          f"{t['launch_floor']:.4f} ms eager, {t['launch_floor_graph']:.4f} ms by graph replay")
     print(f"  plain: A1's {t['a1_plain']:.2f} ms, A2's {t['a2_plain']:.2f} ms")
-    print(f"  launch geometry: A1 {-(-P // threads)} blocks of {threads} threads (a thread a "
-          f"particle), A2 {-(-P * D // threads)} blocks of {threads} (a thread a particle and "
-          f"coordinate)")
+    regs = ptxas_report(lib.ptxas_log)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t["geometry"] = {}
+    for k, name in (("A1", "assembly_forward_kernel"), ("A2", "assembly_backward_kernel")):
+        shape = t["shape"]
+        geo = assembly.kernel_geometry(M, shape["n_minus_1"], shape["R"], x.dtype, k == "A2")
+        blocks = -(-P // geo["warps_per_block"])
+        r, spill = regs.get(f"{name}<{'float' if x.dtype == torch.float32 else 'double'}>",
+                            (None, None))
+        t["geometry"][k] = dict(geo, blocks=blocks, warps=P, registers=r,
+                                spill_store_bytes=spill)
+        print(f"  launch geometry: {k} a warp ({geo['lanes_per_particle']} lanes) a particle: "
+              f"{P} warps in {blocks} blocks of {geo['warps_per_block']} warps on "
+              f"{min(blocks, sms)} of {sms} SMs, {geo['shared_bytes_per_block']} shared bytes a "
+              f"block ({geo['shared_bytes_per_particle']} a particle); ptxas: {r} registers, "
+              f"{spill} bytes spill stores")
     return t
 
 
@@ -1999,20 +2044,27 @@ def peak_entry(src: str, pk: dict) -> dict:
             "smc_ms_at_mix_plateau": pk["plateau"], "card": pk["card"]}
 
 
-def ptxas_spills(log: str) -> dict:
-    """Spill stores (bytes) of each kernel instance in a ptxas log, by
-    kernel<template arguments>."""
+def ptxas_report(log: str) -> dict:
+    """(registers, spill-store bytes) of each kernel instance in a ptxas
+    log, by kernel<template arguments> (numbers, or float / double)."""
     import re
 
-    out, name = {}, None
+    out, name, spill = {}, None, 0
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?_kernel)I((?:Li\d+E)+)E", line)
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?_kernel)I((?:Li\d+E|[fd])+)E", line)
         if m:
-            args = re.findall(r"Li(\d+)E", m.group(2))
-            name = f"{m.group(1)}<{', '.join(args)}>"
+            args = [n or {"f": "float", "d": "double"}[t]
+                    for n, t in re.findall(r"Li(\d+)E|([fd])", m.group(2))]
+            name, spill = f"{m.group(1)}<{', '.join(args)}>", 0
+            continue
+        if name is None:
+            continue
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name is not None:
-            out[name] = int(m.group(1))
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name] = (int(m.group(1)), spill)
             name = None
     return out
 
@@ -2046,8 +2098,8 @@ def main() -> int:
     for line in lib.ptxas_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
-    for name, spills in ptxas_spills(lib.ptxas_log).items():
-        print(f"ptxas spills of {name}: {spills}")
+    for name, (regs, spill) in ptxas_report(lib.ptxas_log).items():
+        print(f"ptxas: {name}: {regs} registers, {spill} bytes spill stores")
     period = lib.lib.phlash_packed_period()
     print(f"packed kernels: checkpoint period {period} sites, "
           f"states a lane: forward {lib.lib.phlash_packed_states_per_lane(0)}, "
@@ -2191,15 +2243,23 @@ def main() -> int:
                         asm["smc"][1]["forward_cuda"], blaunch.get("A1", 0), asm_errs,
                         asm_gate, at, "a1"),
          "launches_packed_path": asm["packed"][0]["forward_cuda"],
-         "launch_floor_ms": at["launch_floor"], "ms_n_minus_1_15": at["a1_n16"],
-         "shape": at["shape"]},
+         "launch_floor_ms": at["launch_floor"], "launch_floor_graph_ms": at["launch_floor_graph"],
+         "ms_eager": at["a1_eager"], "ms_n_minus_1_15": at["a1_n16"],
+         "ms_eager_n_minus_1_15": at["a1_eager_n16"],
+         "shape": at["shape"], "geometry": at["geometry"]["A1"],
+         "design": "a warp a particle, lanes on the intervals; the 2M - 1 sub-interval "
+                   "product, the prefix sums and the reductions as warp scans"},
         {**kernel_entry("assembly_backward", src + "assembly.cu", replaces,
                         asm["smc"][0]["backward_cuda"], gcounts["assembly"]["backward_cuda"],
                         asm["smc"][1]["backward_cuda"], blaunch.get("A2", 0), asm_grad_errs,
                         asm_gate, at, "a2"),
          "launches_packed_path": asm["packed"][0]["backward_cuda"],
-         "launch_floor_ms": at["launch_floor"], "ms_n_minus_1_15": at["a2_n16"],
-         "shape": at["shape"]},
+         "launch_floor_ms": at["launch_floor"], "launch_floor_graph_ms": at["launch_floor_graph"],
+         "ms_eager": at["a2_eager"], "ms_n_minus_1_15": at["a2_n16"],
+         "ms_eager_n_minus_1_15": at["a2_eager_n16"],
+         "shape": at["shape"], "geometry": at["geometry"]["A2"],
+         "design": "A1's forward, then one reverse pass: suffix scans for the occupancy and "
+                   "the prefix sums, each interval's local adjoint on width-3 dual numbers"},
         peak_entry(src, pk),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -31,24 +31,30 @@ Kernel design note (csrc/assembly_common.cuh, csrc/assembly.cu).
   model.py:32,91-145) and its reverse pass into a few kernels; the port ran
   it as ~700 ATen calls forward and ~1,430 backward an iteration.
 * What bounds it on the H100: latency.  The work is tiny (a few MFLOP and
-  ~0.3 MB at 500 particles), but each particle's assembly is a chain of
-  2M - 1 dependent sub-interval blocks (the 2x2 occupancy product), each a
-  dozen libdevice calls, and a launch costs microseconds.
-* What the design does about it: one launch each way.  A1 runs one thread
-  a particle, walking the intervals once; it never builds the M x M
-  transition (from_dm reads its three diagonals and row 0) and streams the
-  occupancy, the log-survival and hazard prefix sums.  A2 runs one thread a
-  (particle, coordinate): it re-runs A1's device function on dual numbers
-  seeded with that coordinate, so every branch and clamp follows the values
-  as torch's autograd does (test_torch_assembly holds torch's forward-mode
-  tangents to its reverse mode for that reason), and it writes grad[p, d]
-  without atomics: deterministic.  The AFS term's per-interval rates and
-  n - 1 branch lengths sit in a scratch buffer the wrapper allocates, so
-  any M and n the plain version takes is taken.
+  ~0.3 MB at 500 particles), but each particle's assembly chains 2M - 1
+  sub-interval blocks (the 2x2 occupancy product), each a dozen libdevice
+  calls, and its prefix sums; a launch costs microseconds.
+* What the design does about it: a warp a particle (`kernel_geometry`),
+  lanes on the intervals, one launch each way.  Every per-interval value
+  (grid point, rate, expected time, emissions, both sub-interval blocks)
+  is computed by all lanes at once; what chains the intervals (the
+  occupancy product, the hazard and log-survival prefix sums, pi's interior
+  sum, the AFS term's sums) crosses lanes as warp scans and butterflies of
+  depth log2 32, as phlash_tpu's associative_scan does.  It never builds
+  the M x M transition (from_dm reads its three diagonals and row 0).  A2
+  runs A1's forward and then one reverse pass: suffix scans for the prefix
+  sums' and the occupancy's adjoints, and each interval's local adjoint by
+  one evaluation on dual numbers of tangent width 3, so every branch and
+  clamp follows the values as torch's autograd does; grad[p, :] is written
+  once, without atomics: deterministic.  A particle's workspace is dynamic
+  shared memory sized from M, n - 1 and R: any M and n the plain version
+  takes runs, unless one particle's workspace exceeds the card's opt-in
+  shared memory, which raises ValueError before any launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -148,7 +154,7 @@ def assemble_vjp_plain(init: MCMCParams, x: torch.Tensor, afs, afs_transform,
 def _launch_args(init: MCMCParams, x: torch.Tensor, afs, afs_transform):
     """Validate x and the AFS constants for a launch: the C entry point's
     leading arguments (elem size, pointers, sizes, statics) and (P, D, M,
-    n - 1).  The pattern's index and W come from per-device caches, so every
+    n - 1, R).  The pattern's index and W come from per-device caches, so every
     tensor they point to outlives the launch."""
     M, D = _widths(init.pattern)
     dev, dtype = x.device, x.dtype
@@ -177,20 +183,51 @@ def _launch_args(init: MCMCParams, x: torch.Tensor, afs, afs_transform):
                 raise ValueError(f"the AFS constants must be contiguous {dtype} on {dev}")
     args = (x.element_size(), ptr(x), ptr(expand), ptr(afs), ptr(afs_transform), ptr(w),
             P, D, M, nm1, R, float(init.theta), float(init.alpha), float(init.beta))
-    return args, (P, D, M, nm1)
+    return args, (P, D, M, nm1, R)
+
+
+def kernel_geometry(M: int, nm1: int = 0, R: int = 0, dtype=torch.float32,
+                    backward: bool = False) -> dict:
+    """How A1 (or A2, `backward`) lays particles out on the current card at
+    these widths, as the built library reports it: lanes a particle (a
+    warp), warps (particles) a block and shared bytes a block and a
+    particle, beside the card's opt-in limit; `fits` False where one
+    particle's workspace exceeds it (the wrappers raise ValueError then)."""
+    lib = load_library().lib
+    out = (ctypes.c_longlong * 5)()
+    status = lib.phlash_assembly_geometry(dtype.itemsize, M, nm1, R, int(backward), out)
+    keys = ("lanes_per_particle", "warps_per_block", "shared_bytes_per_block",
+            "shared_bytes_per_particle", "shared_bytes_limit")
+    return dict(zip(keys, out), fits=status == 0)
+
+
+@functools.lru_cache(maxsize=64)
+def _geometry_on(dev: torch.device, M: int, nm1: int, R: int, dtype, backward: bool) -> dict:
+    with torch.cuda.device(dev):
+        return kernel_geometry(M, nm1, R, dtype, backward)
+
+
+def _check_fits(x: torch.Tensor, M: int, nm1: int, R: int, backward: bool) -> None:
+    "Raise ValueError before a launch that the card's shared memory cannot hold."
+    geo = _geometry_on(x.device, M, nm1, R, x.dtype, backward)
+    if not geo["fits"]:
+        raise ValueError(
+            f"assembly {'A2' if backward else 'A1'} at M={M}, n - 1={nm1}, R={R} ({x.dtype}) "
+            f"needs {geo['shared_bytes_per_particle']} bytes of shared memory a particle, "
+            f"above this card's {geo['shared_bytes_limit']} a block")
 
 
 def forward_cuda(init: MCMCParams, x: torch.Tensor, afs=None, afs_transform=None):
     "A1; outputs as assemble_plain's, in x's dtype."
-    args, (P, D, M, nm1) = _launch_args(init, x, afs, afs_transform)
+    args, (P, D, M, nm1, R) = _launch_args(init, x, afs, afs_transform)
+    _check_fits(x, M, nm1, R, False)
     lib = load_library()
     leaves = torch.empty(P, N_LEAVES, M, dtype=x.dtype, device=x.device)
     l_prior = torch.empty(P, dtype=x.dtype, device=x.device)
     l_afs = torch.empty(P, dtype=x.dtype, device=x.device)
-    scratch = torch.empty((2 * M + nm1) * P, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.lib.phlash_assembly_forward(*args, ptr(leaves), ptr(l_prior), ptr(l_afs),
-                                              ptr(scratch), stream(x.device))
+                                              stream(x.device))
     check(lib, err, "assembly_forward launch")
     forward_cuda.launches += 1
     return leaves, l_prior, l_afs
@@ -200,18 +237,18 @@ def backward_cuda(init: MCMCParams, x: torch.Tensor, afs, afs_transform,
                   g_leaves: torch.Tensor, g_prior: torch.Tensor,
                   g_afs: torch.Tensor) -> torch.Tensor:
     "A2; the gradient as assemble_vjp_plain's, in x's dtype."
-    args, (P, D, M, nm1) = _launch_args(init, x, afs, afs_transform)
+    args, (P, D, M, nm1, R) = _launch_args(init, x, afs, afs_transform)
     for g, shape in ((g_leaves, (P, N_LEAVES, M)), (g_prior, (P,)), (g_afs, (P,))):
         if (tuple(g.shape) != shape or g.dtype != x.dtype or g.device != x.device
                 or not g.is_contiguous()):
             raise ValueError(f"a cotangent must be contiguous {x.dtype} {shape} on {x.device}, "
                              f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    _check_fits(x, M, nm1, R, True)
     lib = load_library()
     grad = torch.empty(P, D, dtype=x.dtype, device=x.device)
-    scratch = torch.empty(2 * (2 * M + nm1) * P * D, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.lib.phlash_assembly_backward(*args, ptr(g_leaves), ptr(g_prior), ptr(g_afs),
-                                               ptr(grad), ptr(scratch), stream(x.device))
+                                               ptr(grad), stream(x.device))
     check(lib, err, "assembly_backward launch")
     backward_cuda.launches += 1
     return grad

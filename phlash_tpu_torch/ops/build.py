@@ -30,6 +30,10 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a source's own flags beside NVCC_FLAGS: the assembly rounds every operation as its plain
+# version (separate ATen kernels) does, so its float32 gradient, which is ill-conditioned in
+# some forward values, keeps the plain version's accuracy (csrc/assembly_common.cuh)
+SOURCE_FLAGS = {"assembly.cu": ("--fmad=false",)}
 # the dtype the HMM kernels of a device type take: the CUDA kernels B1-B5
 # are float32-only; the plain versions (every other device) take any dtype.
 # The assembly kernels (ops/assembly.py) take float32 and float64 alike.
@@ -58,6 +62,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -83,12 +88,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_packed_states_per_lane.argtypes = [I]
     lib.phlash_packed_states_per_lane.restype = I
     D = ctypes.c_double
-    lib.phlash_assembly_forward.argtypes = [I] + [P] * 5 + [I] * 5 + [D] * 3 + [P] * 5
+    lib.phlash_assembly_forward.argtypes = [I] + [P] * 5 + [I] * 5 + [D] * 3 + [P] * 4
     lib.phlash_assembly_forward.restype = I
-    lib.phlash_assembly_backward.argtypes = [I] + [P] * 5 + [I] * 5 + [D] * 3 + [P] * 6
+    lib.phlash_assembly_backward.argtypes = [I] + [P] * 5 + [I] * 5 + [D] * 3 + [P] * 5
     lib.phlash_assembly_backward.restype = I
-    lib.phlash_assembly_threads_per_block.argtypes = []
-    lib.phlash_assembly_threads_per_block.restype = I
+    lib.phlash_assembly_geometry.argtypes = [I] * 5 + [P]
+    lib.phlash_assembly_geometry.restype = I
     lib.phlash_peak.argtypes = [I] * 3 + [P] * 3 + [I] * 3 + [P] * 2
     lib.phlash_peak.restype = I
     lib.phlash_cuda_error_string.argtypes = [I]
@@ -110,7 +115,8 @@ def _build(target: Path) -> str:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
         log = _run([
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            subprocess.Popen([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", str(src),
+                              "-o", str(obj)],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for src, obj in zip(_sources(), objs)
         ])

@@ -223,8 +223,9 @@ def assembly_flops(M: int, D: int, nm1: int, R: int) -> float:
 # Operations a gradient needs, in forward passes: the forward once and its
 # reverse sweep at about twice that (the cheap-gradient principle's bound
 # of 3 for +, -, * and /; a libdevice function's derivative reuses its
-# value).  A2's own algorithm, D dual-number passes, does ~2.5 D of them:
-# that is its cost, not the work of the function it computes.
+# value).  A2 is such a reverse pass: the forward, then each interval's
+# local adjoint on width-3 dual numbers (about 4 forward evaluations of its
+# blocks) and the scans' adjoints, some 5-6 passes of work in all.
 GRAD_PASSES = 3
 
 
@@ -235,8 +236,8 @@ def assembly_bound(name: str, P: int, M: int, D: int, nm1: int = 0, R: int = 0,
     (elem 8).  Bytes: the coordinates, the pattern's index (int64), the AFS
     constants (afs, its transform, W) read once; A1 writes the (P, 7, M)
     leaves and the two (P,) terms, A2 reads their cotangents and writes the
-    (P, D) gradient (the scratch buffer is the kernels' own and not
-    counted).  Operations: A1 assembly_flops a particle; A2 GRAD_PASSES
+    (P, D) gradient (the workspace in shared memory is the kernels' own and
+    not counted).  Operations: A1 assembly_flops a particle; A2 GRAD_PASSES
     times that, what one reverse pass of A1 needs."""
     consts = 8 * M + elem * (nm1 + R * nm1 + nm1 * nm1)
     leaves = elem * (7 * P * M + 2 * P)

@@ -9,23 +9,29 @@ gradient of their dot with cotangents.
   c_tr = 0, where the packages' softplus derivatives differ).
 - torch's forward-mode tangents of the plain version (torch.func.jvp, one
   coordinate at a time) against its reverse mode, float64, 1e-10 of
-  max|reverse| per particle: the hand kernel A2 runs A1's code on dual
-  numbers, so this is what holds that strategy to torch's branch and clamp
-  semantics.  Each case includes particles that reach every branch that
-  the assembly takes on its values (asserted by `_branches`).
+  max|reverse| per particle: the hand kernel A2 takes each interval's
+  local adjoint on dual numbers, so this is what holds that strategy to
+  torch's branch and clamp semantics.  Each case includes particles that
+  reach every branch that the assembly takes on its values (asserted by
+  `_branches`).
 - The kernels' own arithmetic (csrc/assembly_common.cuh) compiled by the
-  host's C++ compiler, against the plain version: float64 values rtol
-  1e-10 and
-  gradients 1e-10 of max|plain|; float32 no worse than twice the plain
-  float32 version's own error against float64 (or 4 float32 ulps), and within
-  test_torch_params' 1e-4 relative / 1e-6 absolute (pi).
+  host's C++ compiler, its lane layer running the 32 lanes in turn in the
+  kernel's own scan and butterfly order, against the plain version: float64
+  values rtol 1e-10 and gradients 1e-10 of max|plain|; float32 no worse
+  than twice the plain float32 version's own error against float64 (or 4
+  float32 ulps), and within test_torch_params' 1e-4 relative / 1e-6
+  absolute (pi); also at n - 1 = 40, more pair counts than lanes.  And the
+  kernels' occupancy alone (the warp scan of 2x2 blocks and its reverse
+  scan) against the serial product and its autograd gradient, 1e-12.
 - AssemblyOp on the CPU equals the path it replaced bitwise, values and
   gradients, and its plain counters count exactly.
 - chip_smoke.py phase 3c's one-ulp spread (`ulp_spread`, one stacked call)
   against its definition, one coordinate and direction a call, its gate's
   reading (`ulp_ratio`) and resolution (`ulp_resolution`), and the gate
   rehearsed on the host-compiled A2.
-- The CUDA wrappers refuse CPU tensors; the on-card check skips here.
+- The CUDA wrappers refuse CPU tensors and a workspace beyond the card's
+  shared memory; chip_smoke.ptxas_report reads each kernel's registers;
+  the on-card check skips here.
 Inputs come from numpy seeds and hypothesis, at P = 7 to 37.
 """
 
@@ -277,21 +283,11 @@ def test_forward_mode_matches_reverse_mode(pattern, P, seed, scale, n_minus_1):
 # ---------------------------------------------------------------------------
 
 HOST_SHIM = r"""
+#include <algorithm>
+#include <limits>
 #include <vector>
 #include "assembly_common.cuh"
 using namespace phlash_assembly;
-template <class T> struct Store {
-  T* leaves; T* lp; T* la; int M;
-  void leaf(int f, int j, T v) { leaves[f * M + j] = v; }
-  void prior(T v) { *lp = v; }
-  void afs(T v) { *la = v; }
-};
-template <class T> struct Contract {
-  const T* g; T gp, ga, acc; int M;
-  void leaf(int f, int j, Dual<T> v) { acc += g[f * M + j] * v.d; }
-  void prior(Dual<T> v) { acc += gp * v.d; }
-  void afs(Dual<T> v) { acc += ga * v.d; }
-};
 template <class T>
 Inputs<T> make(const void* x, const long long* e, const void* afs, const void* tr,
                const void* w, int P, int D, int M, int nm1, int R, double th, double al,
@@ -299,23 +295,50 @@ Inputs<T> make(const void* x, const long long* e, const void* afs, const void* t
   return Inputs<T>{(const T*)x, e, (const T*)afs, (const T*)tr, (const T*)w, P, D, M, nm1, R,
                    (T)th, (T)al, (T)be};
 }
+// a particle's workspace, NaN before each particle so that a read before a write shows
 template <class T>
-void fwd(Inputs<T> in, T* leaves, T* lp, T* la) {
-  std::vector<T> scr((2 * in.M + in.nm1) * in.P);
-  for (int p = 0; p < in.P; ++p) {
-    Store<T> o{leaves + (size_t)p * 7 * in.M, lp + p, la + p, in.M};
-    assemble<T, T>(in, p, -1, scr.data() + p, in.P, o);
-  }
+Work<T> fresh(std::vector<T>& ws, int G, int M, int nm1, int R, bool grad) {
+  ws.assign(work_elems(G, M, nm1, R, grad), std::numeric_limits<T>::quiet_NaN());
+  return carve(ws.data(), G, M, nm1, R, grad);
 }
-template <class T>
+template <int G, class T>
+void fwd(Inputs<T> in, T* leaves, T* lp, T* la) {
+  std::vector<T> ws;
+  for (int p = 0; p < in.P; ++p)
+    assemble<G, T>(in, p, fresh(ws, G, in.M, in.nm1, in.R, false), leaves, lp, la);
+}
+template <int G, class T>
 void bwd(Inputs<T> in, const T* g, const T* gp, const T* ga, T* grad) {
-  const int n = in.P * in.D;
-  std::vector<Dual<T>> scr((2 * in.M + in.nm1) * (size_t)n);
-  for (int i = 0; i < n; ++i) {
-    const int p = i / in.D;
-    Contract<T> c{g + (size_t)p * 7 * in.M, gp[p], ga[p], T(0), in.M};
-    assemble<Dual<T>, T>(in, p, i % in.D, scr.data() + i, n, c);
-    grad[i] = c.acc;
+  std::vector<T> ws;
+  for (int p = 0; p < in.P; ++p)
+    gradient<G, T>(in, p, fresh(ws, G, in.M, in.nm1, in.R, true), g, gp, ga, grad);
+}
+template <int G>
+void occ_g(int M, const double* qa, const double* qb, const double* dr, const double* de,
+           double* r, double* ae, double* gqa, double* gqb) {
+  std::vector<double> ws;
+  const Work<double> w = fresh(ws, G, M, 0, 0, true);
+  for (int j = 0; j < M; ++j) {
+    for (int i = 0; i < 6; ++i) {
+      w.at(F_QA + i, j) = qa[6 * j + i];
+      w.at(F_QB + i, j) = qb[6 * j + i];
+    }
+    w.at(F_DR0, j) = dr[2 * j];
+    w.at(F_DR1, j) = dr[2 * j + 1];
+    w.at(F_DE0, j) = de[2 * j];
+    w.at(F_DE1, j) = de[2 * j + 1];
+  }
+  occupancy<G>(w);
+  occupancy_adjoint<G>(w);
+  for (int j = 0; j < M; ++j) {
+    r[2 * j] = w.at(F_R0, j);
+    r[2 * j + 1] = w.at(F_R1, j);
+    ae[2 * j] = w.at(F_AE0, j);
+    ae[2 * j + 1] = w.at(F_AE1, j);
+    for (int i = 0; i < 4; ++i) {
+      gqa[4 * j + i] = w.at(F_GQA + i, j);
+      gqb[4 * j + i] = j < M - 1 ? w.at(F_GQB + i, j) : 0.0;
+    }
   }
 }
 #define ARGS const void *x, const long long *e, const void *afs, const void *tr, \
@@ -323,15 +346,17 @@ void bwd(Inputs<T> in, const T* g, const T* gp, const T* ga, T* grad) {
 #define PASS x, e, afs, tr, w, P, D, M, nm1, R, th, al, be
 extern "C" {
 void fwd4(ARGS, void* l, void* lp, void* la) {
-  fwd<float>(make<float>(PASS), (float*)l, (float*)lp, (float*)la); }
+  fwd<LANES>(make<float>(PASS), (float*)l, (float*)lp, (float*)la); }
 void fwd8(ARGS, void* l, void* lp, void* la) {
-  fwd<double>(make<double>(PASS), (double*)l, (double*)lp, (double*)la); }
+  fwd<LANES>(make<double>(PASS), (double*)l, (double*)lp, (double*)la); }
 void bwd4(ARGS, const void* g, const void* gp, const void* ga, void* gr) {
-  bwd<float>(make<float>(PASS), (const float*)g, (const float*)gp, (const float*)ga,
-             (float*)gr); }
+  bwd<LANES>(make<float>(PASS), (const float*)g, (const float*)gp, (const float*)ga, (float*)gr); }
 void bwd8(ARGS, const void* g, const void* gp, const void* ga, void* gr) {
-  bwd<double>(make<double>(PASS), (const double*)g, (const double*)gp, (const double*)ga,
-              (double*)gr); }
+  bwd<LANES>(make<double>(PASS), (const double*)g, (const double*)gp, (const double*)ga,
+             (double*)gr); }
+void occ(int G, int M, const double* qa, const double* qb, const double* dr, const double* de,
+         double* r, double* ae, double* gqa, double* gqb) {
+  (G == 16 ? occ_g<16> : occ_g<32>)(M, qa, qb, dr, de, r, ae, gqa, gqb); }
 }
 """
 
@@ -351,6 +376,7 @@ def host_kernels(tmp_path_factory):
     P_, I_, D_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name, extra in (("fwd4", 3), ("fwd8", 3), ("bwd4", 4), ("bwd8", 4)):
         getattr(so, name).argtypes = [P_] * 5 + [I_] * 5 + [D_] * 3 + [P_] * extra
+    so.occ.argtypes = [I_] * 2 + [P_] * 8
     return so
 
 
@@ -384,33 +410,29 @@ def _f32_error(a, b, field: int) -> float:
     return float(((a - b).abs() / b.abs())[m].max())
 
 
-@pytest.mark.parametrize("n_minus_1", [0, 8, 15])
-@pytest.mark.parametrize("pattern", ["8*1", "14*1+1*2", "32*1", "64*1"])
-def test_device_function_on_the_host(host_kernels, pattern, n_minus_1):
-    """A1's and A2's device code (host-compiled) against the plain version:
-    float64 and float32, edge particles included."""
-    P = 7 if pattern == "64*1" else 19
-    x64 = _cloud(pattern, P, seed=21 + n_minus_1).contiguous()
-    afs, T = _afs_case(n_minus_1, transform=n_minus_1 == 8)
+def _check_device_function(so, pattern, P, seed, afs, T) -> None:
+    """The device code (host-compiled) against the plain version on _cloud's
+    particles: float64 values rtol 1e-10 and gradient 1e-10 of max|plain|;
+    float32 within 2x the plain float32 version's own error against float64
+    (or 4 float32 ulps, where the plain one happens to be rounded better: one
+    scalar a particle, the prior, the AFS term), leaves 1e-4, pi 1e-6."""
+    x64 = _cloud(pattern, P, seed=seed).contiguous()
     init = _init(pattern)
     rng = np.random.default_rng(22)
     g64 = [torch.as_tensor(rng.standard_normal(s)) for s in ((P, 7, init.M), (P,), (P,))]
     want = assembly.assemble_plain(init, x64, afs, T)
     want_g = assembly.assemble_vjp_plain(init, x64, afs, T, *g64)
 
-    got = _host(host_kernels, init, x64, afs, T)
+    got = _host(so, init, x64, afs, T)
     _assert_leaves_close(got[0], want[0], rtol=1e-10)
     for a, b in zip(got[1:], want[1:]):
         np.testing.assert_allclose(a, b, rtol=1e-10, atol=0)
-    assert _normalized(_host(host_kernels, init, x64, afs, T, g64), want_g) <= 1e-10
+    assert _normalized(_host(so, init, x64, afs, T, g64), want_g) <= 1e-10
 
-    # float32: the kernel's error against float64 within 2x the plain
-    # version's, or within 4 float32 ulps where the plain one happens to be
-    # rounded better (one scalar a particle: the prior, the AFS term)
     init32, x32 = init.to(dtype=torch.float32), x64.float().contiguous()
     a32, T32 = (None, None) if afs is None else (afs.float(), None if T is None else T.float())
     g32 = [t.float().contiguous() for t in g64]
-    got = _host(host_kernels, init32, x32, a32, T32)
+    got = _host(so, init32, x32, a32, T32)
     plain = assembly.assemble_plain(init32, x32, a32, T32)
     pi = PSMC_FIELDS.index("pi")
     for f in range(7):
@@ -419,11 +441,80 @@ def test_device_function_on_the_host(host_kernels, pattern, n_minus_1):
         assert k_err <= max(2 * p_err, 4 * EPS32), (PSMC_FIELDS[f], k_err, p_err)
         assert k_err <= (1e-6 if f == pi else 1e-4), (PSMC_FIELDS[f], k_err)
     terms = zip(("prior", "AFS term"), got[1:], plain[1:], want[1:])
-    for what, a, p, w in list(terms)[: 2 if n_minus_1 else 1]:
+    for what, a, p, w in list(terms)[: 2 if afs is not None else 1]:
         assert _rel(a, w) <= max(2 * _rel(p, w), 4 * EPS32), (what, _rel(a, w), _rel(p, w))
-    k_g = _normalized(_host(host_kernels, init32, x32, a32, T32, g32), want_g)
+    k_g = _normalized(_host(so, init32, x32, a32, T32, g32), want_g)
     p_g = _normalized(assembly.assemble_vjp_plain(init32, x32, a32, T32, *g32), want_g)
     assert k_g <= max(2 * p_g, 4 * EPS32), (k_g, p_g)
+
+
+@pytest.mark.parametrize("n_minus_1", [0, 8, 15])
+@pytest.mark.parametrize("pattern", ["8*1", "14*1+1*2", "32*1", "64*1"])
+def test_device_function_on_the_host(host_kernels, pattern, n_minus_1):
+    """A1's and A2's device code (host-compiled) against the plain version:
+    float64 and float32, edge particles included."""
+    afs, T = _afs_case(n_minus_1, transform=n_minus_1 == 8)
+    _check_device_function(host_kernels, pattern, 7 if pattern == "64*1" else 19,
+                           21 + n_minus_1, afs, T)
+
+
+@pytest.mark.parametrize("pattern, transform", [("14*1+1*2", True), ("64*1", True),
+                                                ("8*1", False)])
+def test_device_function_at_a_large_afs_on_the_host(host_kernels, pattern, transform):
+    """n - 1 = 40, more pair counts than a particle has lanes (the AFS term
+    in chunks), through the fit's default_afs_transform or none: the device
+    code against the plain version as in test_device_function_on_the_host."""
+    afs, T = _afs_case(40, transform=transform, seed=5)
+    assert T is None or T.shape[0] < 40
+    _check_device_function(host_kernels, pattern, 7 if pattern == "64*1" else 13, 61, afs, T)
+
+
+@pytest.mark.parametrize("lanes", [16, 32])
+@pytest.mark.parametrize("M", [3, 8, 16, 17, 32, 40, 64])
+def test_occupancy_scan_is_the_serial_product(host_kernels, M, lanes):
+    """The kernels' occupancy across lanes (host-compiled: the warp scan of
+    the lanes' 2x2 block products, and its reverse scan of affine maps)
+    against transition_matrix's serial left-to-right product and torch's
+    autograd of a random linear function of the occupancies entering t_j and
+    at e_j, in the live block entries, float64, 1e-12 of the largest: at
+    2M - 1 sub-intervals that do not fill the lanes evenly, with more than
+    one interval a lane (M > lanes), and degenerate (identity) blocks."""
+    from phlash_tpu_torch.transition import _expQ2
+
+    rng = np.random.default_rng(100 * M + lanes)
+    n = 2 * M - 1
+    dg = rng.exponential(0.5, n)
+    dg[rng.choice(n, max(1, n // 5), replace=False)] = 0.0  # zero-length sub-intervals
+    (p00, p01, p10, p11), p02, p12 = _expQ2(torch.as_tensor(2e-2 * dg),
+                                            torch.as_tensor(dg * rng.exponential(1.0, n)), 2)
+    blocks = torch.stack([p00, p01, p10, p11, p02, p12], -1)
+    blocks[torch.as_tensor(dg == 0.0)] = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 0.0],
+                                                      dtype=torch.float64)
+    assert bool(torch.isfinite(blocks).all())
+    dr, de = rng.standard_normal((M, 2)), rng.standard_normal((M, 2))
+
+    live = blocks[:, :4].clone().requires_grad_(True)
+    r0, r1 = torch.tensor(1.0, dtype=torch.float64), torch.tensor(0.0, dtype=torch.float64)
+    states = [(r0, r1)]
+    for k in range(n):
+        a00, a01, a10, a11 = live[k]
+        r0, r1 = r0 * a00 + r1 * a10, r0 * a01 + r1 * a11
+        states.append((r0, r1))
+    want_r = torch.stack([torch.stack(s) for s in states[0::2]])  # entering t_j
+    want_e = torch.stack([torch.stack(s) for s in states[1::2]])  # at e_j
+    loss = (want_r * torch.as_tensor(dr)).sum() + (want_e * torch.as_tensor(de)).sum()
+    (want_g,) = torch.autograd.grad(loss, live)
+
+    qa = blocks[0::2].contiguous()
+    qb = torch.cat([blocks[1::2], blocks[:1] * 0.0]).contiguous()  # no block after e_{M-1}
+    dr_t, de_t = torch.as_tensor(dr).contiguous(), torch.as_tensor(de).contiguous()
+    r, e = torch.empty(M, 2, dtype=torch.float64), torch.empty(M, 2, dtype=torch.float64)
+    gqa, gqb = torch.empty(M, 4, dtype=torch.float64), torch.empty(M, 4, dtype=torch.float64)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    host_kernels.occ(lanes, M, *map(ptr, (qa, qb, dr_t, de_t, r, e, gqa, gqb)))
+    for got, want in ((r, want_r), (e, want_e.detach()), (gqa, want_g[0::2]),
+                      (gqb[:-1], want_g[1::2])):
+        assert _normalized(got, want.detach()) <= 1e-12
 
 
 @pytest.mark.parametrize("n_minus_1", [0, 8, 15])
@@ -584,6 +675,48 @@ def test_phase_3c_ulp_resolution_is_its_definition():
             got = ref.clone()
             got[0, j] += f * float(want[j] * scale[j])
             assert (chip_smoke.ulp_ratio(torch, got, ref, spread) > chip_smoke.ULP_GATE) == fails
+
+
+def test_phase_2_ptxas_report_reads_each_kernel_instance():
+    """chip_smoke.ptxas_report: each kernel instance's registers and spill
+    stores from a ptxas -v log (phase 2, and phase 5's assembly geometry
+    line), by kernel<template arguments>, numbers and float / double."""
+    import chip_smoke
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z23assembly_forward_kernelIfEvN15phlash_"
+        "assembly6InputsIT_EEPS1_S3_S3_' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z23assembly_forward_kernelIfEvN15phlash_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 0 barriers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z24assembly_backward_kernelIdEvN15phlash_"
+        "assembly6InputsIT_EEPKS1_S4_S4_PS1_' for 'sm_90a'",
+        "    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 222 registers, used 0 barriers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z18smc_forward_kernelILi16ELi4EEvPKfS1_' for "
+        "'sm_90a'",
+        "ptxas info    : Used 90 registers",
+        "ptxas info    : Function properties for _ZN6phlash4stepEv",
+        "ptxas info    : Used 12 registers",
+    ])
+    assert chip_smoke.ptxas_report(log) == {"assembly_forward_kernel<float>": (56, 0),
+                                            "assembly_backward_kernel<double>": (222, 16),
+                                            "smc_forward_kernel<16, 4>": (90, 0)}
+
+
+def test_a_workspace_beyond_the_card_is_refused(monkeypatch):
+    """A launch whose one particle's workspace exceeds the card's opt-in
+    shared memory raises ValueError before any launch (the library's
+    geometry says it does not fit); one that fits passes."""
+    geo = dict(lanes_per_particle=32, warps_per_block=0, shared_bytes_per_block=0,
+               shared_bytes_per_particle=300_000,
+               shared_bytes_limit=232_448, fits=False)
+    monkeypatch.setattr(assembly, "_geometry_on", lambda *a: geo)
+    x = torch.zeros(3, 18, dtype=torch.float32)
+    with pytest.raises(ValueError, match="300000 bytes of shared memory a particle"):
+        assembly._check_fits(x, 16, 5000, 5000, True)
+    geo.update(fits=True, warps_per_block=4)
+    assembly._check_fits(x, 16, 1, 1, False)
 
 
 @pytest.mark.cuda

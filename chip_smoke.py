@@ -35,6 +35,17 @@ Phases, each of which prints its own lines and aborts the run on failure:
    the plain float32 gradient's one-ulp spread of that gradient,
    coordinate by coordinate, here and on tools/torch_assembly_edges.py's
    draw of 500 particles;
+3d. the per-particle entries (kernel_base.py) through the hand kernels, on
+   smc and packed, one particle at M = 16, L = 2000, float32, on 5 chunks:
+   loglik(pp, i) and kern(pp, inds, grad=True) against loglik_batched and
+   autograd at the same rows (rel 1e-6, whether bitwise printed) and, for
+   PSMCParams and DemographicModel pp, against their plain float64 version
+   on the card (ll rtol 1e-5, gradients 2e-5 of max|plain|; a
+   DemographicModel's time-grid gradient within twice the plain float32
+   version's error + 2e-5); model.log_density against log_density_batched's row under a
+   gradient (rel 1e-6); exactly one forward and one adjoint launch for the
+   vector index, one forward for loglik, and the density's launches; the
+   (B, S) = (1, 5) geometry and kernel times beside the launch floor;
 4. the slice: phlash_tpu_torch.psmc on a seeded .psmcfa at 500 particles,
    S=5, chunks of 2000 + 500 overlap, 30 iterations (kernel_backend "smc"),
    by the default CUDA graph replays of steps_per_call = 10 iterations with
@@ -130,6 +141,15 @@ Phases, each of which prints its own lines and aborts the run on failure:
    launch count, the best rate of each kernel, the maximum with its plain
    time and bound, and B1-B3 at the measured mix plateau, beside the
    card's name, power limit and SM clock.
+11. the whole genome: `python tools/torch_genome_scale_demo.py --holdout` at
+   scale 1.0 in its own process (22 synthesized chromosomes, chr22 held
+   out, ~47,000 resident chunks of 600 columns, 500 particles, 30
+   iterations by graph replay, then 3 runs of 5 timed replays, the ELPD's
+   overhead), its stage lines echoed with the card's name and power limit;
+   it fails unless the chunk count is the sum over the chromosomes of
+   chunk_het_matrix's rows from their lengths, B2, B3, A1 and A2 launched
+   exactly what 30 iterations, one capture and the timed replays imply and
+   B1 what the ELPDs imply, packed launched nothing, and the cloud is finite.
 `--profile` also prints torch.profiler tables of eager and graphed steps
 of each path, with the device busy share.
 The last two lines are a JSON summary of the kernels (B1-B6, A1, A2) and
@@ -141,9 +161,12 @@ package is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import logging
+import math
+import os
 import struct
 import subprocess
 import sys
@@ -719,6 +742,231 @@ def check_assembly(torch, dev) -> dict:
     if failures:
         fail("assembly kernels disagree with their plain version at " + "; ".join(failures))
     return errs
+
+
+# Phase 3d: the per-particle entries (kernel_base.py) at the fit's widths:
+# one particle on PP_INDS (n = 5) of PP_CHUNKS rows of L = 2000 windows
+# (warm-up prefixes of 500 for the smc density), M = 16, float32.
+PP_CHUNKS, PP_L, PP_OVERLAP = 8, 2000, 500
+PP_INDS, PP_INDEX = (0, 3, 5, 6, 7), 3
+
+
+@contextlib.contextmanager
+def plain_on_card(mod, forward, backward, device_type: str, dtype=None):
+    """`mod`'s dispatch routed to its plain versions, with the kernel dtype
+    for `device_type` set to `dtype` (None: none): inside, the per-particle
+    entries run their plain version on the card, in `dtype` (None: the
+    parameters' dtype)."""
+    from phlash_tpu_torch.ops import build
+
+    saved = mod.forward, mod.backward, build.KERNEL_DTYPE.pop(device_type)
+    mod.forward, mod.backward = forward, backward
+    if dtype is not None:
+        build.KERNEL_DTYPE[device_type] = dtype
+    try:
+        yield
+    finally:
+        mod.forward, mod.backward = saved[:2]
+        build.KERNEL_DTYPE[device_type] = saved[2]
+
+
+def one_particle_counts(mod, fn) -> dict:
+    "`fn()`'s launches, by `mod`'s counters."
+    mod.reset_counts()
+    fn()
+    return mod.counts()
+
+
+def per_particle_phase(torch, dev) -> dict:
+    """Phase 3d: the per-particle entries on the card through the hand
+    kernels, on smc and packed: loglik(pp, i) and kern(pp, inds, grad=True)
+    (n = 5) against loglik_batched / autograd at the same rows (rel 1e-6,
+    whether bitwise printed) and, for PSMCParams and DemographicModel pp,
+    against the entries' plain float64 version on the card (ll rtol 1e-5,
+    gradients 2e-5 of max|plain| a leaf; a DemographicModel's t within 2x
+    the plain float32 version's error + 2e-5); model.log_density against
+    log_density_batched's row under a gradient; exactly one forward and one
+    adjoint launch for the vector index (one forward for loglik), and the
+    density's launches; the B = 1 launch geometry and times beside the
+    launch floor and roofline.py's bounds.  Returns each module's launches
+    in the phase and the times."""
+    import numpy as np
+
+    from phlash_tpu_torch import roofline
+    from phlash_tpu_torch.kernel_base import one_particle
+    from phlash_tpu_torch.model import log_density, log_density_batched
+    from phlash_tpu_torch.ops import assembly, packed, smc
+    from phlash_tpu_torch.ops.kernel_packed import PackedKernel
+    from phlash_tpu_torch.ops.kernel_smc import SMCKernel
+    from phlash_tpu_torch.params import PSMC_FIELDS, MCMCParams, PSMCParams
+    from phlash_tpu_torch.utils import Pattern
+
+    M, n = 16, len(PP_INDS)
+    rng = np.random.default_rng(SEED + 30)
+    chunks = (rng.random((PP_CHUNKS, PP_OVERLAP + PP_L)) < 0.05).astype(np.int8)
+    chunks[2, 900:1100] = -1
+    warm_all = torch.as_tensor(chunks[:, :PP_OVERLAP], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    pat = PATTERNS[M]
+    base = MCMCParams.from_linear(pattern=pat, t1=1e-4, tM=15.0, c=[1.0] * len(Pattern(pat)),
+                                  theta=1e-2, rho=1e-2, device=dev)
+    flat = base.flatten() + 0.3 * torch.randn(3, base.flatten().shape[-1], generator=gen,
+                                              device=dev, dtype=torch.float64)
+    cloud64 = base.unflatten(flat)  # three particles; the first is the one
+    one64 = base.unflatten(flat[0])
+    dm64 = one64.to_dm()
+    pp64 = PSMCParams.from_dm(dm64)
+    pp32 = pp64.to(torch.float32)
+    idx = torch.tensor(PP_INDS, device=dev)
+    j = PP_INDS.index(PP_INDEX)
+    out = {"launches": {"smc": {}, "packed": {}, "assembly": {}}, "ms": {}}
+
+    def leaves_of(pp):
+        return [getattr(pp, k).detach().clone().requires_grad_(True) for k in PSMC_FIELDS]
+
+    paths = (("smc", SMCKernel, smc, smc.forward_structured, smc.backward_structured),
+             ("packed", PackedKernel, packed, packed.forward_packed, packed.backward_packed))
+    for name, cls, mod, fwd_plain, bwd_plain in paths:
+        kern = cls(M, chunks[:, PP_OVERLAP:], device=dev)
+        lanes = mod.kernel_geometry(1, n, M) if name == "smc" else mod.kernel_geometry(1, n)
+        print(f"per-particle {name}: (B, S) = (1, {n}) launch geometry {lanes}")
+        c_scalar = one_particle_counts(mod, lambda: kern.loglik(pp32, PP_INDEX))
+        c_vec = one_particle_counts(mod, lambda: kern(pp32, idx, grad=True))
+        c_dm = one_particle_counts(mod, lambda: kern(dm64, idx, grad=True))
+        want_vec = dict(forward_cuda=1, backward_cuda=1, forward_plain=0, backward_plain=0)
+        want_scalar = dict(want_vec, backward_cuda=0)
+        if name == "smc":
+            want_vec["forward_cuda_residuals"], want_scalar["forward_cuda_residuals"] = 1, 0
+        for what, got, want in (("loglik(pp, i)", c_scalar, want_scalar),
+                                ("kern(pp, inds, grad=True)", c_vec, want_vec),
+                                ("kern(dm, inds, grad=True)", c_dm, want_vec)):
+            print(f"per-particle {name}: {what} launched {got}")
+            check_counts(got, want, f"per-particle {name} {what}")
+        for k, v in c_vec.items():
+            out["launches"][name][k] = v + c_scalar[k] + c_dm[k]
+
+        # against the batched entry and autograd at the same rows, float32
+        ll_i = kern.loglik(pp32, PP_INDEX)
+        ll, g = kern(pp32, idx, grad=True)
+        ll_b = kern.loglik_batched(one_particle(pp32, n), idx)[0]
+        auto = []
+        for i in range(n):
+            lv = leaves_of(pp32)
+            ll_r = kern.loglik_batched(one_particle(PSMCParams(*lv), 1), idx[i:i + 1])[0, 0]
+            auto.append(torch.autograd.grad(ll_r, lv))
+        e_ll = max(max_rel(ll, ll_b), max_rel(ll_i, ll_b[j]))
+        e_g = max(normalized(getattr(g, k)[i], auto[i][f]) for i in range(n)
+                  for f, k in enumerate(PSMC_FIELDS))
+        bitwise = (torch.equal(ll, ll_b) and torch.equal(ll_i, ll_b[j]),
+                   all(torch.equal(getattr(g, k)[i], auto[i][f]) for i in range(n)
+                       for f, k in enumerate(PSMC_FIELDS)))
+        print(f"per-particle {name}: against loglik_batched / autograd at the same rows: "
+              f"ll max rel err {e_ll:.3e} (bitwise {bitwise[0]}), gradients max normalized "
+              f"err {e_g:.3e} (bitwise {bitwise[1]})")
+        if not (e_ll <= 1e-6 and e_g <= 1e-6):
+            fail(f"per-particle {name} entries disagree with the batched entry")
+
+        # against their plain float64 version on the card
+        ll_dm, g_dm = kern(dm64, idx, grad=True)
+        with plain_on_card(mod, fwd_plain, bwd_plain, dev.type):
+            ll_p, g_p = kern(pp64, idx, grad=True)
+            ll_pi = kern.loglik(pp64, PP_INDEX)
+            ll_pdm, g_pdm = kern(dm64, idx, grad=True)
+        with plain_on_card(mod, fwd_plain, bwd_plain, dev.type, torch.float32):
+            _, g_32dm = kern(dm64, idx, grad=True)
+        if not (g_dm.eta.t.dtype == torch.float64 and g_p.b.dtype == torch.float64):
+            fail(f"per-particle {name}: a float64 pp's gradients are not float64")
+        e_ll = max(max_rel(ll, ll_p), max_rel(ll_i, ll_pi), max_rel(ll_dm, ll_pdm))
+        e_g = max(normalized(getattr(g, k), getattr(g_p, k)) for k in PSMC_FIELDS)
+        e_dm = max(normalized(a, b) for a, b in ((g_dm.eta.c, g_pdm.eta.c),
+                                                 (g_dm.theta, g_pdm.theta),
+                                                 (g_dm.rho, g_pdm.rho)))
+        # the time grid's gradient through from_dm amplifies a float32
+        # kernel's rounding by the transition's derivative (on smc the plain
+        # float32 version itself sits ~7e-3 of max off float64): gated
+        # against the plain float32 version's error in this run, by 3c's 2x rule
+        e_t, e_t32 = normalized(g_dm.eta.t, g_pdm.eta.t), normalized(g_32dm.eta.t, g_pdm.eta.t)
+        print(f"per-particle {name}: against the plain float64 version on the card: ll max rel "
+              f"err {e_ll:.3e}; gradients max normalized err {e_g:.3e} (PSMCParams), "
+              f"{e_dm:.3e} (DemographicModel: c, theta, rho), t {e_t:.3e} (gate 2 x the "
+              f"plain float32 version's {e_t32:.3e} + 2e-5)")
+        if not (e_ll <= 1e-5 and e_g <= 2e-5 and e_dm <= 2e-5 and e_t <= 2 * e_t32 + 2e-5):
+            fail(f"per-particle {name} entries disagree with their plain version")
+
+        # one particle's density against log_density_batched's row, under a gradient
+        overlap = PP_OVERLAP if name == "smc" else 0
+        kw = dict(c=(1.0, PP_CHUNKS / n, 1.0), inds=idx, warmup=warm_all[idx, :overlap],
+                  kern=kern, afs=torch.tensor([5.0], device=dev))
+        x1 = one64.flatten().float().requires_grad_(True)
+        xb = cloud64.flatten().float().requires_grad_(True)
+        mod.reset_counts()
+        assembly.reset_counts()
+        v1 = log_density(base.unflatten(x1), **kw)
+        g1, = torch.autograd.grad(v1, x1)
+        c_den = {"kernels": mod.counts(), "assembly": assembly.counts()}
+        vb = log_density_batched(base.to(torch.float32).unflatten(xb), **kw)
+        gb, = torch.autograd.grad(vb[0], xb)
+        e_v, e_gd = max_rel(v1.detach(), vb[0].detach()), normalized(g1, gb[0])
+        print(f"per-particle {name}: log_density (overlap {overlap}) {float(v1):.6f} against "
+              f"log_density_batched's row: rel err {e_v:.3e} (bitwise {torch.equal(v1, vb[0])}), "
+              f"gradient normalized err {e_gd:.3e} (bitwise {torch.equal(g1, gb[0])}); "
+              f"launches {c_den}")
+        if not (e_v <= 1e-6 and e_gd <= 1e-6):
+            fail(f"per-particle {name}: log_density disagrees with log_density_batched")
+        passes = 2 if name == "smc" else 1  # the warm-up filter and the likelihood
+        want_k = dict(forward_cuda=passes, backward_cuda=passes, forward_plain=0,
+                      backward_plain=0)
+        if name == "smc":
+            want_k["forward_cuda_residuals"] = passes
+        check_counts(c_den["kernels"], want_k, f"per-particle {name} log_density")
+        check_counts(c_den["assembly"], dict(forward_cuda=1, backward_cuda=1, forward_plain=0,
+                                             backward_plain=0), f"per-particle {name} density")
+        for k, v in c_den["kernels"].items():
+            out["launches"][name][k] += v
+        for k, v in c_den["assembly"].items():
+            out["launches"]["assembly"][k] = out["launches"]["assembly"].get(k, 0) + v
+
+        # times at B = 1: the entry eager, and its kernels by graph replay
+        t = {"entry": time_ms(torch, lambda: kern(pp32, idx, grad=True), 20)}
+        rows = kern.data[idx].contiguous()
+        if name == "smc":
+            params = tuple(getattr(pp32, k)[None].contiguous() for k in PSMC_FIELDS[:6])
+            pi = pp32.pi[None, None].expand(1, n, -1).contiguous()
+            ll0, _, ps = smc.forward_cuda(params, pi, rows, True)
+            gbar, ab = torch.ones_like(ll0), torch.zeros_like(pi)
+            t["B1"] = time_graph_ms(torch, lambda: smc.forward_cuda(params, pi, rows, False))
+            t["B2"] = time_graph_ms(torch, lambda: smc.forward_cuda(params, pi, rows, True))
+            t["B3"] = time_graph_ms(torch, lambda: smc.backward_cuda(params, rows, ps, gbar, ab))
+        else:
+            from phlash_tpu_torch.ops.packing import dense_transition
+
+            A = dense_transition(pp32)[None].contiguous()
+            e0, e1 = pp32.emis0[None].contiguous(), pp32.emis1[None].contiguous()
+            pi = pp32.pi[None, None].expand(1, n, -1).contiguous()
+            ll0, ck = packed.forward_packed_cuda(A, e0, e1, pi, rows, kern.seg_len, True)
+            gbar = torch.ones_like(ll0)
+            t["B4"] = time_graph_ms(torch, lambda: packed.forward_packed_cuda(
+                A, e0, e1, pi, rows, kern.seg_len, True))
+            t["B5"] = time_graph_ms(torch, lambda: packed.backward_packed_cuda(
+                A, e0, e1, rows, ck, gbar, kern.seg_len))
+        live = float((rows != -2).sum())
+        kernels = ({"B1": "smc_forward", "B2": "smc_forward_residuals", "B3": "smc_backward"}
+                   if name == "smc" else {"B4": "packed_forward_ckpt", "B5": "packed_backward"})
+        for b, k in kernels.items():
+            t[b + "_bound"] = roofline.kernel_bound(k, M, 1, n, rows.shape[1], live)[0]
+        out["ms"][name] = t
+    one = torch.zeros(1, device=dev)
+    out["ms"]["launch_floor"] = time_ms(torch, lambda: one.add_(1.0), 20)
+    out["ms"]["launch_floor_graph"] = time_graph_ms(torch, lambda: one.add_(1.0))
+    geo = assembly.kernel_geometry(M, 1, 1, torch.float32, True)
+    print(f"per-particle times at (B, S, L) = (1, {n}, {PP_L}), M = {M}, float32: "
+          + "; ".join(f"{b}: " + ", ".join(f"{k} {v:.4g} ms" for k, v in out["ms"][b].items())
+                      for b in ("smc", "packed"))
+          + f" (kernels by graph replay, the entry kern(pp, inds, grad=True) eager); launch "
+          f"floor (a one-element add) {out['ms']['launch_floor']:.4f} ms eager, "
+          f"{out['ms']['launch_floor_graph']:.4f} ms by graph replay; A1 / A2 at P = 1: one "
+          f"warp in one block of {geo['warps_per_block']}")
+    return out
 
 
 # (kernel_backend, overlap) of the phase-6 fits; the committed phlash_tpu.fit
@@ -2002,19 +2250,101 @@ def peak_phase(torch, dev, lib) -> dict:
                 plain_ms=plain_ms, bound=(bound_ms, by), plateau=plateau, card=before)
 
 
+GENOME_TOOL = "tools/torch_genome_scale_demo.py"
+GENOME_SECONDS = 900
+
+
+def whole_genome_phase(card_name: str, power_line: str) -> dict:
+    """Phase 11: the whole-genome path, `python tools/torch_genome_scale_demo.py
+    --holdout` at scale 1.0 in its own process (a deadline; its VCFs in a
+    temporary directory of the checkout), its lines echoed.  Fails unless it
+    ran on phase 1's card; its chunk count is the sum over the training
+    chromosomes of chunk_het_matrix's rows from their lengths; the fit
+    launched exactly what its iterations and one capture imply (B2 and B3
+    twice an iteration, A1 and A2 once, no ELPD), the timed plain calls what
+    their replays imply, and the hold-out timing what its calls imply (each
+    ELPD two B1 and one A1); packed launched nothing in any stage; the cloud
+    is finite.  Returns each module's launches over the three stages."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("genome_tool", ROOT / GENOME_TOOL)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, GENOME_TOOL, "--holdout"], cwd=ROOT,
+                              env=dict(os.environ, TMPDIR=tmp), capture_output=True, text=True,
+                              timeout=GENOME_SECONDS)
+        wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"genome: {line}")
+    if proc.returncode != 0 or not lines:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"{GENOME_TOOL} exited with {proc.returncode}")
+    out = json.loads(lines[-1])
+    print(f"genome: {GENOME_TOOL} --holdout ran {wall:.1f} s on {power_line}")
+    if out["device"] != card_name:
+        fail(f"the genome tool ran on {out['device']!r}, not phase 1's {card_name!r}")
+    lengths = [int(mb * 1e6) for mb in tool.CHROM_MB[:-1]]  # chr22 held out
+    span = out["columns"]
+    want_chunks = sum(max(1, -(-(L // 100) // span)) for L in lengths)
+    if span != 600 or out["chunks"] != want_chunks:
+        fail(f"the genome tool made {out['chunks']} chunks of {span} columns; the lengths give "
+             f"{want_chunks} of 600")
+    if not (out["finite"] and math.isfinite(out["median_c0"])):
+        fail("the whole-genome fit's cloud is not finite")
+    spc, niter = out["steps_per_call"], out["iterations"]
+    if spc != SPC or niter != NITER:
+        fail(f"the genome fit ran {niter} iterations in calls of {spc}")
+    check_counts(out["launches_fit"], expected_counts("smc", niter=NITER, elpd=False),
+                 "the whole-genome fit")
+
+    def stage(iters: int, elpds: int) -> dict:
+        "Each module's launches for `iters` iterations and `elpds` ELPDs on smc."
+        none = dict(forward_cuda=0, backward_cuda=0, forward_plain=0, backward_plain=0)
+        return {"smc": dict(none, forward_cuda=2 * iters + 2 * elpds,
+                            forward_cuda_residuals=2 * iters, backward_cuda=2 * iters),
+                "packed": none,
+                "assembly": dict(none, forward_cuda=iters + elpds, backward_cuda=iters)}
+
+    check_counts(out["launches_timing"], stage(SPC * out["timed_calls"], 0),
+                 "the whole-genome timing of plain calls")
+    e = out["elpd"]
+    # the ELPD graph's warm-up iteration and ELPD, eager, then its replays
+    check_counts(out["launches_holdout"], stage(1 + SPC * e["elpd_calls"], 1 + e["elpd_calls"]),
+                 "the whole-genome hold-out timing")
+    print(f"genome summary ({power_line}): synthesis {out['synth_s']:.2f} s for "
+          f"{out['gbp']:.3f} Gbp; ingestion {out['ingest_s']:.2f} s ({out['mbp_per_s']:.1f} "
+          f"Mbp/s), {out['chunks']} chunks x {span} columns ({out['chunk_mb']:.1f} MB), peak "
+          f"host RSS {out['peak_rss_gb']:.3f} GB; upload + build + first capture "
+          f"{out['setup_s']:.2f} s; {out['ms_per_iter']:.4f} ms an iteration graphed (best of "
+          f"{tool.REPS} runs of {tool.INNER} replays); "
+          f"max_memory_allocated {out['max_memory_allocated_gb']:.3f} GB; median c[0] "
+          f"{out['median_c0']:.4f}; ELPD overhead {100 * e['overhead']:.2f}% "
+          f"({e['plain_call_ms']:.3f} / {e['elpd_call_ms']:.3f} ms a call)")
+    stages = [out[k] for k in ("launches_fit", "launches_timing", "launches_holdout")]
+    return {mod: {k: sum(c[mod][k] for c in stages) for k in stages[0][mod]}
+            for mod in ("smc", "packed", "assembly")}
+
+
 def kernel_entry(name, source, replaces, launches, genome_launches, mesh_launches,
-                 bench_launches, errs, gate, t, key):
+                 bench_launches, errs, gate, t, key, later_launches):
     """One kernel of the JSON summary line; `key` names its times in `t`.
     `launches` counts phase 4 / 4b's fit of its path, `genome_launches`
     phase 7's fit from genome files, `mesh_launches` phase 8a's meshed fit,
-    `bench_launches` phase 9's bench over its timed windows."""
+    `bench_launches` phase 9's bench over its timed windows,
+    `later_launches` phase 3d's per-particle entries and phase 11's whole
+    genome: (3d, 11)."""
     ms_bound, by = t[key + "_bound"]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "launches_by_path": {"psmcfa (phase 4/4b)": launches,
                                  "genome files (phase 7)": genome_launches,
                                  "mesh of one (phase 8a)": mesh_launches,
-                                 "bench (phase 9)": bench_launches},
+                                 "bench (phase 9)": bench_launches,
+                                 "per-particle entries (phase 3d)": later_launches[0],
+                                 "whole genome (phase 11)": later_launches[1]},
             **errs, "gate": gate, "ms": t[key],
             "plain_ms": t[key + "_plain"], "bound_ms": ms_bound, "bound_by": by,
             "library_ms": None}
@@ -2113,6 +2443,8 @@ def main() -> int:
     perrs = check_packed_kernels(torch, packed, dev)
     # 3c. the assembly kernels
     aerrs = check_assembly(torch, dev)
+    # 3d. the per-particle entries
+    pp3d = per_particle_phase(torch, dev)
 
     # 4. the slice, once per hand-kernel backend, by graph replays
     ops = {"smc": smc, "packed": packed, "assembly": assembly}
@@ -2178,6 +2510,10 @@ def main() -> int:
     # 10. the issue-rate micro-kernels (B6): the card check and the sweep
     pk = peak_phase(torch, dev, lib)
 
+    # 11. the whole genome, in its own process
+    torch.cuda.empty_cache()
+    wg = whole_genome_phase(kind, smi.stdout.strip())
+
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:
         fail("JAX or phlash_tpu was imported")
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s before its summary")
@@ -2188,6 +2524,7 @@ def main() -> int:
                "max_rel_err_alpha_pstates": errs["forward"]["state"]}
     smc_gate = "rel: ll 1e-5, alpha and pstates 1e-4; B1 equal to B2 bitwise"
     sc, pc, gc = counts["smc"], pcounts["packed"], gcounts["smc"]
+    p3, pp3, a3 = (pp3d["launches"][k] for k in ("smc", "packed", "assembly"))
     msc, mpc = mcounts["smc"]["smc"], mcounts["packed"]["packed"]
     asm = {b: (c["assembly"], mcounts[b]["assembly"]) for b, c in (("smc", counts),
                                                                    ("packed", pcounts))}
@@ -2209,39 +2546,46 @@ def main() -> int:
                      "max_f32_one_ulp_spreads_edges_draw": aerrs["f32_ulp_ratio_edges_draw"],
                      "max_f32_one_ulp_spreads_against_f64": aerrs["f32_ulp_ratio_f64"]}
     replaces = "phlash_tpu/mcmc.py:259"  # the jitted step whose assembly XLA fuses
-    print(json.dumps({"kernels": [
+    entries = [
         kernel_entry("smc_forward", src + "smc_forward.cu", "phlash_tpu/ops/pallas_smc.py:358",
                      sc["forward_cuda"] - sc["forward_cuda_residuals"],
                      gc["forward_cuda"] - gc["forward_cuda_residuals"],
                      msc["forward_cuda"] - msc["forward_cuda_residuals"],
-                     blaunch.get("B1", 0), smc_fwd, smc_gate, t, "fwd"),
+                     blaunch.get("B1", 0), smc_fwd, smc_gate, t, "fwd",
+                     (p3["forward_cuda"] - p3["forward_cuda_residuals"],
+                      wg["smc"]["forward_cuda"] - wg["smc"]["forward_cuda_residuals"])),
         kernel_entry("smc_forward_residuals", src + "smc_forward.cu",
                      "phlash_tpu/ops/pallas_smc.py:358", sc["forward_cuda_residuals"],
                      gc["forward_cuda_residuals"], msc["forward_cuda_residuals"],
-                     blaunch.get("B2", 0), smc_fwd, smc_gate, t, "fwd_res"),
+                     blaunch.get("B2", 0), smc_fwd, smc_gate, t, "fwd_res",
+                     (p3["forward_cuda_residuals"], wg["smc"]["forward_cuda_residuals"])),
         kernel_entry("smc_backward", src + "smc_backward.cu", "phlash_tpu/ops/pallas_smc.py:511",
                      sc["backward_cuda"], gc["backward_cuda"], msc["backward_cuda"],
                      blaunch.get("B3", 0),
                      {"max_abs_err": errs["backward"]["abs"],
                       "max_normalized_err": errs["backward"]["grad"]},
-                     "max|err| / max|plain| per gradient 2e-5", t, "bwd"),
+                     "max|err| / max|plain| per gradient 2e-5", t, "bwd",
+                     (p3["backward_cuda"], wg["smc"]["backward_cuda"])),
         kernel_entry("packed_forward", src + "packed_forward.cu",
                      "phlash_tpu/ops/pallas_hmm.py:162", pc["forward_cuda"], 0,
                      mpc["forward_cuda"], blaunch.get("B4", 0),
                      {"max_abs_err": perrs["forward"]["abs"],
                       "max_rel_err_ll": perrs["forward"]["ll"],
                       "max_rel_err_ckpt": perrs["forward"]["ckpt"]},
-                     "rel: ll 1e-5, ckpt 1e-4", pt, "fwd"),
+                     "rel: ll 1e-5, ckpt 1e-4", pt, "fwd",
+                     (pp3["forward_cuda"], wg["packed"]["forward_cuda"])),
         kernel_entry("packed_backward", src + "packed_backward.cu",
                      "phlash_tpu/ops/pallas_hmm_vjp.py:155", pc["backward_cuda"], 0,
                      mpc["backward_cuda"], blaunch.get("B5", 0),
                      {"max_abs_err": perrs["backward"]["abs"],
                       "max_normalized_err": perrs["backward"]["grad"]},
-                     "max|err| / max|plain| per gradient 2e-5", pt, "bwd"),
+                     "max|err| / max|plain| per gradient 2e-5", pt, "bwd",
+                     (pp3["backward_cuda"], wg["packed"]["backward_cuda"])),
         {**kernel_entry("assembly_forward", src + "assembly.cu", replaces,
                         asm["smc"][0]["forward_cuda"], gcounts["assembly"]["forward_cuda"],
                         asm["smc"][1]["forward_cuda"], blaunch.get("A1", 0), asm_errs,
-                        asm_gate, at, "a1"),
+                        asm_gate, at, "a1",
+                        (a3["forward_cuda"], wg["assembly"]["forward_cuda"])),
          "launches_packed_path": asm["packed"][0]["forward_cuda"],
          "launch_floor_ms": at["launch_floor"], "launch_floor_graph_ms": at["launch_floor_graph"],
          "ms_eager": at["a1_eager"], "ms_n_minus_1_15": at["a1_n16"],
@@ -2252,7 +2596,8 @@ def main() -> int:
         {**kernel_entry("assembly_backward", src + "assembly.cu", replaces,
                         asm["smc"][0]["backward_cuda"], gcounts["assembly"]["backward_cuda"],
                         asm["smc"][1]["backward_cuda"], blaunch.get("A2", 0), asm_grad_errs,
-                        asm_gate, at, "a2"),
+                        asm_gate, at, "a2",
+                        (a3["backward_cuda"], wg["assembly"]["backward_cuda"])),
          "launches_packed_path": asm["packed"][0]["backward_cuda"],
          "launch_floor_ms": at["launch_floor"], "launch_floor_graph_ms": at["launch_floor_graph"],
          "ms_eager": at["a2_eager"], "ms_n_minus_1_15": at["a2_n16"],
@@ -2261,7 +2606,13 @@ def main() -> int:
          "design": "A1's forward, then one reverse pass: suffix scans for the occupancy and "
                    "the prefix sums, each interval's local adjoint on width-3 dual numbers"},
         peak_entry(src, pk),
-    ]}))
+    ]
+    one_particle = {"smc_forward": "B1", "smc_forward_residuals": "B2", "smc_backward": "B3",
+                    "packed_forward": "B4", "packed_backward": "B5"}
+    for e in entries:
+        if e["name"] in one_particle:  # phase 3d: (B, S) = (1, 5) by graph replay
+            e["ms_one_particle_s5"] = pp3d["ms"][e["name"].split("_")[0]][one_particle[e["name"]]]
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -5,19 +5,21 @@ the compressed SMC' structure; `psmc_ll` is the per-site-normalized forward
 recursion at any dtype, with leading batch axes.  `psmc_ll` is the
 independent per-site oracle that chip_smoke.py holds the plain structured
 forward (phlash_tpu_torch.ops.smc) against at float64 on the card, before
-that plain version gates the CUDA kernels.  `ScanKernel` (phlash_tpu's
-PureXLAKernel) puts it behind the kernel interface as
-kernel_backend="scan": plain PyTorch on either device, differentiated by
-autograd through the site loop.  Padding (-2) freezes the state, as it does
-in the kernels (the JAX oracle is only ever given {-1, 0, 1}).
+that plain version gates the CUDA kernels.  `psmc_ll_dm` takes a
+demographic model.  `ScanKernel` (phlash_tpu's PureXLAKernel) puts
+`psmc_ll` behind the kernel interface as kernel_backend="scan": plain
+PyTorch on either device, differentiated by autograd through the site loop.
+Padding (-2) freezes the state, as it does in the kernels (the JAX oracle is
+only ever given {-1, 0, 1}).
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
 
+from phlash_tpu_torch.kernel_base import LikelihoodKernel, resolve_device
 from phlash_tpu_torch.params import PSMC_FIELDS, PSMCParams
+from phlash_tpu_torch.size_history import DemographicModel
 
 
 def matvec_smc(v: torch.Tensor, pp: PSMCParams) -> torch.Tensor:
@@ -50,20 +52,27 @@ def psmc_ll(pp: PSMCParams, data: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     return alpha, ll
 
 
-class ScanKernel(nn.Module):
+def psmc_ll_dm(dm: DemographicModel, data: torch.Tensor):
+    "psmc_ll under the HMM parameters of a demographic model."
+    return psmc_ll(PSMCParams.from_dm(dm), data)
+
+
+class ScanKernel(LikelihoodKernel):
     """The scan likelihood kernel over a device-resident chunk tensor.
 
-    data: int8 (N, L) chunks in {-1, 0, 1}.  The same interface as
-    ops/kernel_smc.SMCKernel and ops/kernel_dense.DenseKernel; plain PyTorch
-    on whatever device `data` lives on, in the parameters' dtype, or in
-    float64 with double_precision=True.
+    data: int8 (N, L) chunks in {-1, 0, 1}, placed on `device` (cuda unless
+    asked for the CPU).  The same interface as ops/kernel_smc.SMCKernel and
+    ops/kernel_dense.DenseKernel (kernel_base.py); plain PyTorch on either
+    device, in the parameters' dtype, or in float64 with
+    double_precision=True.
     """
 
-    def __init__(self, M: int, data, device="cpu", double_precision: bool = False):
+    def __init__(self, M: int, data, device="cuda", double_precision: bool = False):
         super().__init__()
         self.M = M
         self.double_precision = double_precision
-        self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8, device=device))
+        self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8,
+                                                     device=resolve_device(device)))
 
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
         """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)

@@ -29,9 +29,8 @@ take only None and "auto" (phlash_tpu's autotune), both no-ops.
 
 from __future__ import annotations
 
-import torch
-
 from phlash_tpu_torch.hmm import ScanKernel
+from phlash_tpu_torch.kernel_base import resolve_device
 from phlash_tpu_torch.ops.build import load_library
 from phlash_tpu_torch.ops.kernel_dense import DenseKernel
 from phlash_tpu_torch.ops.kernel_packed import PackedKernel
@@ -40,16 +39,6 @@ from phlash_tpu_torch.ops.kernel_smc import SMCKernel
 KERNELS = {"smc": SMCKernel, "packed": PackedKernel, "dense": DenseKernel, "scan": ScanKernel}
 DEFAULT_BACKEND = "smc"
 HAND_KERNELS = ("smc", "packed")  # the backends that launch this package's CUDA kernels
-
-
-def resolve_device(device) -> torch.device:
-    "A torch.device for `device`; a CUDA device must exist (no CPU fallback)."
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA device is available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 def check_backend(backend: str | None, overlap: int, double_precision: bool = False,

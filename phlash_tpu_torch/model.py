@@ -1,6 +1,6 @@
 """Composite log-density: prior + chunked HMM likelihood + AFS likelihood.
 
-Port of phlash_tpu/model.py:32-41,91-145.  `log_density_batched` expands the
+Port of phlash_tpu/model.py:32-145.  `log_density_batched` expands the
 particles' coordinates to HMM natural parameters, the log prior and the AFS
 term in one op (ops/assembly.AssemblyOp: the hand kernels A1 / A2 on the
 card; on the CPU the params / transition code and ops/assembly's
@@ -10,11 +10,13 @@ initial distributions, evaluates the chunk log-likelihoods through the same
 kernel, and combines with weights c = [prior, HMM, AFS] (the fit uses
 [1, N/S, 1], so minibatch gradients are unbiased).  Particles are
 independent, so one backward pass of the summed densities gives every
-particle's gradient.
+particle's gradient.  `log_density` is one particle's, through the same
+batched path at B = 1.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -66,3 +68,18 @@ def log_density_batched(
     "(B,) weighted log-densities; -inf where any component is non-finite."
     total = log_density_rows(mcps, c, warmup, kern.data[inds], kern, afs, afs_transform)
     return torch.where(torch.isfinite(total), total, torch.full_like(total, -math.inf))
+
+
+def log_density(
+    mcp: MCMCParams,  # one particle: unbatched leaves
+    c,  # (3,) weights: prior, HMM, AFS
+    inds: torch.Tensor,  # (S,) minibatch chunk indices
+    warmup: torch.Tensor,  # (S, overlap) int8 prefix observations
+    kern,  # a kernel of kernel.get_kernel
+    afs: torch.Tensor | None,  # (n-1,) observed spectrum, or None
+    afs_transform: torch.Tensor | None = None,
+) -> torch.Tensor:
+    "One particle's weighted log-density (0-d, differentiable); -inf where non-finite."
+    one = dataclasses.replace(mcp, t_tr=mcp.t_tr[None], c_tr=mcp.c_tr[None],
+                              rho_over_theta_tr=mcp.rho_over_theta_tr[None])
+    return log_density_batched(one, c, inds, warmup, kern, afs, afs_transform)[0]

@@ -17,9 +17,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from phlash_tpu_torch.kernel_base import LikelihoodKernel, resolve_device
 from phlash_tpu_torch.ops.packing import dense_transition
 from phlash_tpu_torch.params import PSMCParams
 
@@ -68,20 +68,21 @@ def forward_ll_dense(pp: PSMCParams, obs: torch.Tensor, seg_len: int = 512):
     return alpha, ll
 
 
-class DenseKernel(nn.Module):
+class DenseKernel(LikelihoodKernel):
     """Dense-transition likelihood kernel over a device-resident chunk tensor.
 
-    data: int8 (N, L) chunks in {-1, 0, 1}.  Runs in the parameters' dtype,
-    or in float64 with double_precision=True, on whatever device `data`
-    lives on.
+    data: int8 (N, L) chunks in {-1, 0, 1}, placed on `device` (cuda unless
+    asked for the CPU).  Runs in the parameters' dtype, or in float64 with
+    double_precision=True.  The per-particle entries: kernel_base.py.
     """
 
-    def __init__(self, M: int, data, device="cpu", seg_len: int = None,
+    def __init__(self, M: int, data, device="cuda", seg_len: int = None,
                  double_precision: bool = False):
         super().__init__()
         self.M = M
         self.double_precision = double_precision
-        self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8, device=device))
+        self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8,
+                                                     device=resolve_device(device)))
         self.seg_len = seg_len or _pick_seg_len(self.data.shape[-1])
 
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:

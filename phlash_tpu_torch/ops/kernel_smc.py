@@ -5,30 +5,53 @@ that replaces the JAX custom VJP (kernel_smc.py:69-99): its forward runs the
 forward kernel (with the period residuals only when a gradient is wanted),
 its backward runs the adjoint with the ll cotangent and the final-state
 cotangent, so the likelihood and the warmup filter share one kernel pair.
-`SMCKernel` owns the device-resident int8 chunk tensor and exposes
-`loglik_batched` and `filter_batched` as in phlash_tpu.
+Its backward sums each particle's gradients over the chunks;
+`instance_grads` runs the same pair outside autograd and keeps them per
+chunk.  `SMCKernel` owns the device-resident int8 chunk tensor and exposes
+`loglik_batched` and `filter_batched` as in phlash_tpu, and the
+per-particle entries of kernel_base.py.
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
 
+from phlash_tpu_torch.kernel_base import LikelihoodKernel, one_particle, resolve_device
 from phlash_tpu_torch.ops import build, smc
 from phlash_tpu_torch.params import PSMCParams
 
 _PARAMS = ("b", "d", "u", "v", "emis0", "emis1")
 
 
+def _forward(leaves, obs, with_residuals: bool):
+    "B1 (B2 with the period residuals): ll (B, S), alpha (B, S, M), pstates from 6 x (B, M), pi."
+    *params, pi = (x.contiguous() for x in leaves)
+    return smc.forward(tuple(params), pi, obs, with_residuals)
+
+
+def _adjoint(params, obs, pstates, g_ll, g_alpha):
+    """B3: the per-instance gradients (6 x (B, S, M), dpi (B, S, M)), which
+    SMCOp's backward sums over the chunks and instance_grads keeps."""
+    return smc.backward(tuple(x.contiguous() for x in params), obs, pstates,
+                        g_ll.contiguous(), g_alpha.contiguous())
+
+
+def _kernel_leaves(pp: PSMCParams, pi: torch.Tensor, obs: torch.Tensor) -> list:
+    """pp's six leaves and pi, cast to build.KERNEL_DTYPE (float32 on CUDA),
+    so a float64 tensor never reaches a kernel."""
+    leaves = [getattr(pp, k) for k in _PARAMS] + [pi]
+    dtype = build.KERNEL_DTYPE.get(obs.device.type)
+    return leaves if dtype is None else [x.to(dtype) for x in leaves]
+
+
 class SMCOp(torch.autograd.Function):
     "(ll (B, S), final state (B, S, M)) from per-particle params and per-instance pi."
 
     @staticmethod
-    def forward(ctx, obs, with_residuals, b, d, u, vv, e0, e1, pi):
-        params = tuple(x.contiguous() for x in (b, d, u, vv, e0, e1))
-        ll, alpha, pstates = smc.forward(params, pi.contiguous(), obs, with_residuals)
+    def forward(ctx, obs, with_residuals, *leaves):
+        ll, alpha, pstates = _forward(leaves, obs, with_residuals)
         if with_residuals:
-            ctx.save_for_backward(obs, pstates, *params)
+            ctx.save_for_backward(obs, pstates, *leaves[:-1])
         return ll, alpha
 
     @staticmethod
@@ -36,40 +59,53 @@ class SMCOp(torch.autograd.Function):
         # only reached when forward kept residuals; an unused output's
         # cotangent arrives as zeros (materialized grads)
         obs, pstates, *params = ctx.saved_tensors
-        dparams, dpi = smc.backward(
-            tuple(params), obs, pstates, g_ll.contiguous(), g_alpha.contiguous()
-        )
+        dparams, dpi = _adjoint(params, obs, pstates, g_ll, g_alpha)
         return (None, None, *(x.sum(1) for x in dparams), dpi)
 
 
 def smc_op(pp: PSMCParams, pi: torch.Tensor, obs: torch.Tensor):
     """Run the kernel pair: pp leaves (B, M) (pp.pi is ignored), pi (B, S, M),
     obs (S, L) int8 rows.  Residuals are kept only when autograd will ask.
-    The kernels take build.KERNEL_DTYPE (float32 on CUDA): the inputs are
-    cast to it here (autograd casts their gradients back) and the outputs to
-    pi's dtype, so a float64 tensor never reaches a kernel."""
-    leaves = [getattr(pp, k) for k in _PARAMS] + [pi]
-    dtype = build.KERNEL_DTYPE.get(obs.device.type)
-    if dtype is not None:
-        leaves = [x.to(dtype) for x in leaves]
+    The inputs are cast to the kernels' dtype (autograd casts their
+    gradients back) and the outputs to pi's dtype."""
+    leaves = _kernel_leaves(pp, pi, obs)
     with_residuals = torch.is_grad_enabled() and any(x.requires_grad for x in leaves)
     ll, alpha = SMCOp.apply(obs, with_residuals, *leaves)
     return ll.to(pi.dtype), alpha.to(pi.dtype)
 
 
-class SMCKernel(nn.Module):
+def smc_instance_grads(pp: PSMCParams, obs: torch.Tensor):
+    """(ll (n,), each chunk's gradient of pp's leaves, (n, M) each) for one
+    particle pp, unbatched leaves, on the rows obs (n, L): one forward with
+    residuals (B2) and one adjoint (B3) at (B, S) = (1, n), outside
+    autograd, cast as smc_op casts."""
+    one = one_particle(pp, obs.shape[0])
+    leaves = _kernel_leaves(one, one.pi, obs)
+    ll, _, pstates = _forward(leaves, obs, True)
+    dparams, dpi = _adjoint(leaves[:-1], obs, pstates, torch.ones_like(ll),
+                            torch.zeros_like(leaves[-1]))
+    dtype = pp.pi.dtype
+    return ll[0].to(dtype), PSMCParams(*(x[0].to(dtype) for x in (*dparams, dpi)))
+
+
+class SMCKernel(LikelihoodKernel):
     """Structured likelihood kernel over a device-resident chunk tensor.
 
-    data: int8 (N, L) chunks in {-1, 0, 1}.  On a CUDA device the hand
-    kernels run; on the CPU their plain versions (see ops/smc.py).
+    data: int8 (N, L) chunks in {-1, 0, 1}, placed on `device` (cuda unless
+    asked for the CPU).  On a CUDA device the hand kernels run; on the CPU
+    their plain versions (see ops/smc.py).
     """
 
-    def __init__(self, M: int, data, device="cpu"):
+    def __init__(self, M: int, data, device="cuda"):
         super().__init__()
         if M not in smc.SUPPORTED_M:
             raise ValueError(f"the SMC kernels support M in {smc.SUPPORTED_M}, got {M}")
         self.M = M
-        self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8, device=device))
+        self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8,
+                                                     device=resolve_device(device)))
+
+    def instance_grads(self, pp: PSMCParams, rows: torch.Tensor):
+        return smc_instance_grads(pp, rows.contiguous())
 
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
         """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)

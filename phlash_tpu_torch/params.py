@@ -48,6 +48,10 @@ class PSMCParams:
     def replace(self, **kw) -> "PSMCParams":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def M(self) -> int:
+        return self.d.shape[-1]
+
     def to(self, dtype=None, device=None) -> "PSMCParams":
         "Every leaf cast (differentiably) to `dtype` and `device`."
         return PSMCParams(*(getattr(self, k).to(dtype=dtype, device=device) for k in PSMC_FIELDS))

@@ -1,10 +1,12 @@
 """SMC' discretized transition matrix over TMRCA intervals.
 
-Port of phlash_tpu/transition.py:70-250: `_expQ2` (the 2x2 live block of the
+Port of phlash_tpu/transition.py: `_expQ2` (the 2x2 live block of the
 3-state SMC' chain's e^Q with stable absorption probabilities) and
-`transition_matrix`.  Leading axes are batch axes.  The JAX package composes
-the 2x2 blocks with an associative scan; only row 0 of the running product
-is ever read, so the port propagates that row sequentially over the 2M - 1
+`transition_matrix`; and the test oracles `expQ` (the whole 3x3 e^Q, held
+to scipy.linalg.expm) and `q_s` (the continuous transition density, held to
+quadrature).  Leading axes are batch axes.  The JAX package composes the
+2x2 blocks with an associative scan; only row 0 of the running product is
+ever read, so the port propagates that row sequentially over the 2M - 1
 sub-intervals (the same products, associated left to right).
 
 The assembled matrix has the compressed structure the HMM kernels use:
@@ -19,6 +21,36 @@ import torch
 
 from phlash_tpu_torch.size_history import DemographicModel, _append
 from phlash_tpu_torch.utils import texp_mean
+
+
+def expQ(r, c, n: int) -> torch.Tensor:
+    """e^Q (..., 3, 3) of the SMC' rate generator over one interval, in closed
+    form, elementwise over r and c (numbers or tensors; float64 for numbers).
+
+    Q generates a 3-state chain: 0 = lineages coalesced (no recombination
+    separating the two loci yet), 1 = a floating lineage, 2 = re-coalesced
+    elsewhere (absorbing); r is the scaled recombination distance, c the
+    scaled coalescence intensity over the interval, n the sample size.  The
+    live 2x2 block's eigen-decomposition goes through cosh / sinh; sinh(u)/u
+    is series-expanded for small u, so gradients stay finite.
+    """
+    r, c = (x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=torch.float64)
+            for x in (r, c))
+    r, c = torch.broadcast_tensors(r, c)
+    u = torch.sqrt((c * n) ** 2 - 2.0 * c * (n - 2) * r + r**2) / 2.0
+    v = (r + c * n) / 2.0
+    w = (r - c * n) / 2.0
+    # e^{-v} cosh(u) and e^{-v} sinh(u) / u, overflow-safe through exp(u - v)
+    ch = (torch.exp(u - v) + torch.exp(-(u + v))) / 2.0
+    tiny = u < 1e-6
+    u_ok = torch.where(tiny, torch.ones_like(u), u)
+    sh_over_u = torch.where(tiny, torch.exp(-v) * (1.0 + u_ok**2 / 6.0),
+                            (torch.exp(u - v) - torch.exp(-(u + v))) / (2.0 * u_ok))
+    p00, p01 = ch - w * sh_over_u, r * sh_over_u
+    p10, p11 = c * sh_over_u, ch + w * sh_over_u
+    zero, one = torch.zeros_like(u), torch.ones_like(u)
+    rows = [(p00, p01, 1.0 - p00 - p01), (p10, p11, 1.0 - p10 - p11), (zero, zero, one)]
+    return torch.stack([torch.stack(row, -1) for row in rows], -2)
 
 
 def _expQ2(r: torch.Tensor, c: torch.Tensor, n: int):
@@ -150,3 +182,43 @@ def transition_matrix(dm: DemographicModel, n: int = 2) -> torch.Tensor:
     upper = p_float_out[..., :, None] * torch.exp(log_span) * p_coal[..., None, :] * (j > i)
 
     return lower + torch.diag_embed(diag) + upper
+
+
+def q_s(*, eta, s: float, r: float):
+    """The continuous SMC' transition density from TMRCA s to TMRCA t at
+    scaled recombination distance r, for one SizeHistory: (q, atom), q
+    taking a tensor of t (float64) and atom = P(stay at s).  A test oracle
+    (q integrates to 1 - atom).
+
+    The exact density, as phlash_tpu's: for t < s the 3-state chain is cut
+    at t, so q(t < s) = eta(t) P_{0->t}[0, 1] (the reference cuts it at s,
+    right only as r -> 0).  P_{0->x} is the product of expQ over the
+    history's intervals below x, then over [t_j, x]: the full intervals'
+    products are taken once, sequentially, at float64.
+    """
+    t = eta.t.to(torch.float64)
+    c = eta.c.to(torch.float64)
+    full = expQ(torch.diff(t) * r, torch.diff(t) * c[:-1], 2)  # (K - 1, 3, 3)
+    prefix = [torch.eye(3, dtype=torch.float64)]
+    for E in full:
+        prefix.append(prefix[-1] @ E)
+    prefix = torch.stack(prefix)  # (K, 3, 3): the chain at each breakpoint
+
+    def chain_at(x: torch.Tensor) -> torch.Tensor:
+        "(..., 3, 3): the chain after evolving over branch heights [0, x]."
+        j = torch.searchsorted(t, x.contiguous(), right=True) - 1
+        dx = x - t[j]
+        return prefix[j] @ expQ(dx * r, dx * c[j], 2)
+
+    R = eta.R
+    s_ = torch.tensor([float(s)], dtype=torch.float64)
+    P_s, R_s = chain_at(s_)[0], R(s_)
+
+    def q(x) -> torch.Tensor:
+        x = torch.as_tensor(x, dtype=torch.float64)
+        flat = x.reshape(-1)
+        below = chain_at(flat)[:, 0, 1]
+        above = P_s[0, 1] * torch.exp(-(R(flat) - R_s))
+        return (eta(flat).to(torch.float64) * torch.where(flat < s, below, above)).reshape(x.shape)
+
+    return q, P_s[0, 0]

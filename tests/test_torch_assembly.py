@@ -571,7 +571,7 @@ def test_assembly_op_is_the_old_path_bitwise(dtype, afs_kind):
     x = _cloud(pattern, 11, seed=31).to(dtype)
     init = _init(pattern, dtype)
     data = np.random.default_rng(32).binomial(1, 0.05, size=(3, 120)).astype(np.int8)
-    kern = SMCKernel(init.M, data[:, 40:])
+    kern = SMCKernel(init.M, data[:, 40:], device="cpu")
     warm, inds = torch.as_tensor(data[:, :40]), torch.arange(3)
     afs, T = _afs_case(0 if afs_kind == "none" else 5, transform=afs_kind != "afs")
     afs, T = (None if a is None else a.to(dtype) for a in (afs, T))

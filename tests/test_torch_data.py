@@ -394,7 +394,7 @@ def test_log_density_with_live_afs_matches_jax(tmp_path, mcp):
     want_g = np.asarray(jax.vmap(lambda m: ravel_pytree(m)[0])(want_g))
     tm = convert.from_reference_mcmc(jm)
     tkw = dict(c=(1.0, 2.0, 1.0), inds=torch.as_tensor(inds),
-               warmup=torch.as_tensor(chunks[inds, :40]), kern=SMCKernel(16, body),
+               warmup=torch.as_tensor(chunks[inds, :40]), kern=SMCKernel(16, body, device="cpu"),
                afs=torch.as_tensor(afs, dtype=torch.float64))
     got = log_density_batched(tm, **tkw)
     got_g = batched_grad(tm)(tm.flatten(), **tkw)

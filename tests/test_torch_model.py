@@ -39,7 +39,7 @@ def chunks():
 @pytest.fixture(scope="module")
 def kernels(chunks):
     body = chunks[:, OVERLAP:]
-    return DenseKernel(M=16, data=body, double_precision=True), SMCKernel(16, body)
+    return DenseKernel(M=16, data=body, double_precision=True), SMCKernel(16, body, device="cpu")
 
 
 def _particles(mcp, B, scale, seed):

@@ -105,7 +105,7 @@ def test_matches_pallas_kernel_interpret(short_data):
     with pltpu.force_tpu_interpret_mode():
         (_, ll_j), g_j = jax.value_and_grad(loss, has_aux=True)(_jax_chunked(tpp, pi))
 
-    kern = PackedKernel(M, short_data[:2], seg_len=128)
+    kern = PackedKernel(M, short_data[:2], seg_len=128, device="cpu")
     leaves, tpi = _leaves(tpp, pi)
     ll = kern.loglik_batched(tpp.replace(pi=tpi, **leaves), torch.tensor(INDS))
     np.testing.assert_allclose(ll.detach().numpy(), np.asarray(ll_j), rtol=1e-5)
@@ -135,7 +135,7 @@ def test_loglik_matches_jax_dense(short_data, dense_ref, kernel):
     """PackedKernel (plain B4 forward, hand B5 adjoint) and the plain
     DenseKernel at float64 against phlash_tpu's DenseKernel: ll and all
     seven gradients rtol 1e-10."""
-    kern = kernel(M, short_data, seg_len=128)
+    kern = kernel(M, short_data, seg_len=128, device="cpu")
     leaves, tpi = _leaves(dense_ref["tpp"], dense_ref["pi"])
     ll = kern.loglik_batched(dense_ref["tpp"].replace(pi=tpi, **leaves), torch.tensor(INDS))
     np.testing.assert_allclose(ll.detach().numpy(), dense_ref["ll"], rtol=1e-10)
@@ -239,7 +239,7 @@ def test_period_and_states_per_lane():
     assert geo["PACKED_BWD_SPL"] == dict(states_per_lane=1, lanes_per_instance=16,
                                          instances_per_warp=2, threads_per_block=128,
                                          blocks=315, warps=1260)
-    assert PackedKernel(M, np.zeros((1, 2000), np.int8)).data.shape == (1, 2000)
+    assert PackedKernel(M, np.zeros((1, 2000), np.int8), device="cpu").data.shape == (1, 2000)
 
 
 def test_packed_op_gradcheck():
@@ -252,8 +252,9 @@ def test_packed_op_gradcheck():
 def test_padding_is_noop():
     "A row padded with -2 by hand gives the kernel's own padding's ll (tests/test_pallas.py)."
     d = np.random.default_rng(1).binomial(1, 0.05, size=(2, 200)).astype(np.int8)
-    k1 = PackedKernel(M, d, seg_len=128)  # pads 200 -> 256
-    k2 = PackedKernel(M, np.pad(d, [(0, 0), (0, 56)], constant_values=-2), seg_len=128)
+    k1 = PackedKernel(M, d, seg_len=128, device="cpu")  # pads 200 -> 256
+    k2 = PackedKernel(M, np.pad(d, [(0, 0), (0, 56)], constant_values=-2), seg_len=128,
+                      device="cpu")
     assert k1.data.shape == k2.data.shape == (2, 256)
     tpp = _batched(torch.float32)
     pp = tpp.replace(pi=tpp.pi[:, None, :].expand(-1, 2, -1))
@@ -278,7 +279,7 @@ def test_dense_filter_matches_jax(short_data):
         return (out * T).sum(), out
 
     (_, want), g_j = jax.jit(jax.value_and_grad(loss, has_aux=True))(jpps)
-    kern = DenseKernel(M, short_data, seg_len=64)
+    kern = DenseKernel(M, short_data, seg_len=64, device="cpu")
     leaves = {k: getattr(tpp, k).clone().requires_grad_(True) for k in PSMC_FIELDS}
     out = kern.filter_batched(tpp.replace(**leaves), torch.as_tensor(warmup))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-10)
@@ -324,7 +325,8 @@ def test_log_density_packed_matches_jax(mcp, with_afs):
 
     tm = convert.from_reference_mcmc(jm)
     tkw = dict(c=C, inds=torch.as_tensor(inds), warmup=torch.as_tensor(no_prefix),
-               kern=PackedKernel(M, chunks), afs=torch.as_tensor(AFS) if with_afs else None)
+               kern=PackedKernel(M, chunks, device="cpu"),
+               afs=torch.as_tensor(AFS) if with_afs else None)
     got = log_density_batched(tm, **tkw)
     got_g = batched_grad(tm)(tm.flatten(), **tkw)
     rtol_v, rtol_g = (1e-6, 1e-6) if with_afs else (1e-10, 1e-8)

@@ -80,7 +80,7 @@ def test_loglik_and_grads_match_pure_xla(tpp, sdata):
     ll_rows = xkern.loglik_batched(jpps, jnp.asarray(INDS))
 
     leaves = _leaves(tpp, pi)
-    kern = ScanKernel(M, sdata)
+    kern = ScanKernel(M, sdata, device="cpu")
     ll = kern.loglik_batched(PSMCParams(**leaves), torch.as_tensor(INDS))
     assert ll.shape == (B, len(INDS)) and ll.dtype == torch.float64
     np.testing.assert_allclose(ll.detach().numpy(), np.asarray(ll_rows), rtol=1e-10)
@@ -105,7 +105,8 @@ def test_filter_matches_pure_xla(tpp, sdata):
     alpha_j = xkern.filter_batched(jpps, jnp.asarray(warmup))
 
     leaves = {k: getattr(tpp, k).clone().requires_grad_(True) for k in PSMC_FIELDS}
-    alpha = ScanKernel(M, sdata).filter_batched(PSMCParams(**leaves), torch.as_tensor(warmup))
+    alpha = ScanKernel(M, sdata, device="cpu").filter_batched(PSMCParams(**leaves),
+                                                              torch.as_tensor(warmup))
     assert alpha.shape == (B, 2, M)
     np.testing.assert_allclose(alpha.detach().numpy(), np.asarray(alpha_j), rtol=1e-10)
     gt = torch.autograd.grad((alpha * torch.as_tensor(T)).sum(), list(leaves.values()))
@@ -120,7 +121,8 @@ def test_scan_matches_smc_plain(tpp, sdata):
     pi = _pi(tpp)
     W = torch.linspace(0.5, 1.5, B * len(INDS), dtype=torch.float64).reshape(B, len(INDS))
     out = {}
-    for name, kern in (("scan", ScanKernel(M, sdata)), ("smc", SMCKernel(M, sdata))):
+    for name, kern in (("scan", ScanKernel(M, sdata, device="cpu")),
+                       ("smc", SMCKernel(M, sdata, device="cpu"))):
         leaves = _leaves(tpp, pi)
         pp = PSMCParams(**leaves)
         ll = kern.loglik_batched(pp, torch.as_tensor(INDS))
@@ -141,10 +143,11 @@ def test_double_precision_casts_float32_params(tpp, sdata):
     pp32 = tpp.to(torch.float32)
     pi = torch.tensor(_pi(tpp), dtype=torch.float32)
     inds = torch.as_tensor(INDS)
-    ll64 = ScanKernel(M, sdata, double_precision=True).loglik_batched(pp32.replace(pi=pi), inds)
-    ll32 = ScanKernel(M, sdata).loglik_batched(pp32.replace(pi=pi), inds)
+    ll64 = ScanKernel(M, sdata, double_precision=True, device="cpu").loglik_batched(
+        pp32.replace(pi=pi), inds)
+    ll32 = ScanKernel(M, sdata, device="cpu").loglik_batched(pp32.replace(pi=pi), inds)
     assert ll64.dtype == torch.float64 and ll32.dtype == torch.float32
-    want = ScanKernel(M, sdata).loglik_batched(pp32.to(torch.float64).replace(
+    want = ScanKernel(M, sdata, device="cpu").loglik_batched(pp32.to(torch.float64).replace(
         pi=pi.double()), inds)
     torch.testing.assert_close(ll64, want, rtol=0, atol=0)
     torch.testing.assert_close(ll32.double(), want, rtol=1e-4, atol=0)

@@ -159,7 +159,7 @@ def test_grads_match_dense_kernel(sdata):
     dkern = DenseKernel(M=16, data=sdata[:3], seg_len=SEG)
     gd = jax.grad(lambda p: (dkern.loglik_batched(p, jnp.array(inds)) * W).sum())(pps)
 
-    kern = SMCKernel(16, sdata[:3])
+    kern = SMCKernel(16, sdata[:3], device="cpu")
     tpp = convert.from_reference_psmc(jpp32, dtype=torch.float32)
     leaves = {k: getattr(tpp, k).expand(B, -1).clone().requires_grad_(True) for k in PARAMS6}
     pi = tpp.pi.expand(B, S, -1).clone().requires_grad_(True)
@@ -194,7 +194,7 @@ def test_matches_pallas_kernel_interpret(sdata):
     with pltpu.force_tpu_interpret_mode():
         (_, ll_j), g_j = jax.value_and_grad(loss, has_aux=True)(pps)
 
-    kern = SMCKernel(16, sdata[:2])
+    kern = SMCKernel(16, sdata[:2], device="cpu")
     tpp = convert.from_reference_psmc(jpp32, dtype=torch.float32)
     leaves = {k: getattr(tpp, k).expand(B, -1).clone().requires_grad_(True) for k in PARAMS6}
     pi = torch.tensor(pi_np, requires_grad=True)
@@ -216,7 +216,7 @@ def test_filter_matches_oracle_and_grads(sdata):
     B = 2
     tpp = _batched(_pp(16), B, torch.float64)
     warmup = sdata[:2]
-    kern = SMCKernel(16, sdata)
+    kern = SMCKernel(16, sdata, device="cpu")
     alpha = kern.filter_batched(tpp, torch.as_tensor(warmup))
     assert alpha.shape == (B, 2, 16)
     for p in range(B):
@@ -285,4 +285,4 @@ def test_dispatch_by_device():
     with pytest.raises(ValueError, match="CUDA tensors"):
         smc.forward_cuda([p.float() for p in params], pi.float(), obs, True)
     with pytest.raises(ValueError, match="support M"):
-        SMCKernel(24, np.zeros((1, 8), np.int8))
+        SMCKernel(24, np.zeros((1, 8), np.int8), device="cpu")

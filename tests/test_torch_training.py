@@ -48,7 +48,7 @@ def _torch_step(jm, chunks):
     "(state, base_step) of the port at float64 on the CPU, on the smc backend."
     tm = convert.from_reference_mcmc(jm)
     svgd = SVGD(training.batched_grad(tm), AMSGrad(learning_rate=0.1))
-    kern = SMCKernel(16, chunks[:, OVERLAP:])
+    kern = SMCKernel(16, chunks[:, OVERLAP:], device="cpu")
     warm = torch.as_tensor(chunks[:, :OVERLAP])
 
     def base_step(state, inds):

@@ -150,6 +150,24 @@ Phases, each of which prints its own lines and aborts the run on failure:
    chunk_het_matrix's rows from their lengths, B2, B3, A1 and A2 launched
    exactly what 30 iterations, one capture and the timed replays imply and
    B1 what the ELPDs imply, packed launched nothing, and the cloud is finite.
+12. posterior recovery against the truth: `python tools/torch_validate.py
+   --n-samples n` at full size (constant, bottleneck and zigzag; three
+   contigs of 500,000 windows from the continuous SMC' simulator, one held
+   out; 500 particles, up to 300 iterations with ELPD early stopping,
+   tools/validate.py's options and seeds) in its own process for n = 1 and
+   2, its lines echoed with the card's name and power limit; it fails
+   unless the tool exits 0 (worst tv < 0.25), every tv and coverage is
+   finite, and each fit launched exactly the smc kernels and A1 / A2 that
+   the iterations it ran imply (nothing packed, nothing plain); coverage
+   and each posterior's tv against the other two truths are printed, not
+   gated.
+13. the step's ablation profile: B2 + B3 at L = 64 against their plain
+   versions (the -sites row's length, below one observation tile), then
+   `python tools/torch_step_profile.py` at its defaults in its own process
+   (full, -afs, -warmup, -sites, svgd-only, the kernels alone, the
+   assembly alone; graphed and eager ms); it fails unless every row is
+   there, finite and positive, and launched exactly its variant's B2 + B3
+   and A1 + A2 for the iterations it ran and nothing else.
 `--profile` also prints torch.profiler tables of eager and graphed steps
 of each path, with the device busy share.
 The last two lines are a JSON summary of the kernels (B1-B6, A1, A2) and
@@ -230,14 +248,17 @@ CHECK_SHAPES = ((37, 3, 1000, (8, 16, 32, 64)), (500, 5, 2000, (16,)), (500, 5, 
                 (37, 3, 2501, (16,)))
 
 
-def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs):
+def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs, f32_floor=False):
     """The forward (B2, with residuals) and adjoint (B3) kernels against
     their plain versions in float64 on the card; B1 (no residuals) must give
     B2's ll and alpha;
     the plain forward itself must agree with the per-site scan oracle
     (hmm.psmc_ll).  Inputs float64; folds the errors into `errs` (as
     check_kernels returns them) and returns the smallest positive
-    period-state entry."""
+    period-state entry.  With f32_floor (short rows, whose |ll| can be
+    ~0.1, where float32's rounding alone exceeds 1e-5 relative) an
+    instance's ll may also sit within twice the plain float32 forward's
+    error on that instance, as phase 3c's float32 rule reads."""
     from phlash_tpu_torch.hmm import psmc_ll
     from phlash_tpu_torch.params import PSMCParams
 
@@ -257,6 +278,15 @@ def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs):
     g_k, dpi_k = smc.backward_cuda(p32, obs, ps_k, g32, ab32)
     torch.cuda.synchronize()
     e_ll, e_a, e_ps = max_rel(ll_k, ll_p), max_rel(a_k, a_p), max_rel(ps_k, ps_p)
+    ll_ok = e_ll <= 1e-5
+    if f32_floor:
+        ll_32 = smc.forward_structured(p32, pi32, obs, False)[0].double()
+        err, floor = (ll_k.double() - ll_p).abs(), 2.0 * (ll_32 - ll_p).abs()
+        rule = float((err / torch.maximum(1e-5 * ll_p.abs(), floor)).max())
+        print(f"{where}: plain float32 forward's max rel err ll {max_rel(ll_32, ll_p):.3e}; the "
+              f"kernel's ll error over max(1e-5 |ll|, 2x the plain float32 error), at most "
+              f"{rule:.3f}")
+        ll_ok, errs["ll_over_rule"] = rule <= 1.0, max(errs.get("ll_over_rule", 0.0), rule)
     worst = 0.0
     for name, a, b in zip(names, (*g_k, dpi_k), (*g_p, dpi_p)):
         norm = normalized(a, b)
@@ -266,7 +296,7 @@ def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs):
             fail(f"adjoint kernel disagrees on d{name} at {where}: normalized err {norm:.3e}")
     print(f"{where}: max rel err ll {e_ll:.3e} alpha {e_a:.3e} pstates {e_ps:.3e}; "
           f"max normalized err over the 7 gradients {worst:.3e}")
-    if not (e_ll <= 1e-5 and e_a <= 1e-4 and e_ps <= 1e-4):
+    if not (ll_ok and e_a <= 1e-4 and e_ps <= 1e-4):
         fail(f"forward kernel disagrees with the plain version at {where}")
     if not (torch.equal(ll_1, ll_k) and torch.equal(a_1, a_k)):
         fail(f"the forward without residuals differs from the one with at {where}")
@@ -2250,6 +2280,11 @@ def peak_phase(torch, dev, lib) -> dict:
                 plain_ms=plain_ms, bound=(bound_ms, by), plateau=plateau, card=before)
 
 
+def sum_counts(runs: list) -> dict:
+    "Each ops module's launches summed over `runs` (counts dicts by module)."
+    return {mod: {k: sum(c[mod][k] for c in runs) for k in runs[0][mod]} for mod in runs[0]}
+
+
 GENOME_TOOL = "tools/torch_genome_scale_demo.py"
 GENOME_SECONDS = 900
 
@@ -2323,9 +2358,125 @@ def whole_genome_phase(card_name: str, power_line: str) -> dict:
           f"max_memory_allocated {out['max_memory_allocated_gb']:.3f} GB; median c[0] "
           f"{out['median_c0']:.4f}; ELPD overhead {100 * e['overhead']:.2f}% "
           f"({e['plain_call_ms']:.3f} / {e['elpd_call_ms']:.3f} ms a call)")
-    stages = [out[k] for k in ("launches_fit", "launches_timing", "launches_holdout")]
-    return {mod: {k: sum(c[mod][k] for c in stages) for k in stages[0][mod]}
-            for mod in ("smc", "packed", "assembly")}
+    return sum_counts([out[k] for k in ("launches_fit", "launches_timing", "launches_holdout")])
+
+
+# phase 12: posterior recovery against the truth, tools/torch_validate.py at
+# full size, once for each of these --n-samples (docs/validation_*.png and
+# docs/validation_*_n2.png are the JAX tool's counterparts)
+VALIDATE_TOOL = "tools/torch_validate.py"
+VALIDATE_SAMPLES = (1, 2)
+VALIDATE_SECONDS = 360
+
+
+def validation_phase(power_line: str, tmp: str) -> dict:
+    """Phase 12: `python tools/torch_validate.py --n-samples n` at full size
+    (L = 500,000, niter 300, 500 particles, the continuous simulator) in its
+    own process for each n of VALIDATE_SAMPLES (a deadline; plots under
+    `tmp`), its lines echoed.  Fails unless it exits 0 (worst tv < 0.25) on
+    phase 1's card; every tv and coverage is finite; and each fit launched
+    exactly what the iterations it ran imply (expected_counts: one capture,
+    an ELPD every call) on the smc kernels and A1 / A2, nothing packed and
+    nothing plain.  Coverage and each posterior's tv against the other
+    demographies' truths are printed, not gated.  Returns each module's
+    launches over every fit."""
+    runs = []
+    for n in VALIDATE_SAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, VALIDATE_TOOL, "--n-samples", str(n),
+                               "--plot-dir", tmp], cwd=ROOT, env=dict(os.environ, TMPDIR=tmp),
+                              capture_output=True, text=True, timeout=VALIDATE_SECONDS)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        for line in lines:
+            print(f"validate n={n}: {line}")
+        if proc.returncode != 0 or len(lines) < 2:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            fail(f"{VALIDATE_TOOL} --n-samples {n} exited with {proc.returncode}")
+        out = json.loads(lines[-2])
+        if out["card"] != power_line:
+            fail(f"the validation ran on {out['card']!r}, not phase 1's {power_line!r}")
+        if (out["L"], out["niter"], out["particles"]) != (500_000, 300, 500):
+            fail(f"the validation ran at L={out['L']}, niter={out['niter']}, "
+                 f"{out['particles']} particles, not at full size")
+        for r in out["demographies"]:
+            if not (math.isfinite(r["tv"]) and math.isfinite(r["coverage"]) and r["finite"]):
+                fail(f"validation {r['name']}: tv {r['tv']}, coverage {r['coverage']}, "
+                     f"finite models {r['finite']}")
+            iters = r["iterations"]
+            if iters % SPC or not 0 < iters <= out["niter"]:
+                fail(f"validation {r['name']} ran {iters} iterations")
+            check_counts(r["launches"], expected_counts("smc", niter=iters),
+                         f"the validation fit of {r['name']}")
+            runs.append(r["launches"])
+            print(f"validation {r['name']} ({power_line}): tv {r['tv']:.4f}, coverage "
+                  f"{r['coverage']:.4f} (not gated), {iters} iterations, fit wall "
+                  f"{r['wall_s']:.2f} s (graph set-up {r['graph_setup_s']:.2f} s); tv against "
+                  f"the other truths (not gated): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in r["tv_other_truths"].items()))
+        print(f"validation n={n}: worst tv {out['worst_tv']:.4f} < {out['tv_gate']}; "
+              f"{VALIDATE_TOOL} ran {wall:.1f} s on {power_line}")
+    return sum_counts(runs)
+
+
+# phase 13: the step's ablation profile, tools/torch_step_profile.py at its
+# defaults; each row's launches an iteration (B2 + B3 pairs, A1 + A2 pairs)
+PROFILE_TOOL = "tools/torch_step_profile.py"
+PROFILE_SECONDS = 300
+PROFILE_ROWS = {"full": (2, 1), "-afs": (2, 1), "-warmup": (1, 1),
+                "-sites (64-site chunks)": (2, 1), "svgd-only (stub grad)": (0, 0),
+                "kernel fwd+grad only": (1, 0), "assembly fwd+grad only": (0, 1)}
+
+
+def ablation_phase(torch, smc, dev, power_line: str) -> tuple[dict, dict]:
+    """Phase 13: B2 + B3 at the -sites row's L = 64 (the fit's B = 500, S =
+    5 and a ragged B = 37, S = 3) against their plain versions (gate_smc,
+    with its float32 floor on the ll); then `python tools/torch_step_profile.py` at its
+    defaults in its own process (a deadline), its lines echoed.  Fails
+    unless every row of PROFILE_ROWS is there with finite, positive graphed
+    and eager ms, and each row launched exactly its B2 + B3 and A1 + A2
+    pairs an iteration for the iterations it ran and nothing else (no B1,
+    nothing packed, nothing plain): so -warmup no filter, svgd-only no hand
+    kernel.  Returns each module's launches over every row, and the L = 64
+    gate's errors."""
+    errs = {"forward": {"abs": 0.0, "ll": 0.0, "state": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for B, S in ((500, 5), (37, 3)):
+        params, pi, obs = random_instances(torch, 16, B, S, 64, dev, gen)
+        gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
+        abar0 = torch.randn(B, S, 16, generator=gen, device=dev, dtype=torch.float64)
+        gate_smc(torch, smc, params, pi, obs, gbar, abar0, f"M=16 B={B} S={S} L=64", errs,
+                 f32_floor=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, PROFILE_TOOL], cwd=ROOT, capture_output=True,
+                          text=True, timeout=PROFILE_SECONDS)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        if not line.startswith("{"):
+            print(f"ablation: {line}")
+    if proc.returncode != 0 or not lines:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"{PROFILE_TOOL} exited with {proc.returncode}")
+    rows = {d["row"]: d for d in map(json.loads, (x for x in lines if x.startswith('{"row"')))}
+    last = json.loads(lines[-1])
+    if list(last) != list(PROFILE_ROWS) or list(rows) != list(PROFILE_ROWS):
+        fail(f"the ablation's rows are {list(last)} / {list(rows)}, not {list(PROFILE_ROWS)}")
+    for name, (hmm, asm) in PROFILE_ROWS.items():
+        d, n = rows[name], rows[name]["iterations"]
+        if not all(math.isfinite(d[k]) and d[k] > 0 for k in ("graphed_ms", "eager_ms")) \
+                or last[name] != d["graphed_ms"]:
+            fail(f"the ablation's row {name!r} reads {d['graphed_ms']} / {d['eager_ms']} ms")
+        none = dict(forward_cuda=0, backward_cuda=0, forward_plain=0, backward_plain=0)
+        want = {"smc": dict(none, forward_cuda=hmm * n, forward_cuda_residuals=hmm * n,
+                            backward_cuda=hmm * n),
+                "packed": none, "assembly": dict(none, forward_cuda=asm * n, backward_cuda=asm * n)}
+        check_counts(d["launches"], want, f"the ablation's row {name!r} ({n} iterations)")
+        print(f"ablation {name} ({power_line}): {d['graphed_ms']:.4f} ms graphed, "
+              f"{d['eager_ms']:.4f} ms eager; {n} iterations, {hmm} B2 + B3 and {asm} A1 + A2 "
+              f"an iteration")
+    print(f"ablation: {PROFILE_TOOL} ran {wall:.1f} s on {power_line}")
+    return sum_counts([d["launches"] for d in rows.values()]), errs
 
 
 def kernel_entry(name, source, replaces, launches, genome_launches, mesh_launches,
@@ -2334,8 +2485,9 @@ def kernel_entry(name, source, replaces, launches, genome_launches, mesh_launche
     `launches` counts phase 4 / 4b's fit of its path, `genome_launches`
     phase 7's fit from genome files, `mesh_launches` phase 8a's meshed fit,
     `bench_launches` phase 9's bench over its timed windows,
-    `later_launches` phase 3d's per-particle entries and phase 11's whole
-    genome: (3d, 11)."""
+    `later_launches` phase 3d's per-particle entries, phase 11's whole
+    genome, phase 12's validation fits and phase 13's ablation rows:
+    (3d, 11, 12, 13)."""
     ms_bound, by = t[key + "_bound"]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
@@ -2344,7 +2496,9 @@ def kernel_entry(name, source, replaces, launches, genome_launches, mesh_launche
                                  "mesh of one (phase 8a)": mesh_launches,
                                  "bench (phase 9)": bench_launches,
                                  "per-particle entries (phase 3d)": later_launches[0],
-                                 "whole genome (phase 11)": later_launches[1]},
+                                 "whole genome (phase 11)": later_launches[1],
+                                 "validation (phase 12)": later_launches[2],
+                                 "ablation (phase 13)": later_launches[3]},
             **errs, "gate": gate, "ms": t[key],
             "plain_ms": t[key + "_plain"], "bound_ms": ms_bound, "bound_by": by,
             "library_ms": None}
@@ -2514,6 +2668,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     wg = whole_genome_phase(kind, smi.stdout.strip())
 
+    # 12. posterior recovery against the truth, in its own processes
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
+        va = validation_phase(smi.stdout.strip(), tmp)
+
+    # 13. the step's ablation profile, in its own process
+    ab, errs64 = ablation_phase(torch, smc, dev, smi.stdout.strip())
+
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:
         fail("JAX or phlash_tpu was imported")
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s before its summary")
@@ -2524,7 +2686,11 @@ def main() -> int:
                "max_rel_err_alpha_pstates": errs["forward"]["state"]}
     smc_gate = "rel: ll 1e-5, alpha and pstates 1e-4; B1 equal to B2 bitwise"
     sc, pc, gc = counts["smc"], pcounts["packed"], gcounts["smc"]
-    p3, pp3, a3 = (pp3d["launches"][k] for k in ("smc", "packed", "assembly"))
+
+    def later(mod: str, key: str) -> tuple:
+        "A kernel's launches in phases 3d, 11, 12 and 13."
+        return tuple(c[mod][key] for c in (pp3d["launches"], wg, va, ab))
+
     msc, mpc = mcounts["smc"]["smc"], mcounts["packed"]["packed"]
     asm = {b: (c["assembly"], mcounts[b]["assembly"]) for b, c in (("smc", counts),
                                                                    ("packed", pcounts))}
@@ -2552,20 +2718,20 @@ def main() -> int:
                      gc["forward_cuda"] - gc["forward_cuda_residuals"],
                      msc["forward_cuda"] - msc["forward_cuda_residuals"],
                      blaunch.get("B1", 0), smc_fwd, smc_gate, t, "fwd",
-                     (p3["forward_cuda"] - p3["forward_cuda_residuals"],
-                      wg["smc"]["forward_cuda"] - wg["smc"]["forward_cuda_residuals"])),
+                     tuple(c["smc"]["forward_cuda"] - c["smc"]["forward_cuda_residuals"]
+                           for c in (pp3d["launches"], wg, va, ab))),
         kernel_entry("smc_forward_residuals", src + "smc_forward.cu",
                      "phlash_tpu/ops/pallas_smc.py:358", sc["forward_cuda_residuals"],
                      gc["forward_cuda_residuals"], msc["forward_cuda_residuals"],
                      blaunch.get("B2", 0), smc_fwd, smc_gate, t, "fwd_res",
-                     (p3["forward_cuda_residuals"], wg["smc"]["forward_cuda_residuals"])),
+                     later("smc", "forward_cuda_residuals")),
         kernel_entry("smc_backward", src + "smc_backward.cu", "phlash_tpu/ops/pallas_smc.py:511",
                      sc["backward_cuda"], gc["backward_cuda"], msc["backward_cuda"],
                      blaunch.get("B3", 0),
                      {"max_abs_err": errs["backward"]["abs"],
                       "max_normalized_err": errs["backward"]["grad"]},
                      "max|err| / max|plain| per gradient 2e-5", t, "bwd",
-                     (p3["backward_cuda"], wg["smc"]["backward_cuda"])),
+                     later("smc", "backward_cuda")),
         kernel_entry("packed_forward", src + "packed_forward.cu",
                      "phlash_tpu/ops/pallas_hmm.py:162", pc["forward_cuda"], 0,
                      mpc["forward_cuda"], blaunch.get("B4", 0),
@@ -2573,19 +2739,19 @@ def main() -> int:
                       "max_rel_err_ll": perrs["forward"]["ll"],
                       "max_rel_err_ckpt": perrs["forward"]["ckpt"]},
                      "rel: ll 1e-5, ckpt 1e-4", pt, "fwd",
-                     (pp3["forward_cuda"], wg["packed"]["forward_cuda"])),
+                     later("packed", "forward_cuda")),
         kernel_entry("packed_backward", src + "packed_backward.cu",
                      "phlash_tpu/ops/pallas_hmm_vjp.py:155", pc["backward_cuda"], 0,
                      mpc["backward_cuda"], blaunch.get("B5", 0),
                      {"max_abs_err": perrs["backward"]["abs"],
                       "max_normalized_err": perrs["backward"]["grad"]},
                      "max|err| / max|plain| per gradient 2e-5", pt, "bwd",
-                     (pp3["backward_cuda"], wg["packed"]["backward_cuda"])),
+                     later("packed", "backward_cuda")),
         {**kernel_entry("assembly_forward", src + "assembly.cu", replaces,
                         asm["smc"][0]["forward_cuda"], gcounts["assembly"]["forward_cuda"],
                         asm["smc"][1]["forward_cuda"], blaunch.get("A1", 0), asm_errs,
                         asm_gate, at, "a1",
-                        (a3["forward_cuda"], wg["assembly"]["forward_cuda"])),
+                        later("assembly", "forward_cuda")),
          "launches_packed_path": asm["packed"][0]["forward_cuda"],
          "launch_floor_ms": at["launch_floor"], "launch_floor_graph_ms": at["launch_floor_graph"],
          "ms_eager": at["a1_eager"], "ms_n_minus_1_15": at["a1_n16"],
@@ -2597,7 +2763,7 @@ def main() -> int:
                         asm["smc"][0]["backward_cuda"], gcounts["assembly"]["backward_cuda"],
                         asm["smc"][1]["backward_cuda"], blaunch.get("A2", 0), asm_grad_errs,
                         asm_gate, at, "a2",
-                        (a3["backward_cuda"], wg["assembly"]["backward_cuda"])),
+                        later("assembly", "backward_cuda")),
          "launches_packed_path": asm["packed"][0]["backward_cuda"],
          "launch_floor_ms": at["launch_floor"], "launch_floor_graph_ms": at["launch_floor_graph"],
          "ms_eager": at["a2_eager"], "ms_n_minus_1_15": at["a2_n16"],
@@ -2612,6 +2778,10 @@ def main() -> int:
     for e in entries:
         if e["name"] in one_particle:  # phase 3d: (B, S) = (1, 5) by graph replay
             e["ms_one_particle_s5"] = pp3d["ms"][e["name"].split("_")[0]][one_particle[e["name"]]]
+        if e["name"].startswith("smc_"):  # phase 13: the -sites row's L = 64
+            e["errors_L64"] = errs64
+            e["gate_L64"] = ("as the gate, but an instance's ll within max(1e-5 |ll|, 2x the "
+                             "plain float32 forward's error on it)")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

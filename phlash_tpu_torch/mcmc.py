@@ -40,10 +40,19 @@ device decides between the hand CUDA kernels and their plain versions.
 
 `seed` seeds two torch.Generators on the device: the step's (the initial
 cloud and every call's minibatch indices) with `seed` itself, and the
-held-out ELPD's (its chunk subsets) with a seed derived from `seed` and
-ELPD_STREAM.  So the ELPD cadence leaves the step stream alone, as
-phlash_tpu's fold_in does, and a checkpoint stores both generators' states.
-phlash_tpu's key raises NotImplementedError when set (use seed).
+held-out ELPD's with a seed derived from `seed` and ELPD_STREAM.  So the
+ELPD cadence leaves the step stream alone, as phlash_tpu's fold_in does,
+and a checkpoint stores both generators' states.  phlash_tpu's key raises
+NotImplementedError when set (use seed).
+
+Where the held-out chunks outnumber elpd_samples, every evaluation of a
+fit visits one subset of them, drawn once from the ELPD's generator before
+the first call (before a resume restores the generators, so a resumed fit
+visits the subset of the uninterrupted one).  phlash_tpu draws a fresh
+subset at each evaluation (phlash_tpu/mcmc.py:180-187, 246-250), and the
+sum over another subset can differ by ten times what the whole fit gains:
+the moving average, its best iteration and the early stop then follow the
+draws, and the fit returns the cloud of an early call (ROADMAP.md §C).
 
 mesh (parallel.make_mesh()): the multi-GPU fit, one process per device
 (`torchrun --nproc-per-node N script.py`; phlash_tpu runs one program over
@@ -161,8 +170,8 @@ def _models(prog: TrainingProgram, particles: torch.Tensor) -> list[DemographicM
 @dataclass
 class HeldOutELPD:
     """The held-out ELPD (phlash_tpu/mcmc.py:136-198): the held-out rows are
-    chunked like the training data, and each evaluation visits `S` of the
-    `N` chunks, drawn afresh by `draw` (all of them when S == N).
+    chunked like the training data, and an evaluation visits `S` of the `N`
+    chunks, drawn by `draw` (all of them when S == N; fit draws them once).
     `self(particles, inds)` is the mean held-out log density over the
     particles, a 0-d tensor, through the forward kernel alone; it runs
     inside a captured call, so it reads nothing back to the host.  With
@@ -319,6 +328,7 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
                              double_precision=options.get("double_precision", False),
                              seg_len=options.get("kernel_seg_len"))
         call = Caller(prog.base_step, elpd)
+        elpd_inds = elpd.draw(elpd_gen)  # one subset for every evaluation of the fit
 
     spc = prog.steps_per_call
     callback = options.get("callback")
@@ -373,7 +383,7 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
         k = min(spc, niter - i)  # the final call may be partial
         inds = torch.randint(prog.N, (k, prog.S), generator=gen, device=dev)
         want_elpd = elpd is not None and i >= next_elpd
-        state, e_dev = call(state, inds, elpd.draw(elpd_gen) if want_elpd else None)
+        state, e_dev = call(state, inds, elpd_inds if want_elpd else None)
         if i >= next_check or i + k >= niter:
             next_check = i + check_every
             _check_finite(state.particles, mesh, i)

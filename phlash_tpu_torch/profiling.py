@@ -35,6 +35,11 @@ class StepMeter:
         self._steps += n
 
     @property
+    def steps(self) -> int:
+        "SVGD iterations counted so far (what an early-stopped fit ran)."
+        return self._steps
+
+    @property
     def steps_per_sec(self) -> float:
         dt = time.perf_counter() - self._t0
         return self._steps / dt if dt > 0 else 0.0

@@ -150,7 +150,9 @@ Phases, each of which prints its own lines and aborts the run on failure:
    chunk_het_matrix's rows from their lengths, B2, B3, A1 and A2 launched
    exactly what 30 iterations, one capture and the timed replays imply and
    B1 what the ELPDs imply, packed launched nothing, and the cloud is finite.
-12. posterior recovery against the truth: `python tools/torch_validate.py
+12. posterior recovery against the truth: B1-B3 against their plain
+   versions at the validation fit's chunk length (L = 100,000, B = 500,
+   S = 5; phase 3's tolerances), then `python tools/torch_validate.py
    --n-samples n` at full size (constant, bottleneck and zigzag; three
    contigs of 500,000 windows from the continuous SMC' simulator, one held
    out; 500 particles, up to 300 iterations with ELPD early stopping,
@@ -2367,19 +2369,40 @@ def whole_genome_phase(card_name: str, power_line: str) -> dict:
 VALIDATE_TOOL = "tools/torch_validate.py"
 VALIDATE_SAMPLES = (1, 2)
 VALIDATE_SECONDS = 360
+# (B, S, L) of B1-B3 against their plain versions before the validation: the
+# validation fit's likelihood and held-out ELPD run on chunk bodies of 0.2 L
+# = 100,000 windows (fit's default chunk; its warm-up filter, L = 500, is
+# phase 3's) at B = 500 and S = 5.  The plain float64 versions dispatch every
+# site from the host (~2.5 min a shape on an H100's host), so a ragged block
+# is left to phase 3's L = 2501.
+VALIDATE_GATE_SHAPES = ((500, 5, 100_000),)
 
 
-def validation_phase(power_line: str, tmp: str) -> dict:
-    """Phase 12: `python tools/torch_validate.py --n-samples n` at full size
-    (L = 500,000, niter 300, 500 particles, the continuous simulator) in its
-    own process for each n of VALIDATE_SAMPLES (a deadline; plots under
-    `tmp`), its lines echoed.  Fails unless it exits 0 (worst tv < 0.25) on
-    phase 1's card; every tv and coverage is finite; and each fit launched
-    exactly what the iterations it ran imply (expected_counts: one capture,
-    an ELPD every call) on the smc kernels and A1 / A2, nothing packed and
-    nothing plain.  Coverage and each posterior's tv against the other
-    demographies' truths are printed, not gated.  Returns each module's
-    launches over every fit."""
+def validation_phase(torch, smc, dev, power_line: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 12: B1-B3 at VALIDATE_GATE_SHAPES, M = 16, against their plain
+    versions (gate_smc at phase 3's tolerances); then `python
+    tools/torch_validate.py --n-samples n` at full size (L = 500,000, niter
+    300, 500 particles, the continuous simulator) in its own process for
+    each n of VALIDATE_SAMPLES (a deadline; plots under `tmp`), its lines
+    echoed.  Fails unless it exits 0 (worst tv < 0.25) on phase 1's card;
+    every tv and coverage is finite; and each fit launched exactly what the
+    iterations it ran imply (expected_counts: one capture, an ELPD every
+    call) on the smc kernels and A1 / A2, nothing packed and nothing plain.
+    Coverage and each posterior's tv against the other demographies' truths
+    are printed, not gated.  Returns each module's launches over every fit,
+    and the long rows' gate errors."""
+    errs = {"forward": {"abs": 0.0, "ll": 0.0, "state": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    t0 = time.perf_counter()
+    for B, S, L in VALIDATE_GATE_SHAPES:
+        params, pi, obs = random_instances(torch, 16, B, S, L, dev, gen)
+        gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
+        abar0 = torch.randn(B, S, 16, generator=gen, device=dev, dtype=torch.float64)
+        gate_smc(torch, smc, params, pi, obs, gbar, abar0, f"M=16 B={B} S={S} L={L}", errs)
+        del params, pi, obs
+        torch.cuda.empty_cache()
+    print(f"validation: B1-B3 at the fit's chunk length checked in "
+          f"{time.perf_counter() - t0:.1f} s on {power_line}")
     runs = []
     for n in VALIDATE_SAMPLES:
         t0 = time.perf_counter()
@@ -2416,7 +2439,7 @@ def validation_phase(power_line: str, tmp: str) -> dict:
                   + ", ".join(f"{k} {v:.4f}" for k, v in r["tv_other_truths"].items()))
         print(f"validation n={n}: worst tv {out['worst_tv']:.4f} < {out['tv_gate']}; "
               f"{VALIDATE_TOOL} ran {wall:.1f} s on {power_line}")
-    return sum_counts(runs)
+    return sum_counts(runs), errs
 
 
 # phase 13: the step's ablation profile, tools/torch_step_profile.py at its
@@ -2671,7 +2694,7 @@ def main() -> int:
     # 12. posterior recovery against the truth, in its own processes
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
-        va = validation_phase(smi.stdout.strip(), tmp)
+        va, errs_long = validation_phase(torch, smc, dev, smi.stdout.strip(), tmp)
 
     # 13. the step's ablation profile, in its own process
     ab, errs64 = ablation_phase(torch, smc, dev, smi.stdout.strip())
@@ -2778,7 +2801,8 @@ def main() -> int:
     for e in entries:
         if e["name"] in one_particle:  # phase 3d: (B, S) = (1, 5) by graph replay
             e["ms_one_particle_s5"] = pp3d["ms"][e["name"].split("_")[0]][one_particle[e["name"]]]
-        if e["name"].startswith("smc_"):  # phase 13: the -sites row's L = 64
+        if e["name"].startswith("smc_"):  # phases 12 and 13: the validation's and -sites' L
+            e["errors_L100000"] = errs_long
             e["errors_L64"] = errs64
             e["gate_L64"] = ("as the gate, but an instance's ll within max(1e-5 |ll|, 2x the "
                              "plain float32 forward's error on it)")

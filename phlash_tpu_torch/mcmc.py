@@ -41,18 +41,19 @@ device decides between the hand CUDA kernels and their plain versions.
 `seed` seeds two torch.Generators on the device: the step's (the initial
 cloud and every call's minibatch indices) with `seed` itself, and the
 held-out ELPD's with a seed derived from `seed` and ELPD_STREAM.  So the
-ELPD cadence leaves the step stream alone, as phlash_tpu's fold_in does,
-and a checkpoint stores both generators' states.  phlash_tpu's key raises
-NotImplementedError when set (use seed).
+ELPD leaves the step stream alone, as phlash_tpu's fold_in does.
+phlash_tpu's key raises NotImplementedError when set (use seed).
 
 Where the held-out chunks outnumber elpd_samples, every evaluation of a
-fit visits one subset of them, drawn once from the ELPD's generator before
-the first call (before a resume restores the generators, so a resumed fit
-visits the subset of the uninterrupted one).  phlash_tpu draws a fresh
-subset at each evaluation (phlash_tpu/mcmc.py:180-187, 246-250), and the
-sum over another subset can differ by ten times what the whole fit gains:
-the moving average, its best iteration and the early stop then follow the
-draws, and the fit returns the cloud of an early call (ROADMAP.md §C).
+fit visits one subset of them, drawn from the ELPD's generator before the
+first call; the generator draws nothing after that, so a checkpoint stores
+the step generator's state alone and a resumed fit visits the subset of
+the uninterrupted one.  phlash_tpu draws a fresh subset at each evaluation
+(phlash_tpu/mcmc.py:180-187, 246-250), and the sum over another subset can
+differ by ten times what the whole fit gains: the moving average, its best
+iteration and the early stop then follow the draws, and the fit returns
+the cloud of an early call, in phlash_tpu as in the port with its draws
+(ROADMAP.md §C).
 
 mesh (parallel.make_mesh()): the multi-GPU fit, one process per device
 (`torchrun --nproc-per-node N script.py`; phlash_tpu runs one program over
@@ -352,8 +353,7 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
         if resumed is not None:
             place = (lambda s: s) if mesh is None else (lambda s: comms.place_state(mesh, s))
             state, start, ema = place(resumed.state), resumed.step, resumed.ema
-            for g, s in zip((gen, elpd_gen), resumed.rng_states):
-                g.set_state(s)
+            gen.set_state(resumed.rng_states[0])
             if resumed.best_state is not None:
                 best = (resumed.best_step, resumed.best_ema, place(resumed.best_state))
             if start % spc:
@@ -365,7 +365,7 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
         "The checkpoint of `step`, whole (a collective under a mesh), to rank 0's writer."
         ckpt = TrainCheckpoint(
             step=step, state=whole_state(state),
-            rng_states=(gen.get_state(), elpd_gen.get_state()), ema=ema,
+            rng_states=(gen.get_state(),), ema=ema,
             best_step=best[0] if best else step, best_ema=best[1] if best else None,
             best_state=whole_state(best[2]) if best else None,
         )

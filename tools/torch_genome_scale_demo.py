@@ -237,7 +237,7 @@ def main(argv=None) -> dict:
         # updates in place: each timed run starts from a copy of the fit's
         fitted = clone_state(state)
 
-        def best_of(call, elpd_draw=lambda: None) -> float:
+        def best_of(call, elpd_inds=None) -> float:
             "Seconds a call of spc iterations from the fitted state: best of REPS runs of INNER."
             best = float("inf")
             for _ in range(REPS):
@@ -245,7 +245,7 @@ def main(argv=None) -> dict:
                 t0 = time.perf_counter()
                 s = fitted
                 for _ in range(INNER):
-                    s, _ = call(s, draw(spc), elpd_draw())
+                    s, _ = call(s, draw(spc), elpd_inds)
                 sync()
                 best = min(best, (time.perf_counter() - t0) / INNER)
             return best
@@ -274,10 +274,11 @@ def main(argv=None) -> dict:
             elpd = held_out_elpd(prog, test, span=int(chunks.shape[-1]), overlap=args.overlap,
                                  elpd_samples=None, device=dev, kernel_backend="smc")
             fused = Caller(prog.base_step, elpd)
-            elpd_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+            # one subset for every evaluation, as fit draws it
+            elpd_inds = elpd.draw(torch.Generator(device=dev).manual_seed(args.seed + 1))
             reset_counts()
-            fused(fitted, draw(spc), elpd.draw(elpd_gen))  # on CUDA: warm-up and capture
-            t_fused = best_of(fused, lambda: elpd.draw(elpd_gen))
+            fused(fitted, draw(spc), elpd_inds)  # on CUDA: warm-up and capture
+            t_fused = best_of(fused, elpd_inds)
             calls_per_eval = max(1, -(-10 // spc))  # one ELPD every 10 iterations
             out["elpd"] = dict(test_chunks=elpd.N, samples=elpd.S, plain_call_ms=t_plain * 1e3,
                                elpd_call_ms=t_fused * 1e3,

@@ -181,8 +181,8 @@ def run(name: str, truth: DemographicModel, args, dev: torch.device, card: str) 
                  for d in post)
     iters = meter.meter.steps
     print(f"{name}: tv(median, truth) = {m['tv']:.3f}, 95%-band coverage = {m['coverage']:.2f}, "
-          f"{len(post)} samples, wall {wall:.0f}s; {iters} iterations run (of {args.niter}), "
-          f"fit wall {wall:.3f} s; {card}", flush=True)
+          f"{len(post)} samples, wall {wall:.0f}s; {iters} iterations run (of {args.niter}); "
+          f"{card}", flush=True)
     return dict(name=name, tv=m["tv"], coverage=m["coverage"],
                 tv_first_rate_back=m["tv_first_rate_back"], samples=len(post), finite=finite,
                 iterations=iters, niter=args.niter, wall_s=wall,

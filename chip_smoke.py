@@ -170,6 +170,17 @@ Phases, each of which prints its own lines and aborts the run on failure:
    assembly alone; graphed and eager ms); it fails unless every row is
    there, finite and positive, and launched exactly its variant's B2 + B3
    and A1 + A2 for the iterations it ran and nothing else.
+14. the walkthrough: B1-B3 against their plain versions at the shapes
+   of docs/torch_example.py's fit, read from the fit's own chunking of the
+   script's data (B = 32 particles, S = 1 training chunk of 5,000 + 100,
+   the ELPD's S = 4; phase 3's tolerances), then `python
+   docs/torch_example.py` at its full size in its own process (BCF ->
+   contig -> fit with mesh, checkpoint, steps_per_call = 5 and held-out
+   data -> plot -> confidence band), its lines echoed; it fails unless the
+   script exits 0 with DONE on phase 1's card, its checkpoint holds the
+   cloud, the band is ordered, and the fit launched exactly the smc
+   kernels and A1 / A2 that its iterations, calls of 5 and ELPDs imply and
+   nothing else.
 `--profile` also prints torch.profiler tables of eager and graphed steps
 of each path, with the device busy share.
 The last two lines are a JSON summary of the kernels (B1-B6, A1, A2) and
@@ -1131,17 +1142,25 @@ SPC = 10  # steps_per_call, the CUDA default: one graph replay per 10 iterations
 SLICE = dict(num_particles=500, minibatch_size=5, chunk_size=2000)
 
 
-def expected_counts(backend: str, niter: int = NITER, elpd: bool = True) -> dict:
-    """Launches of a fit (phases 4, 4b, 7, 8a with held-out data; phase 6
-    without), by ops module: niter (a multiple of SPC) iterations by graph
-    replay, an ELPD in each of the niter / SPC calls (its cadence, 10
-    iterations, is one call), and the eager warm-up iteration (and ELPD)
-    before the one capture.  An smc iteration runs the warm-up filter and
-    the likelihood, each B2 + B3; its ELPD two B1.  A packed iteration runs
-    B4 + B5, its ELPD one B4.  Every iteration runs A1 + A2 (the assembly and
-    its gradient), every ELPD one A1; the other backend's module launches
+def expected_counts(backend: str, niter: int = NITER, elpd: bool = True, spc: int = SPC) -> dict:
+    """Launches of a fit (phases 4, 4b, 7, 8a, 12 and 14 with held-out data;
+    phase 6 without), by ops module: niter iterations in calls of spc by
+    graph replay, on fit's schedule (a call starting at iteration i carries
+    the ELPD when no ELPD ran in the last ELPD_EVERY = 10 iterations), and
+    one eager warm-up iteration (and ELPD) before the capture of each kind
+    of call, (iterations, with ELPD).  At spc = 10 every call carries the
+    ELPD, so one capture.  An smc iteration runs the warm-up filter and the
+    likelihood, each B2 + B3; its ELPD two B1.  A packed iteration runs B4 +
+    B5, its ELPD one B4.  Every iteration runs A1 + A2 (the assembly and its
+    gradient), every ELPD one A1; the other backend's module launches
     nothing."""
-    steps, elpds = niter + 1, (niter // SPC + 1 if elpd else 0)
+    kinds, elpds, next_elpd = set(), 0, 0
+    for i in range(0, niter, spc):
+        with_elpd = elpd and i >= next_elpd
+        if with_elpd:
+            elpds, next_elpd = elpds + 1, i + 10
+        kinds.add((min(spc, niter - i), with_elpd))
+    steps, elpds = niter + len(kinds), elpds + sum(e for _, e in kinds)
     none = dict(forward_cuda=0, backward_cuda=0, forward_plain=0, backward_plain=0)
     out = {"smc": dict(none, forward_cuda_residuals=0), "packed": dict(none),
            "assembly": dict(none, forward_cuda=steps + elpds, backward_cuda=steps)}
@@ -2287,6 +2306,16 @@ def sum_counts(runs: list) -> dict:
     return {mod: {k: sum(c[mod][k] for c in runs) for k in runs[0][mod]} for mod in runs[0]}
 
 
+def load_script(rel: str):
+    "The repo's script at `rel` (a tool or walkthrough of the port, no JAX) as a module."
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(Path(rel).stem, ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 GENOME_TOOL = "tools/torch_genome_scale_demo.py"
 GENOME_SECONDS = 900
 
@@ -2302,11 +2331,7 @@ def whole_genome_phase(card_name: str, power_line: str) -> dict:
     their replays imply, and the hold-out timing what its calls imply (each
     ELPD two B1 and one A1); packed launched nothing in any stage; the cloud
     is finite.  Returns each module's launches over the three stages."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("genome_tool", ROOT / GENOME_TOOL)
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = load_script(GENOME_TOOL)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, GENOME_TOOL, "--holdout"], cwd=ROOT,
@@ -2502,6 +2527,131 @@ def ablation_phase(torch, smc, dev, power_line: str) -> tuple[dict, dict]:
     return sum_counts([d["launches"] for d in rows.values()]), errs
 
 
+# phase 14: the walkthrough, docs/torch_example.py at its own full size
+EXAMPLE = "docs/torch_example.py"
+EXAMPLE_SECONDS = 300
+
+
+def fit_call(main):
+    "The `....fit(...)` call in `main`'s source, as an ast.Call."
+    import ast
+    import inspect
+
+    return next(n for n in ast.walk(ast.parse(inspect.getsource(main)))
+                if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+                and n.func.attr == "fit")
+
+
+def fit_call_options(main) -> dict:
+    """The keywords of `main`'s fit call that are literals, or names of
+    main's parameters (read at their defaults): a walkthrough's fit options
+    as docs/example.py and docs/torch_example.py both write them."""
+    import ast
+    import inspect
+
+    defaults = {k: p.default for k, p in inspect.signature(main).parameters.items()}
+    out = {}
+    for kw in fit_call(main).keywords:
+        if isinstance(kw.value, ast.Constant):
+            out[kw.arg] = kw.value.value
+        elif isinstance(kw.value, ast.Name) and kw.value.id in defaults:
+            out[kw.arg] = defaults[kw.value.id]
+    return out
+
+
+def example_shapes(ex, tmp: str) -> dict:
+    """The walkthrough's kernel shapes at its full size, from the fit's own
+    chunking of its own data (its BCF written to `tmp`, the regions it
+    loads): (B, S, L) of the training step's likelihood (the chunk bodies)
+    and warm-up filter (the overlap), then of the held-out ELPD's (S =
+    min(held-out chunks, max(S, 4)), mcmc.held_out_elpd's default); B is the
+    cloud.  Returns them as `gate` with the counts they come from."""
+    import inspect
+
+    from phlash_tpu_torch.data import chunk_het_matrix, init_mcmc_data
+    from phlash_tpu_torch.training import resolve_minibatch_size
+
+    opts = fit_call_options(ex.main)
+    L_windows = inspect.signature(ex.main).parameters["L_windows"].default
+    path = os.path.join(tmp, "shapes.bcf")
+    _, span = ex.simulate_to_bcf(path, L_windows)
+    train, held_out = ex.load(path, span)
+    overlap, B = opts["overlap"], opts["num_particles"]
+    _, chunks = init_mcmc_data([train], ex.WINDOW, overlap, opts["chunk_size"], num_workers=1)
+    body = chunks.shape[1] - overlap
+    S = resolve_minibatch_size(opts, len(chunks), opts["niter"])
+    test = chunk_het_matrix(held_out.get_data(ex.WINDOW)["het_matrix"], overlap, body)
+    S_elpd = min(len(test), max(S, 4))
+    gate = tuple(dict.fromkeys((B, s, L) for s in (S, S_elpd) for L in (body, overlap)))
+    return dict(options=opts, L_windows=L_windows, chunks=len(chunks), held_out_chunks=len(test),
+                S=S, S_elpd=S_elpd, gate=gate)
+
+
+def example_phase(torch, smc, dev, power_line: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 14: B1-B3 at the walkthrough's shapes (example_shapes, M = 16)
+    against their plain versions (gate_smc at phase 3's tolerances); then
+    `python docs/torch_example.py <tmp>/example` at its full size in its own
+    process (a deadline), its lines echoed.  Fails unless it exits 0 with
+    DONE; its card line names phase 1's card; its checkpoint holds the cloud
+    of B particles after 0 < iterations <= niter; the band is ordered
+    (upper Ne >= lower - 1e-9 on its grid); and the fit launched exactly
+    what those iterations imply in calls of its steps_per_call, its ELPDs
+    and one capture of each kind of call (expected_counts), on the smc
+    kernels and A1 / A2, nothing packed and nothing plain.  Prints the
+    gate's and the script's seconds.  Returns the fit's launches by module
+    and the gate's errors."""
+    import numpy as np
+
+    errs = {"forward": {"abs": 0.0, "ll": 0.0, "state": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
+    t_phase = time.perf_counter()
+    ex = load_script(EXAMPLE)
+    sh = example_shapes(ex, tmp)
+    opts = sh["options"]
+    print(f"example: {sh['L_windows']} windows, {sh['chunks']} training chunks (S = {sh['S']}) "
+          f"and {sh['held_out_chunks']} held-out (S = {sh['S_elpd']} an ELPD) of "
+          f"{opts['chunk_size']} + {opts['overlap']}; gate shapes (B, S, L) {sh['gate']}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for B, S, L in sh["gate"]:
+        params, pi, obs = random_instances(torch, 16, B, S, L, dev, gen)
+        gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
+        abar0 = torch.randn(B, S, 16, generator=gen, device=dev, dtype=torch.float64)
+        gate_smc(torch, smc, params, pi, obs, gbar, abar0, f"M=16 B={B} S={S} L={L}", errs)
+    gate_s = time.perf_counter() - t_phase
+    out = Path(tmp) / "example"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, EXAMPLE, str(out)], cwd=ROOT,
+                          env=dict(os.environ, TMPDIR=tmp), capture_output=True, text=True,
+                          timeout=EXAMPLE_SECONDS)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        print(f"example: {line}")
+    if proc.returncode != 0 or not lines or not lines[-1].startswith("DONE"):
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"{EXAMPLE} exited with {proc.returncode}")
+    cards = [json.loads(x[len("card: "):]) for x in lines if x.startswith("card: ")]
+    if len(cards) != 1 or cards[0]["card"] != power_line:
+        fail(f"the walkthrough's card lines {cards} do not name phase 1's {power_line!r}")
+    card, ckpt = cards[0], out / "fit_ckpt.npz"
+    if not ckpt.is_file():
+        fail(f"the walkthrough wrote no checkpoint {ckpt}")
+    with np.load(ckpt) as z:
+        iters, P = int(z["__meta"][0]), z["particles"].shape[0]
+    if P != opts["num_particles"] or not 0 < iters <= opts["niter"]:
+        fail(f"the walkthrough's checkpoint holds {P} particles after {iters} iterations")
+    gap = card["band_min_gap"]
+    if not (math.isfinite(gap) and gap >= -1e-9):
+        fail(f"the walkthrough's band is not ordered: least upper - lower Ne(t) {gap}")
+    check_counts(card["launches"], expected_counts("smc", iters, spc=opts["steps_per_call"]),
+                 f"the walkthrough's fit ({iters} iterations)")
+    print(f"example ({power_line}): {iters} of {opts['niter']} iterations in calls of "
+          f"{opts['steps_per_call']}, {P} particles, band over {card['band_points']} points "
+          f"(least upper - lower Ne(t) {gap:.6g}); launches {card['launches']}; gate "
+          f"{gate_s:.1f} s + {EXAMPLE} {wall:.1f} s = phase 14 "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return card["launches"], errs
+
+
 def kernel_entry(name, source, replaces, launches, genome_launches, mesh_launches,
                  bench_launches, errs, gate, t, key, later_launches):
     """One kernel of the JSON summary line; `key` names its times in `t`.
@@ -2509,8 +2659,8 @@ def kernel_entry(name, source, replaces, launches, genome_launches, mesh_launche
     phase 7's fit from genome files, `mesh_launches` phase 8a's meshed fit,
     `bench_launches` phase 9's bench over its timed windows,
     `later_launches` phase 3d's per-particle entries, phase 11's whole
-    genome, phase 12's validation fits and phase 13's ablation rows:
-    (3d, 11, 12, 13)."""
+    genome, phase 12's validation fits, phase 13's ablation rows and phase
+    14's walkthrough: (3d, 11, 12, 13, 14)."""
     ms_bound, by = t[key + "_bound"]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
@@ -2521,7 +2671,8 @@ def kernel_entry(name, source, replaces, launches, genome_launches, mesh_launche
                                  "per-particle entries (phase 3d)": later_launches[0],
                                  "whole genome (phase 11)": later_launches[1],
                                  "validation (phase 12)": later_launches[2],
-                                 "ablation (phase 13)": later_launches[3]},
+                                 "ablation (phase 13)": later_launches[3],
+                                 "walkthrough (phase 14)": later_launches[4]},
             **errs, "gate": gate, "ms": t[key],
             "plain_ms": t[key + "_plain"], "bound_ms": ms_bound, "bound_by": by,
             "library_ms": None}
@@ -2699,6 +2850,10 @@ def main() -> int:
     # 13. the step's ablation profile, in its own process
     ab, errs64 = ablation_phase(torch, smc, dev, smi.stdout.strip())
 
+    # 14. the walkthrough, in its own process
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
+        wk, errs_example = example_phase(torch, smc, dev, smi.stdout.strip(), tmp)
+
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:
         fail("JAX or phlash_tpu was imported")
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s before its summary")
@@ -2711,8 +2866,8 @@ def main() -> int:
     sc, pc, gc = counts["smc"], pcounts["packed"], gcounts["smc"]
 
     def later(mod: str, key: str) -> tuple:
-        "A kernel's launches in phases 3d, 11, 12 and 13."
-        return tuple(c[mod][key] for c in (pp3d["launches"], wg, va, ab))
+        "A kernel's launches in phases 3d, 11, 12, 13 and 14."
+        return tuple(c[mod][key] for c in (pp3d["launches"], wg, va, ab, wk))
 
     msc, mpc = mcounts["smc"]["smc"], mcounts["packed"]["packed"]
     asm = {b: (c["assembly"], mcounts[b]["assembly"]) for b, c in (("smc", counts),
@@ -2742,7 +2897,7 @@ def main() -> int:
                      msc["forward_cuda"] - msc["forward_cuda_residuals"],
                      blaunch.get("B1", 0), smc_fwd, smc_gate, t, "fwd",
                      tuple(c["smc"]["forward_cuda"] - c["smc"]["forward_cuda_residuals"]
-                           for c in (pp3d["launches"], wg, va, ab))),
+                           for c in (pp3d["launches"], wg, va, ab, wk))),
         kernel_entry("smc_forward_residuals", src + "smc_forward.cu",
                      "phlash_tpu/ops/pallas_smc.py:358", sc["forward_cuda_residuals"],
                      gc["forward_cuda_residuals"], msc["forward_cuda_residuals"],
@@ -2801,9 +2956,10 @@ def main() -> int:
     for e in entries:
         if e["name"] in one_particle:  # phase 3d: (B, S) = (1, 5) by graph replay
             e["ms_one_particle_s5"] = pp3d["ms"][e["name"].split("_")[0]][one_particle[e["name"]]]
-        if e["name"].startswith("smc_"):  # phases 12 and 13: the validation's and -sites' L
+        if e["name"].startswith("smc_"):  # phases 12-14: the validation's, -sites', walkthrough's
             e["errors_L100000"] = errs_long
             e["errors_L64"] = errs64
+            e["errors_example"] = errs_example  # phase 14: the walkthrough's shapes
             e["gate_L64"] = ("as the gate, but an instance's ll within max(1e-5 |ll|, 2x the "
                              "plain float32 forward's error on it)")
     print(json.dumps({"kernels": entries}))

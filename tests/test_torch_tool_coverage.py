@@ -1,7 +1,10 @@
-"""Every tool of the repo has a counterpart in the port, or a stated reason
-why not: each tools/*.py that is not a torch_* tool has tools/torch_<name>.py
-(or a named rename), or stands in NOT_TO_PORT_TOOLS with a one-line reason
-that ROADMAP.md's "Not to port" repeats on the tool's row."""
+"""Every tool and walkthrough of the repo has a counterpart in the port, or a
+stated reason why not: each tools/*.py that is not a torch_* tool has
+tools/torch_<name>.py (or a named rename), or stands in NOT_TO_PORT_TOOLS
+with a one-line reason that ROADMAP.md's "Not to port" repeats on the
+tool's row; each docs/*.py that is not a torch_* script likewise has
+docs/torch_<name>.py or a reason in NOT_TO_PORT_DOCS, and a row in the same
+table."""
 
 from pathlib import Path
 
@@ -9,6 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 TOOLS = ROOT / "tools"
+DOCS = ROOT / "docs"
 
 # the port's names for tools whose counterpart is not tools/torch_<name>.py
 TOOL_RENAMES = {"vpu_peak": "torch_sm_peak", "genome_scale_demo": "torch_genome_scale_demo"}
@@ -43,13 +47,17 @@ NOT_TO_PORT_TOOLS = {
                   "per-device bytes of 10^5 chunks on 8 devices",
 }
 
+# docs/*.py scripts of the JAX side that have no docs/torch_<name>.py, with the reason
+NOT_TO_PORT_DOCS = {}
+
 JAX_TOOLS = sorted(p.stem for p in TOOLS.glob("*.py") if not p.stem.startswith("torch_"))
+JAX_DOCS = sorted(p.stem for p in DOCS.glob("*.py") if not p.stem.startswith("torch_"))
 
 
-def roadmap_row(name: str) -> str:
-    "ROADMAP.md's line that names tools/<name>.py in its tool table ('' if none)."
+def roadmap_row(name: str, folder: str = "tools") -> str:
+    "ROADMAP.md's line that names <folder>/<name>.py in its tool table ('' if none)."
     for line in (ROOT / "ROADMAP.md").read_text().splitlines():
-        if line.startswith("|") and f"`tools/{name}.py`" in line:
+        if line.startswith("|") and f"`{folder}/{name}.py`" in line:
             return line
     return ""
 
@@ -76,3 +84,24 @@ def test_tool_has_a_counterpart_or_a_reason(name):
     else:
         assert name in NOT_TO_PORT_TOOLS, f"tools/{name}.py has no counterpart and no reason"
         assert NOT_TO_PORT_TOOLS[name] in row, f"ROADMAP.md's row does not repeat the reason: {row}"
+
+
+def test_docs_lists_name_scripts_the_repo_has():
+    "NOT_TO_PORT_DOCS names docs/*.py scripts that exist; docs/example.py is among the scripts."
+    assert set(NOT_TO_PORT_DOCS) <= set(JAX_DOCS)
+    assert "example" in JAX_DOCS
+
+
+@pytest.mark.parametrize("name", JAX_DOCS)
+def test_doc_script_has_a_counterpart_or_a_reason(name):
+    """docs/<name>.py has docs/torch_<name>.py, or a reason in NOT_TO_PORT_DOCS
+    that ROADMAP.md's row for it repeats; a script with a counterpart has a
+    row that names it."""
+    row = roadmap_row(name, "docs")
+    assert row, f"ROADMAP.md has no tool-table row for docs/{name}.py"
+    if (DOCS / f"torch_{name}.py").is_file():
+        assert name not in NOT_TO_PORT_DOCS, f"{name} is ported and listed as not to port"
+        assert f"`docs/torch_{name}.py`" in row, row
+    else:
+        assert name in NOT_TO_PORT_DOCS, f"docs/{name}.py has no counterpart and no reason"
+        assert NOT_TO_PORT_DOCS[name] in row, f"ROADMAP.md's row does not repeat the reason: {row}"

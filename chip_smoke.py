@@ -51,8 +51,8 @@ Phases, each of which prints its own lines and aborts the run on failure:
    by the default CUDA graph replays of steps_per_call = 10 iterations with
    the held-out ELPD fused into each call; the launch counters (which count
    replays) must show exactly the expected launches of the SMC' CUDA
-   kernels and of A1 / A2 (expected_counts: every iteration one of each,
-   every ELPD one A1) and nothing else;
+   kernels, of A1 / A2 and of S1-S3 (expected_counts: every iteration one
+   of each, every ELPD one A1) and nothing else;
 4b. the same with kernel_backend="packed" and overlap 0: only the packed
    CUDA kernels and A1 / A2 run;
 4c. ms per SVGD iteration of both paths, eager (base_step) and graphed
@@ -181,10 +181,22 @@ Phases, each of which prints its own lines and aborts the run on failure:
    cloud, the band is ordered, and the fit launched exactly the smc
    kernels and A1 / A2 that its iterations, calls of 5 and ELPDs imply and
    nothing else.
+15. the SVGD update's kernels (S1 distances, S2 bandwidth, S3 direction and
+   amsgrad; ops/svgd.py): right after phase 3d, against their plain
+   versions on the card (check_svgd) at P = 500, 48, 37, 32, 8, 3 and 2,
+   D = 18 and 40, float32 and float64, random, tied, lattice and
+   degenerate clouds with inf and NaN gradient rows, all rows and a mesh
+   block, from a mid-fit amsgrad state: h bitwise the sort's, the state
+   within 1e-6 / 1e-12 of max|plain float64|, the count exact; every fit
+   above (phases 4-14) launches S1, S2 and S3 exactly once an iteration and
+   no plain SVGD call.  At the end, their times on the smc fit's cloud
+   against the plain pieces, torch.sort (S2's library call) and their
+   bounds, and the ablation rows full and svgd-only by graph replay with
+   the update through S1-S3 and through its plain version, in turns.
 `--profile` also prints torch.profiler tables of eager and graphed steps
 of each path, with the device busy share.
-The last two lines are a JSON summary of the kernels (B1-B6, A1, A2) and
-the result line.
+The last two lines are a JSON summary of the kernels (B1-B6, A1, A2,
+S1-S3) and the result line.
 It exits non-zero, printing no result, without a CUDA device or when the
 package is not beside it.
 """
@@ -830,15 +842,16 @@ def per_particle_phase(torch, dev) -> dict:
     the plain float32 version's error + 2e-5); model.log_density against
     log_density_batched's row under a gradient; exactly one forward and one
     adjoint launch for the vector index (one forward for loglik), and the
-    density's launches; the B = 1 launch geometry and times beside the
-    launch floor and roofline.py's bounds.  Returns each module's launches
-    in the phase and the times."""
+    density's launches, and no SVGD update's (ops/svgd.py); the B = 1 launch
+    geometry and times beside the launch floor and roofline.py's bounds.
+    Returns each module's launches in the phase and the times."""
     import numpy as np
 
     from phlash_tpu_torch import roofline
     from phlash_tpu_torch.kernel_base import one_particle
     from phlash_tpu_torch.model import log_density, log_density_batched
     from phlash_tpu_torch.ops import assembly, packed, smc
+    from phlash_tpu_torch.ops import svgd as ops_svgd
     from phlash_tpu_torch.ops.kernel_packed import PackedKernel
     from phlash_tpu_torch.ops.kernel_smc import SMCKernel
     from phlash_tpu_torch.params import PSMC_FIELDS, MCMCParams, PSMCParams
@@ -863,6 +876,7 @@ def per_particle_phase(torch, dev) -> dict:
     idx = torch.tensor(PP_INDS, device=dev)
     j = PP_INDS.index(PP_INDEX)
     out = {"launches": {"smc": {}, "packed": {}, "assembly": {}}, "ms": {}}
+    ops_svgd.reset_counts()  # the entries run no SVGD update: read at the end
 
     def leaves_of(pp):
         return [getattr(pp, k).detach().clone().requires_grad_(True) for k in PSMC_FIELDS]
@@ -998,6 +1012,8 @@ def per_particle_phase(torch, dev) -> dict:
         for b, k in kernels.items():
             t[b + "_bound"] = roofline.kernel_bound(k, M, 1, n, rows.shape[1], live)[0]
         out["ms"][name] = t
+    out["launches"]["svgd"] = ops_svgd.counts()
+    check_counts(out["launches"]["svgd"], svgd_counts(0), "the per-particle entries' SVGD update")
     one = torch.zeros(1, device=dev)
     out["ms"]["launch_floor"] = time_ms(torch, lambda: one.add_(1.0), 20)
     out["ms"]["launch_floor_graph"] = time_graph_ms(torch, lambda: one.add_(1.0))
@@ -1010,6 +1026,373 @@ def per_particle_phase(torch, dev) -> dict:
           f"{out['ms']['launch_floor_graph']:.4f} ms by graph replay; A1 / A2 at P = 1: one "
           f"warp in one block of {geo['warps_per_block']}")
     return out
+
+
+# Phase 15: the SVGD update's kernels (S1-S3, ops/svgd.py) against their plain
+# versions.  The clouds: the fit's P = 500 and the walkthrough's 32, phase 6's
+# 48, phase 4's tests' 8, an odd 37 and the two least (P (P - 1) / 2 odd at 3);
+# D = 18 (pattern 14*1+1*2) and 40 (more coordinates than a warp's lanes).
+SVGD_PS = (500, 48, 37, 32, 8, 3, 2)
+SVGD_DS = (18, 40)
+SVGD_KINDS = ("random", "ties", "lattice", "degenerate")
+SVGD_COUNT = 7  # the amsgrad count of the gated state: a mid-fit state
+SVGD_RTOL = {"float32": 1e-6, "float64": 1e-12}  # state, against max|plain float64|
+SVGD_REPEATS = 256  # S2's launches in a row on one triangle (check_svgd's determinism check)
+
+
+def svgd_case(torch, kind: str, P: int, D: int, gen, dev):
+    """(particles, gradients) float64 (P, D) of a gated case.  random: N(0, 1);
+    ties: every particle twice (zero distances, a median above 0); lattice:
+    coordinates on a grid of 1/2, so many distances are equal; degenerate:
+    P copies of one particle (every distance 0, so h is the 1e-12 floor).
+    The gradients are N(0, 1) with a row of +inf and (P >= 3) a row of NaN
+    and -inf, which the update zeroes."""
+    x = torch.randn(P, D, generator=gen, device=dev, dtype=torch.float64)
+    if kind == "ties":
+        x = x[torch.arange(P, device=dev) // 2]
+    elif kind == "lattice":
+        x = torch.round(2 * x) / 2
+    elif kind == "degenerate":
+        x = x[:1].expand(P, D).contiguous()
+    g = torch.randn(P, D, generator=gen, device=dev, dtype=torch.float64)
+    g[P - 1] = math.inf
+    if P >= 3:
+        g[0, ::2], g[0, 1::2] = math.nan, -math.inf
+    return x, g
+
+
+def svgd_state(torch, phi, gen, dtype, optimizer):
+    """A mid-fit amsgrad state of `phi`'s block at SVGD_COUNT steps, at the
+    scale s of the direction: mu ~ s N(0, 1) / 2, nu ~ s^2 U(1/2, 3/2),
+    nu_max = nu / (1 - b2^count) (1 + U(0, 1))."""
+    from phlash_tpu_torch.svgd import AMSGradState
+
+    s = float(phi.abs().max()) or 1.0
+    dev = phi.device
+    u = lambda: torch.rand(phi.shape, generator=gen, device=dev, dtype=torch.float64)  # noqa
+    mu = 0.5 * s * torch.randn(phi.shape, generator=gen, device=dev, dtype=torch.float64)
+    nu = s * s * (0.5 + u())
+    nu_max = nu / (1 - optimizer.b2 ** SVGD_COUNT) * (1 + u())
+    count = torch.full((), SVGD_COUNT, dtype=torch.int64, device=dev)
+    return AMSGradState(*(t.to(dtype).contiguous() for t in (mu, nu, nu_max)), count)
+
+
+def svgd_first_digit(torch, tri) -> list:
+    """[prefix, rank, count] of the exact selection after its first digit,
+    the top ops/svgd.RADIX bits of the triangle's float bit patterns: the
+    lower middle element's digit, its rank among the elements that share
+    that digit, and how many do (S1's `sel`)."""
+    from phlash_tpu_torch.ops.svgd import RADIX
+
+    itype, nbits = (torch.int32, 32) if tri.dtype == torch.float32 else (torch.int64, 64)
+    key = tri.contiguous().view(itype) >> (nbits - RADIX)
+    k_lo = (tri.numel() - 1) // 2
+    prefix = torch.sort(key).values[k_lo]
+    return [int(prefix), k_lo - int((key < prefix).sum()), int((key == prefix).sum())]
+
+
+def tri_matrix(torch, tri, P: int):
+    "The symmetric (P, P) matrix, zero diagonal, of a row-major strict lower triangle."
+    i, j = torch.tril_indices(P, P, -1, device=tri.device)
+    full = torch.zeros(P, P, dtype=tri.dtype, device=tri.device)
+    full[i, j] = tri
+    full[j, i] = tri
+    return full
+
+
+def svgd_repeats(torch, k, dev, gen, P: int, D: int) -> int:
+    """S2 SVGD_REPEATS times in a row on one triangle of a random (P, D)
+    cloud in each dtype, and on the card S1 + S2 SVGD_REPEATS / 4 times on
+    each of two side streams, launched in turns with neither waiting for the
+    other: fails unless every h, triangle and selection state is bitwise the
+    first's (each launch sums its histogram in a workspace of its own, and
+    the selection is exact).  Returns the launches compared."""
+    n = 0
+    for dtype in (torch.float32, torch.float64):
+        x, g = (t.to(dtype) for t in svgd_case(torch, "random", P, D, gen, dev))
+        tri, _, _, sel = k.distances_cuda(x, g)
+        h0 = k.bandwidth_cuda(tri, sel, P)
+        hs = [k.bandwidth_cuda(tri, sel, P) for _ in range(SVGD_REPEATS)]
+        outs = []
+        if dev.type == "cuda":
+            here = torch.cuda.current_stream(dev)
+            side = [torch.cuda.Stream(dev) for _ in range(2)]
+            for s in side:
+                s.wait_stream(here)
+            for _ in range(SVGD_REPEATS // 4):
+                for s in side:
+                    with torch.cuda.stream(s):
+                        t2, _, _, s2 = k.distances_cuda(x, g)
+                        outs.append((t2, s2, k.bandwidth_cuda(t2, s2, P)))
+            for s in side:
+                here.wait_stream(s)
+        bad = sum(not torch.equal(h, h0) for h in hs) + sum(
+            not (torch.equal(t2, tri) and torch.equal(s2, sel) and torch.equal(h, h0))
+            for t2, s2, h in outs)
+        if bad:
+            fail(f"svgd S1/S2 P={P} D={D} {dtype}: {bad} of {len(hs) + len(outs)} repeated "
+                 f"launches differ from the first bitwise")
+        n += len(hs) + 2 * len(outs)
+    return n
+
+
+def check_svgd(torch, dev, kernels=None, ps=SVGD_PS, ds=SVGD_DS) -> dict:
+    """Phase 15's gate: S1-S3 against their plain versions on the card at
+    every P of SVGD_PS, D of SVGD_DS and kind of SVGD_KINDS, all rows and a
+    mesh block, in float32 and float64, from a mid-fit amsgrad state:
+      S1's x^T and masked g^T bitwise x's transpose and the plain mask's,
+        its selection state the first digit's (svgd_first_digit), its
+        triangle within 2 (D + 2) units of roundoff u of the dtype of the
+        plain float64 squared distances of the same (rounded) inputs,
+        elementwise (a difference and a D-term sum rounded, in the kernel's
+        sum and, in float64, in the plain one);
+      S2's h bitwise median_bandwidth's (the sort) and offdiag_median_select's
+        on S1's triangle in the same dtype, on the card;
+      S3's particles, mu, nu and nu_max within SVGD_RTOL of max|plain| of the
+        plain float64 update of the same inputs; for the degenerate cloud the
+        plain float64 amsgrad of its exact direction, the mean masked
+        gradient (the plain version's K x - rowsum(K) x_r cancels there, and
+        2 / h = 2e12 scales its rounding); the count exact;
+      S1 and S2 deterministic: svgd_repeats at the first P and D.
+    Prints h against the plain version's own float32 / float64 h (from
+    torch's distances) beside it, and as a control the plain float32 update
+    (svgd.update_plain) on the same gate as S3's float32 state.  `kernels` (default ops/svgd.py), `ps` and
+    `ds` let a CPU test rehearse the gate with stand-ins at fewer sizes.
+    Returns the largest errors."""
+    from phlash_tpu_torch import svgd
+    from phlash_tpu_torch.ops import svgd as ops_svgd
+
+    k = kernels or ops_svgd
+    opt = svgd.AMSGrad(learning_rate=0.1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    errs = {"tri": 0.0, "state": {"float32": 0.0, "float64": 0.0}, "h_vs_plain_own": 0.0,
+            "abs": {"tri": 0.0, "h": 0.0, "state": 0.0},
+            "plain_f32": {"clouds": 0.0, "degenerate": 0.0}}
+    cases = h_same_plain = 0
+    t0 = time.perf_counter()
+    for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        u = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
+        for P in ps:
+            for D in ds:
+                for kind in SVGD_KINDS:
+                    x64, g64 = svgd_case(torch, kind, P, D, gen, dev)
+                    x, g = x64.to(dtype), g64.to(dtype)
+                    xr, gr = x.double(), g.double()  # the rounded inputs, in float64
+                    where = f"{kind} P={P} D={D} {dname}"
+                    tri, xt, gt, sel = k.distances_cuda(x, g)
+                    if not torch.equal(xt, x.t()):
+                        fail(f"svgd S1 {where}: x^T is not the particles transposed")
+                    if sel.tolist() != svgd_first_digit(torch, tri):
+                        fail(f"svgd S1 {where}: the selection's first digit {sel.tolist()} is "
+                             f"not {svgd_first_digit(torch, tri)}")
+                    h = k.bandwidth_cuda(tri, sel, P)
+                    masked = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+                    if not torch.equal(gt, masked.t()):
+                        fail(f"svgd S1 {where}: the masked g^T is not the plain mask's transpose")
+                    i, j = torch.tril_indices(P, P, -1, device=dev)
+                    want_tri = ((xr[i] - xr[j]) ** 2).sum(-1)
+                    err, bound = (tri.double() - want_tri).abs(), 2 * (D + 2) * u * want_tri
+                    if not bool((err <= bound).all()):
+                        fail(f"svgd S1 {where}: squared distances off the plain float64 ones "
+                             f"by more than 2 (D + 2) units of roundoff")
+                    errs["tri"] = max(errs["tri"], float((err / bound.clamp_min(1e-300)).max()))
+                    errs["abs"]["tri"] = max(errs["abs"]["tri"], float(err.max()))
+                    full = tri_matrix(torch, tri, P)
+                    h_sort = svgd.median_bandwidth(full, P)
+                    med = svgd.offdiag_median_select(torch.sqrt(full), P)
+                    h_sel = torch.clamp_min(med**2 / math.log(P), 1e-12)
+                    if not (torch.equal(h, h_sort) and torch.equal(h, h_sel)):
+                        fail(f"svgd S2 {where}: h {h.item()!r} is not the sort's {h_sort.item()!r} "
+                             f"/ the selection's {h_sel.item()!r} bitwise")
+                    if kind == "degenerate" and h.item() != torch.tensor(1e-12, dtype=dtype).item():
+                        fail(f"svgd S2 {where}: h {h.item()!r} is not the 1e-12 floor")
+                    h_own = svgd.median_bandwidth(((x[:, None] - x[None]) ** 2).sum(-1), P)
+                    h_same_plain += int(torch.equal(h, h_own))
+                    errs["h_vs_plain_own"] = max(errs["h_vs_plain_own"], max_rel(h, h_own))
+                    # all rows, and one mesh block (rows 125:250 of 500)
+                    for rows in (slice(None), slice(P // 4, P // 2)):
+                        if kind == "degenerate":
+                            gmr = torch.where(torch.isfinite(gr), gr, torch.zeros_like(gr))
+                            phi = (gmr.sum(0) / P).expand(P, D)[rows]
+                        else:
+                            phi = svgd.svgd_direction(
+                                xr, torch.where(torch.isfinite(gr), gr, torch.zeros_like(gr)),
+                                rows)
+                        state = svgd_state(torch, phi, gen, dtype, opt)
+                        state64 = svgd.AMSGradState(*(t.double() for t in
+                                                      (state.mu, state.nu, state.nu_max)),
+                                                    state.count)
+                        upd, o = opt.update(-phi, state64)
+                        want = (xr[rows] + upd, o.mu, o.nu, o.nu_max)
+                        got = k.update_cuda(x, xt, gt, h, rows, state.mu, state.nu,
+                                            state.nu_max, state.count, opt)
+                        if not torch.equal(got[4], o.count):
+                            fail(f"svgd S3 {where} rows {rows}: count {got[4]} != {o.count}")
+                        e = max(normalized(a, b) for a, b in zip(got[:4], want))
+                        errs["abs"]["state"] = max(errs["abs"]["state"], max(
+                            max_abs(a, b) for a, b in zip(got[:4], want)))
+                        errs["state"][dname] = max(errs["state"][dname], e)
+                        if not e <= SVGD_RTOL[dname]:
+                            fail(f"svgd S3 {where} rows {rows}: the state is off the plain "
+                                 f"float64 update by {e:.3e} of max|plain| > {SVGD_RTOL[dname]}")
+                        if dtype == torch.float32:  # the control, not gated
+                            ctrl = svgd.update_plain(x, g, rows, state, opt)
+                            e_ctrl = max(normalized(a, b) for a, b in zip(ctrl[:4], want))
+                            c_key = "degenerate" if kind == "degenerate" else "clouds"
+                            errs["plain_f32"][c_key] = max(errs["plain_f32"][c_key], e_ctrl)
+                        cases += 1
+    repeats = svgd_repeats(torch, k, dev, gen, ps[0], ds[0])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"svgd: S1-S3 against their plain versions in {cases} cases "
+          f"({time.perf_counter() - t0:.1f} s): h bitwise the sort's and the selection's on "
+          f"S1's triangle in every case; largest errors: triangle "
+          f"{errs['tri']:.3f} of its 2 (D + 2) u bound, state (normalized) float32 "
+          f"{errs['state']['float32']:.3e} (gate {SVGD_RTOL['float32']:g}), float64 "
+          f"{errs['state']['float64']:.3e} (gate {SVGD_RTOL['float64']:g}); the plain float32 "
+          f"update (control, not gated) on the float32 gate: {errs['plain_f32']['clouds']:.3e} "
+          f"(random, ties, lattice), {errs['plain_f32']['degenerate']:.3e} (degenerate); "
+          f"{repeats} repeated S1 / S2 launches bitwise the first (S2 {SVGD_REPEATS} in a row a "
+          f"dtype, S1 + S2 on two side streams at once); h bitwise the "
+          f"plain version's own (torch's distances) in {h_same_plain} of "
+          f"{len(ps) * len(ds) * len(SVGD_KINDS) * 2}, largest rel diff "
+          f"{errs['h_vs_plain_own']:.3e} (not gated)")
+    return dict(errs, cases=cases, repeats=repeats)
+
+
+@contextlib.contextmanager
+def svgd_plain_on_card():
+    """ops/svgd.step_cuda routed to the plain update (svgd.update_plain) on
+    the card's tensors, as plain_on_card routes the HMM kernels: inside,
+    SVGD.step runs the plain version on the card."""
+    from phlash_tpu_torch import svgd
+    from phlash_tpu_torch.ops import svgd as ops_svgd
+
+    saved = ops_svgd.step_cuda
+    ops_svgd.step_cuda = svgd.update_plain
+    try:
+        yield
+    finally:
+        ops_svgd.step_cuda = saved
+
+
+def time_caller(torch, base_step, state, gen, n_chunks: int, S: int, calls: int = 3,
+                k: int = 10) -> tuple[float, int]:
+    """(ms an iteration, iterations run) of `base_step` by graph replay
+    (training.Caller): the best of `calls` calls of k iterations (the CUDA
+    default steps_per_call) after the one that captures, as
+    tools/torch_step_profile.py times its rows."""
+    from phlash_tpu_torch.training import Caller
+
+    call = Caller(base_step)
+    inds = torch.randint(n_chunks, (calls + 1, k, S), generator=gen, device=state.particles.device)
+    s, _ = call(state, inds[0])  # an eager warm-up iteration, the capture, a replay
+    torch.cuda.synchronize()
+    best = math.inf
+    for rows in inds[1:]:
+        t0 = time.perf_counter()
+        s, _ = call(s, rows)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best / k * 1e3, 1 + (calls + 1) * k
+
+
+def svgd_timing(torch, dev, prog, power_line: str) -> dict:
+    """Phase 15's times: S1, S2, S3 and the three together (step_cuda) on
+    the smc fit's cloud `prog` (its particles and amsgrad state after the
+    timed steps, float32, P = 500, D = 18) and a N(0, 1) gradient, by graph
+    replay (time_graph_ms) and eager (CUDA events, 20 launches); the plain
+    version's pieces on the same card tensors (S1: the mask and the
+    distances; S2: median_bandwidth's sort; S3: K, the two products and
+    amsgrad; all: svgd.update_plain), the same two ways; torch.sort of the
+    P^2 - P off-diagonal distances, S2's library call; the launch floor;
+    roofline.svgd_bound; each kernel's geometry and ptxas registers.  Then
+    the step's ablation rows "full" (prog's base_step) and "svgd-only (stub
+    grad)" (tools/torch_step_profile.py's stub) by graph replay with the
+    update through S1-S3 and through its plain version
+    (svgd_plain_on_card), in turns (plain, kernels, kernels, plain), each
+    run holding its exact S1-S3 launches or plain calls."""
+    from phlash_tpu_torch import roofline, svgd
+    from phlash_tpu_torch.ops import build
+    from phlash_tpu_torch.ops import svgd as ops_svgd
+
+    x = prog.state.particles.contiguous()
+    o = prog.state.opt_state
+    P, D = x.shape
+    opt = svgd.AMSGrad(learning_rate=0.1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 151)
+    g = torch.randn(P, D, generator=gen, device=dev, dtype=x.dtype)
+    tri, xt, gt, sel = ops_svgd.distances_cuda(x, g)
+    h = ops_svgd.bandwidth_cuda(tri, sel, P)
+    gm = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+    sq = ((x[:, None] - x[None]) ** 2).sum(-1)
+    hp = svgd.median_bandwidth(sq, P)
+
+    def s3_plain():
+        K = torch.exp(-sq / hp)
+        phi = (K @ gm - (2.0 / hp) * (K @ x - K.sum(1, keepdim=True) * x)) / P
+        updates, o2 = opt.update(-phi, o)
+        return x + updates, o2
+
+    off = torch.sqrt(sq)[~torch.eye(P, dtype=torch.bool, device=dev)]
+    fns = {
+        "s1": (lambda: ops_svgd.distances_cuda(x, g),
+               lambda: (torch.where(torch.isfinite(g), g, torch.zeros_like(g)),
+                        ((x[:, None] - x[None]) ** 2).sum(-1))),
+        "s2": (lambda: ops_svgd.bandwidth_cuda(tri, sel, P),
+               lambda: svgd.median_bandwidth(sq, P)),
+        "s3": (lambda: ops_svgd.update_cuda(x, xt, gt, h, slice(None), o.mu, o.nu, o.nu_max,
+                                            o.count, opt), s3_plain),
+        "update": (lambda: ops_svgd.step_cuda(x, g, slice(None), o, opt),
+                   lambda: svgd.update_plain(x, g, slice(None), o, opt)),
+    }
+    t = {}
+    for key, (kernel, plain) in fns.items():
+        t[key], t[key + "_eager"] = time_graph_ms(torch, kernel), time_ms(torch, kernel, 20)
+        t[key + "_plain"] = time_graph_ms(torch, plain)
+        t[key + "_plain_eager"] = time_ms(torch, plain, 5)
+    t["s2_library"] = time_graph_ms(torch, lambda: torch.sort(off))
+    t["s2_library_eager"] = time_ms(torch, lambda: torch.sort(off), 20)
+    one = torch.zeros(1, device=dev)
+    t["launch_floor_graph"] = time_graph_ms(torch, lambda: one.add_(1.0))
+    for key, name in zip(("s1", "s2", "s3"), roofline.SVGD_KERNELS):
+        t[key + "_bound"] = roofline.svgd_bound(name, P, D, elem=x.element_size())
+    t["update_bound"] = (sum(t[k + "_bound"][0] for k in ("s1", "s2", "s3")), "sum")
+    t["shape"] = dict(P=P, D=D, dtype=str(x.dtype))
+    t["geometry"] = ops_svgd.kernel_geometry(P, D)
+    regs = ptxas_report(build.load_library().ptxas_log)
+    t["registers"] = {k: v for k, v in regs.items() if k.startswith("svgd_")}
+    print(f"svgd timing (P={P}, D={D}, {x.dtype}; {power_line}): ms a launch by graph replay / "
+          f"eager, kernel against plain:")
+    for key, what in (("s1", "S1 distances"), ("s2", "S2 bandwidth"), ("s3", "S3 update"),
+                      ("update", "S1-S3 together")):
+        bound = t[key + "_bound"]
+        print(f"  {what:16s} {t[key]:.4f} / {t[key + '_eager']:.4f} ms; plain {t[key + '_plain']:.4f}"
+              f" / {t[key + '_plain_eager']:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]})")
+    print(f"  torch.sort of the {off.numel()} off-diagonal distances (S2's library call): "
+          f"{t['s2_library']:.4f} / {t['s2_library_eager']:.4f} ms; launch floor by graph "
+          f"replay {t['launch_floor_graph']:.4f} ms; geometry {t['geometry']}; ptxas "
+          f"{t['registers']}")
+
+    # the ablation rows, the update through its kernels and its plain version, in turns
+    stub = svgd.SVGD(lambda flat, **kw: torch.ones_like(flat), svgd.AMSGrad(learning_rate=0.1))
+    rows = {"full": (prog.base_step, prog.state),
+            "svgd-only (stub grad)": (lambda state, inds: stub.step(state),
+                                      stub.init(prog.state.particles.clone()))}
+    turns = {(row, mode): [] for row in rows for mode in ("plain", "kernels")}
+    for mode in ("plain", "kernels", "kernels", "plain"):
+        with svgd_plain_on_card() if mode == "plain" else contextlib.nullcontext():
+            for row, (step, state) in rows.items():
+                ops_svgd.reset_counts()
+                ms, n = time_caller(torch, step, state, gen, prog.N, prog.S)
+                check_counts(ops_svgd.counts(), svgd_counts(n, plain=mode == "plain"),
+                             f"the {row} row with the update's {mode} version")
+                turns[(row, mode)].append(ms)
+    t["turns"] = {f"{row} ({mode})": v for (row, mode), v in turns.items()}
+    print(f"svgd turns (plain, kernels, kernels, plain; ms an iteration by graph replay, "
+          f"{power_line}): " + "; ".join(f"{k} {', '.join(f'{v:.4f}' for v in vs)}"
+                                         for k, vs in t["turns"].items()))
+    return t
 
 
 # (kernel_backend, overlap) of the phase-6 fits; the committed phlash_tpu.fit
@@ -1152,8 +1535,8 @@ def expected_counts(backend: str, niter: int = NITER, elpd: bool = True, spc: in
     ELPD, so one capture.  An smc iteration runs the warm-up filter and the
     likelihood, each B2 + B3; its ELPD two B1.  A packed iteration runs B4 +
     B5, its ELPD one B4.  Every iteration runs A1 + A2 (the assembly and its
-    gradient), every ELPD one A1; the other backend's module launches
-    nothing."""
+    gradient) and S1 + S2 + S3 (the SVGD update), every ELPD one A1; the
+    other backend's module launches nothing, and no plain version runs."""
     kinds, elpds, next_elpd = set(), 0, 0
     for i in range(0, niter, spc):
         with_elpd = elpd and i >= next_elpd
@@ -1163,13 +1546,23 @@ def expected_counts(backend: str, niter: int = NITER, elpd: bool = True, spc: in
     steps, elpds = niter + len(kinds), elpds + sum(e for _, e in kinds)
     none = dict(forward_cuda=0, backward_cuda=0, forward_plain=0, backward_plain=0)
     out = {"smc": dict(none, forward_cuda_residuals=0), "packed": dict(none),
-           "assembly": dict(none, forward_cuda=steps + elpds, backward_cuda=steps)}
+           "assembly": dict(none, forward_cuda=steps + elpds, backward_cuda=steps),
+           "svgd": svgd_counts(steps)}
     if backend == "smc":
         out["smc"].update(forward_cuda=2 * steps + 2 * elpds, forward_cuda_residuals=2 * steps,
                           backward_cuda=2 * steps)
     else:
         out["packed"].update(forward_cuda=steps + elpds, backward_cuda=steps)
     return out
+
+
+def svgd_counts(iters: int, plain: bool = False) -> dict:
+    """ops/svgd.py's counts of `iters` SVGD iterations: S1, S2 and S3 once
+    each an iteration, or with `plain` each plain version once instead."""
+    kernels = 0 if plain else iters
+    return dict(distances_cuda=kernels, bandwidth_cuda=kernels, update_cuda=kernels,
+                bandwidth_plain=iters - kernels, direction_plain=iters - kernels,
+                amsgrad_plain=iters - kernels)
 
 
 def check_counts(counts: dict, want: dict, what: str) -> None:
@@ -2121,9 +2514,10 @@ def trace_phase(torch, prog, dev, tmp: str) -> dict:
 # phase 9: the bench's deadline, and what each of its timed windows must launch
 BENCH_SECONDS = 600
 # (kernel -> launches per unit: an smc SVGD iteration runs B2 and B3 twice,
-# the filter and the likelihood, and A1 and A2 once)
-_SMC_SVGD = {"B2": 2, "B3": 2, "A1": 1, "A2": 1}
-_PACKED_SVGD = {"B4": 1, "B5": 1, "A1": 1, "A2": 1}
+# the filter and the likelihood, and A1, A2, S1, S2 and S3 once)
+_UPDATE = {"S1": 1, "S2": 1, "S3": 1}
+_SMC_SVGD = {"B2": 2, "B3": 2, "A1": 1, "A2": 1, **_UPDATE}
+_PACKED_SVGD = {"B4": 1, "B5": 1, "A1": 1, "A2": 1, **_UPDATE}
 BENCH_WINDOWS = {"fwd_only": {"B1": 1}, "fwd_grad": {"B2": 1, "B3": 1},
                  "m32_fwd_only": {"B1": 1}, "m32_fwd_grad": {"B2": 1, "B3": 1},
                  "m64_fwd_only": {"B1": 1}, "m64_fwd_grad": {"B2": 1, "B3": 1},
@@ -2368,7 +2762,8 @@ def whole_genome_phase(card_name: str, power_line: str) -> dict:
         return {"smc": dict(none, forward_cuda=2 * iters + 2 * elpds,
                             forward_cuda_residuals=2 * iters, backward_cuda=2 * iters),
                 "packed": none,
-                "assembly": dict(none, forward_cuda=iters + elpds, backward_cuda=iters)}
+                "assembly": dict(none, forward_cuda=iters + elpds, backward_cuda=iters),
+                "svgd": svgd_counts(iters)}
 
     check_counts(out["launches_timing"], stage(SPC * out["timed_calls"], 0),
                  "the whole-genome timing of plain calls")
@@ -2468,12 +2863,13 @@ def validation_phase(torch, smc, dev, power_line: str, tmp: str) -> tuple[dict, 
 
 
 # phase 13: the step's ablation profile, tools/torch_step_profile.py at its
-# defaults; each row's launches an iteration (B2 + B3 pairs, A1 + A2 pairs)
+# defaults; each row's launches an iteration (B2 + B3 pairs, A1 + A2 pairs,
+# S1 + S2 + S3 triples)
 PROFILE_TOOL = "tools/torch_step_profile.py"
 PROFILE_SECONDS = 300
-PROFILE_ROWS = {"full": (2, 1), "-afs": (2, 1), "-warmup": (1, 1),
-                "-sites (64-site chunks)": (2, 1), "svgd-only (stub grad)": (0, 0),
-                "kernel fwd+grad only": (1, 0), "assembly fwd+grad only": (0, 1)}
+PROFILE_ROWS = {"full": (2, 1, 1), "-afs": (2, 1, 1), "-warmup": (1, 1, 1),
+                "-sites (64-site chunks)": (2, 1, 1), "svgd-only (stub grad)": (0, 0, 1),
+                "kernel fwd+grad only": (1, 0, 0), "assembly fwd+grad only": (0, 1, 0)}
 
 
 def ablation_phase(torch, smc, dev, power_line: str) -> tuple[dict, dict]:
@@ -2483,9 +2879,9 @@ def ablation_phase(torch, smc, dev, power_line: str) -> tuple[dict, dict]:
     defaults in its own process (a deadline), its lines echoed.  Fails
     unless every row of PROFILE_ROWS is there with finite, positive graphed
     and eager ms, and each row launched exactly its B2 + B3 and A1 + A2
-    pairs an iteration for the iterations it ran and nothing else (no B1,
-    nothing packed, nothing plain): so -warmup no filter, svgd-only no hand
-    kernel.  Returns each module's launches over every row, and the L = 64
+    pairs and S1 + S2 + S3 triples an iteration for the iterations it ran
+    and nothing else (no B1, nothing packed, nothing plain): so -warmup no
+    filter, svgd-only the update's kernels alone.  Returns each module's launches over every row, and the L = 64
     gate's errors."""
     errs = {"forward": {"abs": 0.0, "ll": 0.0, "state": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
@@ -2510,7 +2906,7 @@ def ablation_phase(torch, smc, dev, power_line: str) -> tuple[dict, dict]:
     last = json.loads(lines[-1])
     if list(last) != list(PROFILE_ROWS) or list(rows) != list(PROFILE_ROWS):
         fail(f"the ablation's rows are {list(last)} / {list(rows)}, not {list(PROFILE_ROWS)}")
-    for name, (hmm, asm) in PROFILE_ROWS.items():
+    for name, (hmm, asm, upd) in PROFILE_ROWS.items():
         d, n = rows[name], rows[name]["iterations"]
         if not all(math.isfinite(d[k]) and d[k] > 0 for k in ("graphed_ms", "eager_ms")) \
                 or last[name] != d["graphed_ms"]:
@@ -2518,11 +2914,12 @@ def ablation_phase(torch, smc, dev, power_line: str) -> tuple[dict, dict]:
         none = dict(forward_cuda=0, backward_cuda=0, forward_plain=0, backward_plain=0)
         want = {"smc": dict(none, forward_cuda=hmm * n, forward_cuda_residuals=hmm * n,
                             backward_cuda=hmm * n),
-                "packed": none, "assembly": dict(none, forward_cuda=asm * n, backward_cuda=asm * n)}
+                "packed": none, "assembly": dict(none, forward_cuda=asm * n, backward_cuda=asm * n),
+                "svgd": svgd_counts(upd * n)}
         check_counts(d["launches"], want, f"the ablation's row {name!r} ({n} iterations)")
         print(f"ablation {name} ({power_line}): {d['graphed_ms']:.4f} ms graphed, "
-              f"{d['eager_ms']:.4f} ms eager; {n} iterations, {hmm} B2 + B3 and {asm} A1 + A2 "
-              f"an iteration")
+              f"{d['eager_ms']:.4f} ms eager; {n} iterations, {hmm} B2 + B3, {asm} A1 + A2 and "
+              f"{upd} S1 + S2 + S3 an iteration")
     print(f"ablation: {PROFILE_TOOL} ran {wall:.1f} s on {power_line}")
     return sum_counts([d["launches"] for d in rows.values()]), errs
 
@@ -2727,11 +3124,24 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
+class Laps:
+    "Each phase's seconds in main(), in order: lap(name) closes the phase `name`."
+
+    def __init__(self):
+        self.t, self.seconds = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.t, 1)
+        self.t = now
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true", help="profile 5 SVGD steps of each path")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    lap = Laps()
     if not (ROOT / "phlash_tpu_torch" / "csrc").is_dir():
         fail(f"phlash_tpu_torch/ not found beside {Path(__file__).name}; run from a checkout")
     sys.path.insert(0, str(ROOT))
@@ -2750,6 +3160,7 @@ def main() -> int:
 
     # 2. build
     from phlash_tpu_torch.ops import assembly, build, packed, smc
+    from phlash_tpu_torch.ops import svgd as svgd_ops
 
     lib = build.load_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.1f} s")
@@ -2765,17 +3176,24 @@ def main() -> int:
     if period != packed.DEFAULT_SEG:
         fail(f"the library's checkpoint period {period} is not ops/packed.DEFAULT_SEG "
              f"({packed.DEFAULT_SEG})")
+    lap("1-2 device, build")
 
     # 3. kernels against their plain versions
     errs = check_kernels(torch, smc, dev)
     perrs = check_packed_kernels(torch, packed, dev)
+    lap("3, 3b")
     # 3c. the assembly kernels
     aerrs = check_assembly(torch, dev)
+    lap("3c")
     # 3d. the per-particle entries
     pp3d = per_particle_phase(torch, dev)
+    lap("3d")
+    # 15, first part: the SVGD update's kernels (S1-S3) against their plain versions
+    serrs = check_svgd(torch, dev)
+    lap("15 gate")
 
     # 4. the slice, once per hand-kernel backend, by graph replays
-    ops = {"smc": smc, "packed": packed, "assembly": assembly}
+    ops = {"smc": smc, "packed": packed, "assembly": assembly, "svgd": svgd_ops}
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
         path = Path(tmp) / "smoke.psmcfa"
         write_psmcfa(path)
@@ -2801,10 +3219,12 @@ def main() -> int:
         fit_inputs.update(packed_late)
         late = {f"after the timed steps, {k}": v
                 for k, v in smc_fit_inputs(torch, *built["smc"][:2], dev).items()}
+    lap("4-4e")
 
     # 3 and 3b, continued: each pair on its fit's late inputs
     check_fit_inputs(torch, smc, dev, late, errs)
     check_packed_fit_inputs(torch, packed, dev, packed_late, perrs)
+    lap("3, 3b late inputs")
 
     # 5. kernel times at the fit shape
     t = kernel_timing(torch, smc, dev, {**smc_inputs, **late})
@@ -2812,13 +3232,16 @@ def main() -> int:
     at = assembly_timing(torch, dev, built["smc"][0])
     # 5c. the scan backend against the smc kernels
     check_scan(torch, dev)
+    lap("5, 5c")
 
     # 6. posterior reproduction against phlash_tpu.fit
     repro_phase(torch, ops)
+    lap("6")
 
     # 7. from genome files to a posterior
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
         gcounts = genome_phase(torch, ops, dev, tmp)
+    lap("7")
 
     # 8. the meshed fit, simulate_hmm and the profiler block
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
@@ -2830,33 +3253,47 @@ def main() -> int:
 
     if dist.is_initialized():
         dist.destroy_process_group()
+    lap("8")
 
     # 9. the port's bench, in its own process
     torch.cuda.empty_cache()
     blaunch = bench_phase(smi.stdout.splitlines()[0].split(",")[0].strip())
+    lap("9")
 
     # 10. the issue-rate micro-kernels (B6): the card check and the sweep
     pk = peak_phase(torch, dev, lib)
+    lap("10")
 
     # 11. the whole genome, in its own process
     torch.cuda.empty_cache()
     wg = whole_genome_phase(kind, smi.stdout.strip())
+    lap("11")
 
     # 12. posterior recovery against the truth, in its own processes
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
         va, errs_long = validation_phase(torch, smc, dev, smi.stdout.strip(), tmp)
+    lap("12")
 
     # 13. the step's ablation profile, in its own process
     ab, errs64 = ablation_phase(torch, smc, dev, smi.stdout.strip())
+    lap("13")
 
     # 14. the walkthrough, in its own process
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke-") as tmp:
         wk, errs_example = example_phase(torch, smc, dev, smi.stdout.strip(), tmp)
+    lap("14")
+
+    # 15, second part: the SVGD update's times, and the ablation rows in turns
+    st = svgd_timing(torch, dev, built["smc"][0], smi.stdout.strip())
+    lap("15 times")
 
     if "jax" in sys.modules or "phlash_tpu" in sys.modules:
         fail("JAX or phlash_tpu was imported")
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s before its summary")
+    print(f"phase seconds: {json.dumps(lap.seconds)}")
+    print(f"svgd_update_ms (S1-S3 by graph replay, P=500, float32): {st['update']:.4f}; plain "
+          f"{st['update_plain']:.4f}; svgd_kernel_check_cases {serrs['cases']}")
     print("svgd_step_ms_per_iter: " + " ".join(f"{b} {mode} {v:.3f}"
                                                 for (b, mode), v in step_ms.items()))
     src = "phlash_tpu_torch/csrc/"
@@ -2951,6 +3388,47 @@ def main() -> int:
                    "the prefix sums, each interval's local adjoint on width-3 dual numbers"},
         peak_entry(src, pk),
     ]
+    update_gate = ("S1: x^T and masked g^T bitwise, the first digit exact, the triangle within "
+                   "2 (D + 2) units of roundoff of plain float64; S2: h bitwise the sort's "
+                   "(median_bandwidth) and the selection's on the card in float32 and float64; S3: "
+                   "particles and moments within 1e-6 (float32) / 1e-12 (float64) of max|plain "
+                   "float64|, the count exact; P in 500, 48, 37, 32, 8, 3, 2, D in 18, 40, random, "
+                   "ties, lattice and degenerate clouds, inf and NaN gradient rows, rows all and "
+                   "a mesh block; S1 and S2 bitwise their first launch over repeats, also on two "
+                   "streams at once")
+    update_errs = {"max_abs_err": serrs["abs"]["state"],
+                   "max_normalized_err_f32": serrs["state"]["float32"],
+                   "max_normalized_err_f64": serrs["state"]["float64"],
+                   "plain_f32_control_normalized_err": serrs["plain_f32"]["clouds"],
+                   "plain_f32_control_normalized_err_degenerate": serrs["plain_f32"]["degenerate"]}
+    for name, key, counter, errs_k, design in (
+            ("svgd_distances", "s1", "distances_cuda",
+             {"max_abs_err": serrs["abs"]["tri"], "max_err_over_bound": serrs["tri"]},
+             "a thread a pair, the cloud in shared memory; the first digit of S2's selection "
+             "histogrammed over the blocks, the last block picks its bin"),
+            ("svgd_bandwidth", "s2", "bandwidth_cuda", {"max_abs_err": serrs["abs"]["h"],
+                                                         "repeats_bitwise": serrs["repeats"]},
+             "exact radix selection on the float bits (13-bit digits): the second digit over "
+             "64 blocks, which bucket their candidates; the last block picks the bin and selects "
+             "among the candidates in shared memory"),
+            ("svgd_update", "s3", "update_cuda", update_errs,
+             "a block a row, lanes on columns: K in registers, sums in double, lanes by "
+             "butterfly and warps in order; amsgrad in the cloud's dtype")):
+        e = kernel_entry(name, src + "svgd.cu", "phlash_tpu/svgd.py:32-76, 79-130",
+                         counts["svgd"][counter], gcounts["svgd"][counter],
+                         mcounts["smc"]["svgd"][counter],
+                         blaunch.get("S" + key[1], 0), errs_k, update_gate, st, key,
+                         later("svgd", counter))
+        e["launches_by_path"]["psmcfa packed (phase 4b)"] = pcounts["svgd"][counter]
+        e.update(ms_eager=st[key + "_eager"], plain_ms_eager=st[key + "_plain_eager"],
+                 library_ms=st["s2_library"] if key == "s2" else None, shape=st["shape"],
+                 registers={k: v for k, v in st["registers"].items() if k.startswith(name)},
+                 design=design)
+        entries.append(e)
+    entries[-1].update(update_ms=st["update"], update_plain_ms=st["update_plain"],
+                       update_ms_eager=st["update_eager"],
+                       update_plain_ms_eager=st["update_plain_eager"], geometry=st["geometry"],
+                       ablation_turns_ms=st["turns"])
     one_particle = {"smc_forward": "B1", "smc_forward_residuals": "B2", "smc_backward": "B3",
                     "packed_forward": "B4", "packed_backward": "B5"}
     for e in entries:

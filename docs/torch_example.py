@@ -23,7 +23,7 @@ Run:    python docs/torch_example.py [output_dir] [--device cpu]
 
 Before DONE it prints one `card:` line of JSON: the card's `nvidia-smi
 --query-gpu=name,power.limit` ("cpu" on the CPU), the fit's kernel launches
-by ops module (ops/smc.py, ops/packed.py, ops/assembly.py counts), and the
+by ops module (ops/smc.py, ops/packed.py, ops/assembly.py, ops/svgd.py counts), and the
 band's grid size and least upper - lower Ne(t).  The iterations the fit ran
 are the checkpoint's step.
 """
@@ -44,12 +44,12 @@ import phlash_tpu_torch  # noqa: E402
 from phlash_tpu_torch.cband import confidence_band  # noqa: E402
 from phlash_tpu_torch.io.bcf import write_bcf  # noqa: E402
 from phlash_tpu_torch.kernel import resolve_device  # noqa: E402
-from phlash_tpu_torch.ops import assembly, packed, smc  # noqa: E402
+from phlash_tpu_torch.ops import assembly, packed, smc, svgd  # noqa: E402
 from phlash_tpu_torch.parallel import make_mesh  # noqa: E402
 from phlash_tpu_torch.sim import bottleneck_demography, simulate_smc_continuous  # noqa: E402
 
 WINDOW = 100  # bp per het-matrix column
-COUNTED = {"smc": smc, "packed": packed, "assembly": assembly}  # the launch counters
+COUNTED = {"smc": smc, "packed": packed, "assembly": assembly, "svgd": svgd}  # launch counters
 
 
 def simulate_to_bcf(path: str, L_windows: int = 150_000, seed: int = 1):

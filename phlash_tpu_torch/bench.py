@@ -31,14 +31,16 @@ B = 500 particles x S = 5 chunks, L = 20,000 sites.  Parts, in order:
   drawn as mcmc.fit draws them.  The first call (warm-up and capture) is
   timed apart; then the best of 3 windows of 3 calls.  The same on
   `packed` at overlap 0.  Each iteration runs the assembly kernels once
-  (A1 forward, A2 its gradient; ops/assembly.py) beside the HMM kernels;
+  (A1 forward, A2 its gradient; ops/assembly.py) and the SVGD update's
+  (S1-S3: distances, bandwidth, direction and amsgrad; ops/svgd.py) beside
+  the HMM kernels;
 - the assembly alone on the `smc` program's 500 particles and AFS (9
   entries): A1 and A2 ms a launch, the best of `reps` windows of `inner`
   launches.
 
 Every timed window reads the launch counters (ops/smc.counts,
-ops/packed.counts, ops/assembly.counts; graph replays count through
-add_counts) and fails unless it launched exactly the kernels it is named
+ops/packed.counts, ops/assembly.counts, ops/svgd.counts; graph replays
+count through add_counts) and fails unless it launched exactly the kernels it is named
 for, once per call or iteration (the smc SVGD step twice each HMM kernel).
 On the card each number stands beside the card's name and power
 limit and its SM clock and power draw before and after the timed windows;
@@ -71,7 +73,7 @@ import torch
 from phlash_tpu_torch import roofline
 from phlash_tpu_torch.kernel import get_kernel, resolve_device
 from phlash_tpu_torch.mcmc import generators
-from phlash_tpu_torch.ops import assembly, packed, smc
+from phlash_tpu_torch.ops import assembly, packed, smc, svgd
 from phlash_tpu_torch.params import PSMC_FIELDS, PSMCParams
 from phlash_tpu_torch.size_history import DemographicModel
 from phlash_tpu_torch.training import build_training
@@ -98,6 +100,9 @@ LAUNCHES = {
 SVGD_PASSES = {"smc": 2, "packed": 1}  # fwd+grad passes an iteration (smc: filter and likelihood)
 # the assembly's forward and gradient, once an SVGD iteration, by device
 ASSEMBLY = {"cuda": ("A1", "A2"), "cpu": ("assembly_plain_forward", "assembly_plain_backward")}
+# the SVGD update (distances, bandwidth, direction and amsgrad), once an iteration, by device
+UPDATE = {"cuda": ("S1", "S2", "S3"),
+          "cpu": ("svgd_plain_bandwidth", "svgd_plain_direction", "svgd_plain_amsgrad")}
 
 
 def workload(M: int = 16, B: int = 500, S: int = 5, L: int = 20_000, device="cuda"):
@@ -140,16 +145,20 @@ def passes(kern, pps: PSMCParams, inds: torch.Tensor):
 
 def launches() -> dict:
     "The hand kernels' launch counters and their plain versions' calls, by name."
-    s, p, a = smc.counts(), packed.counts(), assembly.counts()
+    s, p, a, u = smc.counts(), packed.counts(), assembly.counts(), svgd.counts()
     return {"B1": s["forward_cuda"] - s["forward_cuda_residuals"],
             "B2": s["forward_cuda_residuals"], "B3": s["backward_cuda"],
             "B4": p["forward_cuda"], "B5": p["backward_cuda"],
             "A1": a["forward_cuda"], "A2": a["backward_cuda"],
+            "S1": u["distances_cuda"], "S2": u["bandwidth_cuda"], "S3": u["update_cuda"],
             "smc_plain_forward": s["forward_plain"], "smc_plain_backward": s["backward_plain"],
             "packed_plain_forward": p["forward_plain"],
             "packed_plain_backward": p["backward_plain"],
             "assembly_plain_forward": a["forward_plain"],
-            "assembly_plain_backward": a["backward_plain"]}
+            "assembly_plain_backward": a["backward_plain"],
+            "svgd_plain_bandwidth": u["bandwidth_plain"],
+            "svgd_plain_direction": u["direction_plain"],
+            "svgd_plain_amsgrad": u["amsgrad_plain"]}
 
 
 class Launches:
@@ -296,7 +305,8 @@ def svgd_step(backend: str, overlap: int, dev: torch.device, chunks: np.ndarray,
     warm = 1 if dev.type == "cuda" else 0  # the capture's eager warm-up iteration
     for window, iters in (("first_call", warm + k), ("", windows * calls * k)):
         counted.check("_".join(filter(None, (backend, "svgd", window))), names,
-                      SVGD_PASSES[backend] * iters, dict.fromkeys(ASSEMBLY[dev.type], iters))
+                      SVGD_PASSES[backend] * iters,
+                      dict.fromkeys(ASSEMBLY[dev.type] + UPDATE[dev.type], iters))
     out = dict(ms_per_iter=best * 1e3, iters_per_sec=1.0 / best, steps_per_call=k,
                capture_s=capture_s)
     if backend == "smc":

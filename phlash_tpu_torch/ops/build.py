@@ -96,6 +96,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_assembly_geometry.restype = I
     lib.phlash_peak.argtypes = [I] * 3 + [P] * 3 + [I] * 3 + [P] * 2
     lib.phlash_peak.restype = I
+    lib.phlash_svgd_distances.argtypes = [I] + [P] * 2 + [I] * 2 + [P] * 6
+    lib.phlash_svgd_distances.restype = I
+    lib.phlash_svgd_bandwidth.argtypes = [I, P, P, I, D] + [P] * 5
+    lib.phlash_svgd_bandwidth.restype = I
+    lib.phlash_svgd_update.argtypes = [I] + [P] * 4 + [I] * 4 + [P] * 4 + [D] * 4 + [P] * 6
+    lib.phlash_svgd_update.restype = I
+    lib.phlash_svgd_geometry.argtypes = [I, I, P]
+    lib.phlash_svgd_geometry.restype = I
     lib.phlash_cuda_error_string.argtypes = [I]
     lib.phlash_cuda_error_string.restype = ctypes.c_char_p
 

@@ -19,6 +19,10 @@ Kernels, by the names of the kernel table (ops/smc.py, ops/packed.py):
 and, by `assembly_bound` (ops/assembly.py, in float32 or float64):
     assembly_forward        A1: coordinates -> leaves, prior, AFS term
     assembly_backward       A2: their gradient
+and, by `svgd_bound` (ops/svgd.py, in float32 or float64):
+    svgd_distances          S1: the triangle of squared distances
+    svgd_bandwidth          S2: the median bandwidth, by exact selection
+    svgd_update             S3: the RBF direction and amsgrad
 The SMC' kernels are bound by neither count but by the instructions their
 chain issues: `issue_per_site` / `shuffles_per_site` count them, and
 `issue_share` reads a time against the data-sheet issue ceiling or the
@@ -250,4 +254,39 @@ def assembly_bound(name: str, P: int, M: int, D: int, nm1: int = 0, R: int = 0,
         nbytes = coords + consts + leaves + coords
     else:
         raise ValueError(f"unknown assembly kernel {name!r}")
+    return bound(flops, nbytes, PEAK_FP32 if elem == 4 else PEAK_FP64)
+
+
+# The SVGD update's kernels (ops/svgd.py), counted on the work itself:
+#   svgd_distances  S1: a pair's squared distance, D coordinates at 3
+#                   operations (-, *, +); reads x and g, writes the triangle,
+#                   x^T and the masked g^T
+#   svgd_bandwidth  S2: one comparison an element of the triangle (a selection
+#                   reads each element once at least); reads the triangle,
+#                   writes h
+#   svgd_update     S3: for B rows over P columns, the distance (3 D), K (an
+#                   exp and a division, 2) and the two sums (2 D and 3 D);
+#                   amsgrad ~15 an entry; reads x, x^T, g^T, h and the three
+#                   moments, writes the particles, the three moments and the count
+# in the cloud's dtype: float32 against PEAK_FP32, float64 against PEAK_FP64.
+SVGD_KERNELS = ("svgd_distances", "svgd_bandwidth", "svgd_update")
+AMSGRAD_FLOPS = 15
+
+
+def svgd_bound(name: str, P: int, D: int, B: int | None = None,
+               elem: int = 4) -> tuple[float, str]:
+    """(bound_ms, bound_by) of S1 ("svgd_distances"), S2 ("svgd_bandwidth")
+    or S3 ("svgd_update") on a cloud of P particles of D coordinates, S3
+    moving B rows (all P by default), in float32 (elem 4) or float64 (8)."""
+    B = P if B is None else B
+    m = P * (P - 1) // 2
+    if name == "svgd_distances":
+        flops, nbytes = 3 * D * m, elem * (2 * P * D + m + 2 * P * D)
+    elif name == "svgd_bandwidth":
+        flops, nbytes = m, elem * (m + 1)
+    elif name == "svgd_update":
+        flops = B * P * (8 * D + 2) + AMSGRAD_FLOPS * B * D
+        nbytes = elem * (3 * P * D + 1 + 3 * B * D + 4 * B * D) + 16
+    else:
+        raise ValueError(f"unknown SVGD kernel {name!r}")
     return bound(flops, nbytes, PEAK_FP32 if elem == 4 else PEAK_FP64)

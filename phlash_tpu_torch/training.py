@@ -43,6 +43,7 @@ from phlash_tpu_torch.afs import default_afs_transform
 from phlash_tpu_torch.kernel import check_backend, get_kernel
 from phlash_tpu_torch.model import log_density_batched, log_density_rows
 from phlash_tpu_torch.ops import assembly, packed, smc
+from phlash_tpu_torch.ops import svgd as svgd_ops
 from phlash_tpu_torch.parallel import mesh as comms
 from phlash_tpu_torch.params import MCMCParams
 from phlash_tpu_torch.svgd import SVGD, AMSGrad, SVGDState
@@ -51,7 +52,7 @@ from phlash_tpu_torch.utils import Pattern
 logger = logging.getLogger(__name__)
 
 # the modules whose launch (and collective) counters a graph replay adds to
-_COUNTED = (smc, packed, assembly, comms)
+_COUNTED = (smc, packed, assembly, svgd_ops, comms)
 
 
 def make_multi_step(step: Callable, k: int) -> Callable:
@@ -117,7 +118,8 @@ class Caller:
       and the capture draw no random numbers (the indices come in), so
       they move neither the trajectory nor any generator.
     - a capture that fails raises; nothing falls back to eager stepping.
-    - the kernel launch counters (ops/smc.py, ops/packed.py) count what
+    - the kernel launch counters (ops/smc.py, ops/packed.py, ops/assembly.py,
+      ops/svgd.py) count what
       ran on the card: the warm-up's launches stay counted, the capture's
       are taken back, and every replay adds what its capture launched.
     `setup_seconds[(k, with_elpd)]` holds the host time of each graph's

@@ -52,7 +52,8 @@ ADDED = {"device", "kernel", "device_name", "power_limit", "torch", "cuda", "gat
          "sm_issue_peak_fraction_fwd", "sm_issue_peak_fraction_fwd_grad",
          "sm_shuffle_peak_fraction_fwd", "sm_shuffle_peak_fraction_fwd_grad"}
 PLAIN = {"smc_plain_forward", "smc_plain_backward", "packed_plain_forward",
-         "packed_plain_backward", "assembly_plain_forward", "assembly_plain_backward"}
+         "packed_plain_backward", "assembly_plain_forward", "assembly_plain_backward",
+         "svgd_plain_bandwidth", "svgd_plain_direction", "svgd_plain_amsgrad"}
 
 
 def jax_workload(M, B, S, L):
@@ -144,7 +145,9 @@ def test_line_on_the_cpu(capsys):
     assert windows["baseline"] == {}
     assert windows["fwd_grad"] == {"smc_plain_forward": 2, "smc_plain_backward": 2}
     assert windows["packed_svgd"] == {"packed_plain_forward": 9, "packed_plain_backward": 9,
-                                      "assembly_plain_forward": 9, "assembly_plain_backward": 9}
+                                      "assembly_plain_forward": 9, "assembly_plain_backward": 9,
+                                      "svgd_plain_bandwidth": 9, "svgd_plain_direction": 9,
+                                      "svgd_plain_amsgrad": 9}
     assert windows["assembly_fwd"] == {"assembly_plain_forward": 31}
     assert windows["assembly_grad"] == {"assembly_plain_backward": 31}
     assert extra["assembly_particles"] == 4 and extra["assembly_fwd_ms"] > 0

@@ -122,6 +122,7 @@ def test_expected_counts_follow_the_fit_schedule(niter, elpd):
     assert five["smc"]["forward_cuda"] == 2 * steps + 2 * elpds
     assert five["assembly"] == dict(forward_cuda=steps + elpds, backward_cuda=steps,
                                     forward_plain=0, backward_plain=0)
+    assert five["svgd"] == chip_smoke.svgd_counts(steps)
     assert set(five["packed"].values()) == {0}
 
 
@@ -130,8 +131,8 @@ def _check_run(out: Path, proc, niter: int, particles: int) -> None:
     checkpoint of `particles` after `niter` iterations, the figure (matplotlib
     is here), an ordered band, and exactly the plain launches of niter eager
     iterations (each the filter and the likelihood, each forward and adjoint;
-    A1 + A2) and of the ELPD every 10 (two forwards and A1), nothing on CUDA
-    and nothing packed."""
+    A1 + A2; the update's plain versions) and of the ELPD every 10 (two
+    forwards and A1), nothing on CUDA and nothing packed."""
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == f"DONE: {out}"
@@ -148,7 +149,9 @@ def _check_run(out: Path, proc, niter: int, particles: int) -> None:
         "smc": dict(none, forward_cuda_residuals=0, forward_plain=2 * niter + 2 * elpds,
                     backward_plain=2 * niter),
         "packed": none,
-        "assembly": dict(none, forward_plain=niter + elpds, backward_plain=niter)}
+        "assembly": dict(none, forward_plain=niter + elpds, backward_plain=niter),
+        "svgd": dict(distances_cuda=0, bandwidth_cuda=0, update_cuda=0, bandwidth_plain=niter,
+                     direction_plain=niter, amsgrad_plain=niter)}
     assert f"posterior: {particles} DemographicModel samples" in proc.stdout
 
 

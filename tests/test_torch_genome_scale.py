@@ -66,9 +66,11 @@ def test_end_to_end_on_the_cpu(tmp_path):
     fit, timing = out["launches_fit"], out["launches_timing"]
     assert (fit["smc"]["forward_plain"], fit["smc"]["backward_plain"]) == (4, 4)
     assert (fit["assembly"]["forward_plain"], fit["assembly"]["backward_plain"]) == (2, 2)
+    assert (fit["svgd"]["direction_plain"], fit["svgd"]["amsgrad_plain"]) == (2, 2)
     n = out["timed_calls"]  # plain calls of one iteration each
     assert (timing["smc"]["forward_plain"], timing["smc"]["backward_plain"]) == (2 * n, 2 * n)
     assert (timing["assembly"]["forward_plain"], timing["assembly"]["backward_plain"]) == (n, n)
+    assert (timing["svgd"]["direction_plain"], timing["svgd"]["amsgrad_plain"]) == (n, n)
     e = out["elpd"]
     iters = elpds = e["elpd_calls"]
     held = out["launches_holdout"]
@@ -76,6 +78,7 @@ def test_end_to_end_on_the_cpu(tmp_path):
     assert held["smc"]["backward_plain"] == 2 * iters
     assert held["assembly"]["forward_plain"] == iters + elpds
     assert held["assembly"]["backward_plain"] == iters
+    assert held["svgd"]["amsgrad_plain"] == iters
     assert all(v == 0 for c in (fit, timing, held) for name, m in c.items()
                for k, v in m.items() if "cuda" in k or name == "packed")
     assert np.isfinite(out["ms_per_iter"]) and out["ms_per_iter"] > 0

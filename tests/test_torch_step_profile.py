@@ -34,9 +34,9 @@ def jax_rows() -> list[str]:
 
 
 # per iteration of each row, on the plain versions: (B2 + B3 pairs, A1 + A2 pairs)
-PER_ITERATION = {"full": (2, 1), "-afs": (2, 1), "-warmup": (1, 1),
-                 "-sites (64-site chunks)": (2, 1), "svgd-only (stub grad)": (0, 0),
-                 "kernel fwd+grad only": (1, 0), "assembly fwd+grad only": (0, 1)}
+PER_ITERATION = {"full": (2, 1, 1), "-afs": (2, 1, 1), "-warmup": (1, 1, 1),
+                 "-sites (64-site chunks)": (2, 1, 1), "svgd-only (stub grad)": (0, 0, 1),
+                 "kernel fwd+grad only": (1, 0, 0), "assembly fwd+grad only": (0, 1, 0)}
 
 
 @pytest.fixture(scope="module")
@@ -71,9 +71,12 @@ def test_row_launches_its_variant(profile, row):
     d = next(json.loads(x) for x in lines if x.startswith('{"row": ' + json.dumps(row)))
     assert all(math.isfinite(d[k]) and d[k] > 0 for k in ("graphed_ms", "eager_ms"))
     n = d["iterations"]
-    hmm, asm = PER_ITERATION[row]
+    hmm, asm, upd = PER_ITERATION[row]
     c = d["launches"]
     assert (c["smc"]["forward_plain"], c["smc"]["backward_plain"]) == (hmm * n, hmm * n)
     assert (c["assembly"]["forward_plain"], c["assembly"]["backward_plain"]) == (asm * n, asm * n)
+    assert c["svgd"] == dict(distances_cuda=0, bandwidth_cuda=0, update_cuda=0,
+                             bandwidth_plain=upd * n, direction_plain=upd * n,
+                             amsgrad_plain=upd * n)
     assert all(v == 0 for mod, m in c.items() for k, v in m.items()
                if "cuda" in k or mod == "packed")

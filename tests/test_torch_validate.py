@@ -144,6 +144,7 @@ def test_main_end_to_end_on_the_cpu(simulator, tmp_path, capsys):
         n = r["launches"]
         assert (n["smc"]["forward_plain"], n["smc"]["backward_plain"]) == (2 * 3 + 2, 2 * 3)
         assert (n["assembly"]["forward_plain"], n["assembly"]["backward_plain"]) == (3 + 1, 3)
+        assert (n["svgd"]["direction_plain"], n["svgd"]["amsgrad_plain"]) == (3, 3)
         assert all(v == 0 for mod, c in n.items() for k, v in c.items()
                    if "cuda" in k or mod == "packed")
         assert (tmp_path / f"validation_{r['name']}.png").stat().st_size > 0

@@ -24,8 +24,8 @@ RSS through both, read after ingestion, before torch is imported; upload,
 build and first call; ms an iteration; peak device memory; the posterior
 median of c[0]; the ELPD overhead), and as its last line one JSON object
 with those numbers, the kernel launch counts of the fit, of the timing of
-plain calls and of the hold-out timing (ops/smc, ops/packed and
-ops/assembly's counts, by stage), the calls each made, and the card's name
+plain calls and of the hold-out timing (ops/smc, ops/packed, ops/assembly
+and ops/svgd's counts, by stage), the calls each made, and the card's name
 and power limit.  "ms an iteration" is the best of REPS runs of INNER
 calls from the fitted state, after the fit; on CUDA, graph replays.  The
 spawn pool needs this file's `if __name__ == "__main__"` guard.
@@ -176,7 +176,7 @@ def main(argv=None) -> dict:
 
         from phlash_tpu_torch.bench import smi
         from phlash_tpu_torch.kernel import resolve_device
-        from phlash_tpu_torch.ops import assembly, packed, smc
+        from phlash_tpu_torch.ops import assembly, packed, smc, svgd
 
         dev = resolve_device(args.device)
         cuda = dev.type == "cuda"
@@ -190,7 +190,7 @@ def main(argv=None) -> dict:
             if cuda:
                 torch.cuda.synchronize(dev)
 
-        mods = {"smc": smc, "packed": packed, "assembly": assembly}
+        mods = {"smc": smc, "packed": packed, "assembly": assembly, "svgd": svgd}
 
         def counts() -> dict:
             return {name: mod.counts() for name, mod in mods.items()}

@@ -61,6 +61,7 @@ def build(chunks: np.ndarray, afs, overlap: int, opts: dict, dev: torch.device):
 def main(argv=None) -> dict:
     from phlash_tpu_torch.kernel import resolve_device
     from phlash_tpu_torch.ops import assembly, packed, smc
+    from phlash_tpu_torch.ops import svgd as svgd_ops
     from phlash_tpu_torch.params import PSMC_FIELDS, PSMCParams
     from phlash_tpu_torch.svgd import SVGD, AMSGrad
     from phlash_tpu_torch.training import Caller
@@ -87,7 +88,7 @@ def main(argv=None) -> dict:
     afs = rng.integers(100, 1000, size=9).astype(np.int64)
     opts = dict(num_particles=B, minibatch_size=5, niter=100)
     gen = torch.Generator(device=dev).manual_seed(1)
-    mods = {"smc": smc, "packed": packed, "assembly": assembly}
+    mods = {"smc": smc, "packed": packed, "assembly": assembly, "svgd": svgd_ops}
 
     def sync():
         if cuda:

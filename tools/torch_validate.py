@@ -151,9 +151,9 @@ def plot(path: str, name: str, m: dict) -> None:
 def run(name: str, truth: DemographicModel, args, dev: torch.device, card: str) -> dict:
     "Simulate, fit and evaluate one demography; print its line."
     from phlash_tpu_torch.mcmc import fit
-    from phlash_tpu_torch.ops import assembly, packed, smc
+    from phlash_tpu_torch.ops import assembly, packed, smc, svgd
 
-    mods = {"smc": smc, "packed": packed, "assembly": assembly}
+    mods = {"smc": smc, "packed": packed, "assembly": assembly, "svgd": svgd}
     t0 = time.perf_counter()
     contigs, test = datasets(truth, args.L, args.simulator, args.n_samples, dev)
     simulate_s = time.perf_counter() - t0

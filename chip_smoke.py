@@ -1402,7 +1402,8 @@ REPRO_PATHS = (("smc", 500), ("packed", 0))
 
 class Records(logging.Handler):
     """Collects a logger's records at `level` and up; at each 'fit finished'
-    record, the StepMeter's setup seconds and its rate at that moment."""
+    record, its FitTrace's graph set-up seconds and the loop's rate from the
+    loop's start (the end of phlash.start) to that record, set-up included."""
 
     def __init__(self, level=logging.DEBUG):
         super().__init__(level)
@@ -1410,9 +1411,11 @@ class Records(logging.Handler):
 
     def emit(self, record):
         self.records.append(record)
-        if hasattr(record, "step_meter"):
-            m = record.step_meter
-            self.meters.append(dict(setup_seconds=m.setup_seconds, steps_per_sec=m.steps_per_sec))
+        if hasattr(record, "fit_trace"):
+            m = record.fit_trace
+            loop_s = (time.perf_counter_ns() - m.named("phlash.start")[0].end) / 1e9
+            self.meters.append(dict(setup_seconds=m.setup_seconds,
+                                    steps_per_sec=m.iterations / loop_s))
 
 
 def ensemble_digest(models) -> str:

@@ -17,12 +17,14 @@ import gzip
 import logging
 import os
 import re
+import time
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
 from typing import Iterable, NamedTuple
 
 import numpy as np
 
+from phlash_tpu_torch import profiling
 from phlash_tpu_torch.mp import CpuProcessPoolExecutor
 
 logger = logging.getLogger(__name__)
@@ -92,11 +94,20 @@ class Contig(ABC):
         return RawContig(**self.get_data(window_size), window_size=window_size)
 
     def to_chunked(self, overlap: int, chunk_size: int, window_size: int = 100) -> ChunkedContig:
-        d = self.get_data(window_size)
-        ch = None
-        if d["het_matrix"] is not None:
-            ch = chunk_het_matrix(d["het_matrix"], overlap=overlap, chunk_size=chunk_size)
-        return ChunkedContig(chunks=ch, afs=d["afs"])
+        return read_stamped(self, overlap, chunk_size, window_size)[0]
+
+
+def read_stamped(ds: Contig, overlap: int, chunk_size: int,
+                 window_size: int = 100) -> tuple[ChunkedContig, tuple[int, int, int]]:
+    """(ds.to_chunked(...), perf_counter_ns stamps at the start, after
+    get_data and after chunking): what a pool worker returns."""
+    t0 = time.perf_counter_ns()
+    d = ds.get_data(window_size)
+    t1 = time.perf_counter_ns()
+    ch = None
+    if d["het_matrix"] is not None:
+        ch = chunk_het_matrix(d["het_matrix"], overlap=overlap, chunk_size=chunk_size)
+    return ChunkedContig(chunks=ch, afs=d["afs"]), (t0, t1, time.perf_counter_ns())
 
 
 @dataclass(frozen=True)
@@ -693,6 +704,7 @@ def subsample_chrom(chrom_path: str, populations: tuple[int, ...]):
     return contig(ts, samples=nodes)
 
 
+@profiling.spanned("phlash.start.ingest")
 def init_mcmc_data(
     data: list[Contig],
     window_size: int,
@@ -724,16 +736,24 @@ def init_mcmc_data(
     read = {}
     if num_workers != 1 and len(to_read) > 1:
         logger.debug("reading %d contigs in a pool of %s workers", len(to_read), num_workers)
+        t = time.perf_counter_ns()
         with CpuProcessPoolExecutor(num_workers) as pool:
-            futs = {i: pool.submit(data[i].to_chunked, **kw) for i in to_read}
+            futs = {i: pool.submit(read_stamped, data[i], **kw) for i in to_read}
             read = {i: f.result() for i, f in futs.items()}
-    results = [read[i] if i in read else ds.to_chunked(**kw) for i, ds in enumerate(data)]
-    afss = [d.afs for d in results if d.afs is not None]
-    chunk_blocks = [d.chunks for d in results if d.chunks is not None]
-    if len({a.shape for a in afss}) > 1:
-        raise ValueError("all AFS must have the same dimension")
-    if not chunk_blocks:
-        raise ValueError("none of the contigs has a het matrix")
-    # no contig carried an AFS (e.g. multi-sample continuous-SMC' draws):
-    # the likelihood simply drops its AFS term
-    return (np.sum(afss, 0) if afss else None), np.concatenate(chunk_blocks, 0)
+        profiling.add("phlash.ingest.pool_start", t, min(s[0] for _, s in read.values()))
+    results = []
+    for i, ds in enumerate(data):
+        res, (t0, t1, t2) = read[i] if i in read else read_stamped(ds, **kw)
+        profiling.add("phlash.ingest.read", t0, t2, contig=i, parse_s=(t1 - t0) / 1e9,
+                      chunk_s=(t2 - t1) / 1e9)
+        results.append(res)
+    with profiling.span("phlash.ingest.concat"):
+        afss = [d.afs for d in results if d.afs is not None]
+        chunk_blocks = [d.chunks for d in results if d.chunks is not None]
+        if len({a.shape for a in afss}) > 1:
+            raise ValueError("all AFS must have the same dimension")
+        if not chunk_blocks:
+            raise ValueError("none of the contigs has a het matrix")
+        # no contig carried an AFS (e.g. multi-sample continuous-SMC' draws):
+        # the likelihood simply drops its AFS term
+        return (np.sum(afss, 0) if afss else None), np.concatenate(chunk_blocks, 0)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from phlash_tpu_torch.kernel_base import LikelihoodKernel, resolve_device
+from phlash_tpu_torch.kernel_base import LikelihoodKernel, upload
 from phlash_tpu_torch.params import PSMC_FIELDS, PSMCParams
 from phlash_tpu_torch.size_history import DemographicModel
 
@@ -71,8 +71,7 @@ class ScanKernel(LikelihoodKernel):
         super().__init__()
         self.M = M
         self.double_precision = double_precision
-        self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8,
-                                                     device=resolve_device(device)))
+        self.register_buffer("data", upload(data, device))
 
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
         """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from phlash_tpu_torch import profiling
 from phlash_tpu_torch.ops import build
 from phlash_tpu_torch.params import PSMC_FIELDS, PSMCParams
 from phlash_tpu_torch.size_history import DemographicModel, SizeHistory
@@ -41,6 +42,15 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def upload(data, device) -> torch.Tensor:
+    """Chunk rows or warm-up prefixes (int8) on `device`: inside a fit, a
+    phlash.start.upload span that counts the copy's bytes (upload_bytes)."""
+    with profiling.span("phlash.start.upload"):
+        t = torch.as_tensor(data, dtype=torch.int8, device=resolve_device(device))
+        profiling.count("upload_bytes", t.nbytes)
+    return t
 
 
 def one_particle(pp: PSMCParams, n: int) -> PSMCParams:

@@ -5,12 +5,12 @@ calls of `steps_per_call` SVGD iterations (CUDA graph replays on CUDA, see
 training.Caller; the final call may be partial), the periodic finiteness
 check, the held-out ELPD fused into the call (an exponential moving average
 over evaluations every 10 iterations, with `elpd_cutoff` iterations of
-patience), checkpoint/resume with the asynchronous writer, the StepMeter
-summary, and the return of the best-ELPD particles (or the last ones with
-`return_final=True`).  With steps_per_call > 1 the periodic cadences
-(finiteness, ELPD, checkpoint) land on the first call at or after their
-scheduled iteration, and the best state pairs the call's first iteration
-with the particles after the call, as in phlash_tpu.
+patience), checkpoint/resume with the asynchronous writer, the fit's record
+of spans (profiling.FitTrace), and the return of the best-ELPD particles
+(or the last ones with `return_final=True`).  With steps_per_call > 1 the
+periodic cadences (finiteness, ELPD, checkpoint) land on the first call at
+or after their scheduled iteration, and the best state pairs the call's
+first iteration with the particles after the call, as in phlash_tpu.
 
 Options with the JAX defaults: niter, num_particles, window_size, overlap,
 chunk_size, minibatch_size, learning_rate, sigma, theta, mutation_rate,
@@ -81,13 +81,14 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from phlash_tpu_torch import profiling
 from phlash_tpu_torch.checkpoint import AsyncCheckpointWriter, TrainCheckpoint, load_checkpoint
 from phlash_tpu_torch.data import Contig, chunk_het_matrix, init_mcmc_data
 from phlash_tpu_torch.kernel import check_backend, get_kernel, resolve_device
+from phlash_tpu_torch.kernel_base import upload
 from phlash_tpu_torch.model import log_density_batched, log_density_rows
 from phlash_tpu_torch.parallel import mesh as comms
 from phlash_tpu_torch.params import MCMCParams
-from phlash_tpu_torch.profiling import StepMeter
 from phlash_tpu_torch.size_history import DemographicModel, SizeHistory
 from phlash_tpu_torch.training import (
     Caller,
@@ -125,8 +126,12 @@ def default_check_every() -> int:
 
 def _check_finite(particles: torch.Tensor, mesh, i: int) -> None:
     "Raise if a particle is not finite (a sync with the device; on a mesh, every rank's)."
-    finite = (bool(torch.isfinite(particles).all()) if mesh is None
-              else comms.all_finite(mesh, particles))
+    with profiling.call_span("phlash.call.finite_check"):
+        profiling.count("host_syncs")
+        if mesh is None:
+            finite = bool(torch.isfinite(particles).all())
+        else:
+            finite = comms.all_finite(mesh, particles)
     if not finite:
         raise RuntimeError(f"non-finite particles at iteration {i}")
 
@@ -218,6 +223,7 @@ class HeldOutELPD:
             return comms.reduce_elpd(mesh, total)
 
 
+@profiling.spanned("phlash.start.elpd_setup")
 def held_out_elpd(prog: TrainingProgram, test_data: Contig, *, span: int, overlap: int,
                   elpd_samples: int | None, device, kernel_backend: str, max_samples: int = 20,
                   double_precision: bool = False, seg_len=None) -> HeldOutELPD:
@@ -249,8 +255,7 @@ def held_out_elpd(prog: TrainingProgram, test_data: Contig, *, span: int, overla
                            afs=test_afs, afs_transform=T, N=N, S=S, chunks=sharded)
     return HeldOutELPD(
         init=prog.init, kern=make_kernel(test_chunks[:, overlap:]),
-        warmup=torch.as_tensor(np.ascontiguousarray(test_chunks[:, :overlap]),
-                               dtype=torch.int8, device=device),
+        warmup=upload(np.ascontiguousarray(test_chunks[:, :overlap]), device),
         afs=test_afs, afs_transform=T, N=N, S=S,
     )
 
@@ -264,6 +269,7 @@ def _progress(calls, enabled: bool):
     return tqdm.tqdm(calls, disable=not enabled, desc="fitting model")
 
 
+@profiling.records_fit
 def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: int = 1,
         kernel_backend: str = None, **options) -> list[DemographicModel]:
     """Sample demographic models from the posterior.
@@ -273,148 +279,171 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
     `test_data`, the particles of the call with the best held-out ELPD are
     returned unless `return_final=True`.  With `checkpoint_path`, the state
     is saved every `save_every` iterations and at the end, and a run
-    restarted with the same arguments resumes at the saved iteration.  The
-    "fit finished" log record carries the loop's StepMeter as `step_meter`
-    (its `setup_seconds`: the CUDA graphs' warm-up and capture).
+    restarted with the same arguments resumes at the saved iteration.
+
+    Each fit records its spans in a profiling.FitTrace, which
+    `profiling.last_fit()` returns and the "fit finished" log record carries
+    as `fit_trace` (its `iterations`, its `rate` between the first callback
+    and the last, and its `setup_seconds`: the CUDA graphs' warm-up and
+    capture).  The start's spans (phlash.start, phlash.start.ingest,
+    phlash.ingest.*, phlash.start.build, phlash.start.upload,
+    phlash.start.elpd_setup, phlash.capture) are always recorded; each
+    call's (phlash.call and phlash.call.draw, .launch, .finite_check,
+    .elpd_read, .checkpoint, .readback, .user_callback, with the counter
+    host_syncs) only while torch's profiler records, e.g. inside
+    `profiling.trace()`, whose Chrome trace then shows them beside the
+    device's work.  See profiling.py.
     """
-    _check_options(options)
-    kernel_backend = check_backend(kernel_backend, options.get("overlap", 500),
-                                   options.get("double_precision", False),
-                                   options.get("kernel_seg_len"))
-    dev = resolve_device(device)
-    mesh = options.get("mesh")
-    if mesh is not None:
-        if not isinstance(mesh, DeviceMesh):
-            raise TypeError(f"mesh must be a DeviceMesh of parallel.make_mesh, got {type(mesh)}")
-        if mesh.device_type != dev.type:
-            raise ValueError(f"a {mesh.device_type} mesh cannot fit on device {device!r}")
-        comms.particle_sharding(mesh, options.get("num_particles", 500))  # p must divide it
-    rank0 = mesh is None or dist.get_rank() == 0
+    rec = profiling.last_fit()
+    with profiling.span("phlash.start"):
+        _check_options(options)
+        kernel_backend = check_backend(kernel_backend, options.get("overlap", 500),
+                                       options.get("double_precision", False),
+                                       options.get("kernel_seg_len"))
+        dev = resolve_device(device)
+        mesh = options.get("mesh")
+        if mesh is not None:
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError("mesh must be a DeviceMesh of parallel.make_mesh, got "
+                                f"{type(mesh)}")
+            if mesh.device_type != dev.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot fit on device {device!r}")
+            comms.particle_sharding(mesh, options.get("num_particles", 500))  # p must divide it
+        rank0 = mesh is None or dist.get_rank() == 0
 
-    def whole(t: torch.Tensor) -> torch.Tensor:
-        "The whole cloud's rows of this rank's block `t`, on every rank."
-        return t if mesh is None else comms.gather_rows(mesh, t, "particles")
+        def whole(t: torch.Tensor) -> torch.Tensor:
+            "The whole cloud's rows of this rank's block `t`, on every rank."
+            return t if mesh is None else comms.gather_rows(mesh, t, "particles")
 
-    def whole_state(s):
-        return s if mesh is None else comms.gather_state(mesh, s)
+        def whole_state(s):
+            return s if mesh is None else comms.gather_state(mesh, s)
 
-    gen, elpd_gen = generators(seed, dev)
-    niter = options.get("niter", 1000)
-    window_size = options.get("window_size", 100)
-    overlap = options.get("overlap", 500)
+        gen, elpd_gen = generators(seed, dev)
+        niter = options.get("niter", 1000)
+        window_size = options.get("window_size", 100)
+        overlap = options.get("overlap", 500)
 
-    afs, chunks = init_mcmc_data(data, window_size, overlap, options.get("chunk_size"),
-                                 options.get("max_samples", 20), options.get("num_workers"))
-    del data
+        afs, chunks = init_mcmc_data(data, window_size, overlap, options.get("chunk_size"),
+                                     options.get("max_samples", 20), options.get("num_workers"))
+        del data
 
-    # cap the device-resident data at what the run can visit
-    S_opt = resolve_minibatch_size(options, len(chunks), niter)
-    if len(chunks) > 5 * S_opt * niter:
-        host_gen = torch.Generator().manual_seed(seed)
-        sel = torch.randperm(len(chunks), generator=host_gen)[: 5 * S_opt * niter].numpy()
-        logger.debug("downsampling chunks %d -> %d", len(chunks), len(sel))
-        chunks = chunks[sel]
-    options = dict(options, minibatch_size=S_opt)
+        # cap the device-resident data at what the run can visit
+        S_opt = resolve_minibatch_size(options, len(chunks), niter)
+        if len(chunks) > 5 * S_opt * niter:
+            host_gen = torch.Generator().manual_seed(seed)
+            sel = torch.randperm(len(chunks), generator=host_gen)[: 5 * S_opt * niter].numpy()
+            logger.debug("downsampling chunks %d -> %d", len(chunks), len(sel))
+            chunks = chunks[sel]
+        options = dict(options, minibatch_size=S_opt)
 
-    prog = build_training(chunks, afs, window_size=window_size, overlap=overlap,
-                          options=options, device=dev, generator=gen,
-                          kernel_backend=kernel_backend, mesh=mesh)
-    state = prog.state
-    call, elpd = prog.step, None
-    if test_data is not None:
-        elpd = held_out_elpd(prog, test_data, span=int(chunks.shape[-1]), overlap=overlap,
-                             elpd_samples=options.get("elpd_samples"), device=dev,
-                             kernel_backend=kernel_backend,
-                             max_samples=options.get("max_samples", 20),
-                             double_precision=options.get("double_precision", False),
-                             seg_len=options.get("kernel_seg_len"))
-        call = Caller(prog.base_step, elpd)
-        elpd_inds = elpd.draw(elpd_gen)  # one subset for every evaluation of the fit
+        prog = build_training(chunks, afs, window_size=window_size, overlap=overlap,
+                              options=options, device=dev, generator=gen,
+                              kernel_backend=kernel_backend, mesh=mesh)
+        state = prog.state
+        call, elpd = prog.step, None
+        if test_data is not None:
+            elpd = held_out_elpd(prog, test_data, span=int(chunks.shape[-1]), overlap=overlap,
+                                 elpd_samples=options.get("elpd_samples"), device=dev,
+                                 kernel_backend=kernel_backend,
+                                 max_samples=options.get("max_samples", 20),
+                                 double_precision=options.get("double_precision", False),
+                                 seg_len=options.get("kernel_seg_len"))
+            call = Caller(prog.base_step, elpd)
+            elpd_inds = elpd.draw(elpd_gen)  # one subset for every evaluation of the fit
 
-    spc = prog.steps_per_call
-    callback = options.get("callback")
-    if callback is None:
-        try:
-            from phlash_tpu_torch.liveplot import liveplot_cb
+        spc = prog.steps_per_call
+        callback = options.get("callback")
+        if callback is None:
+            try:
+                from phlash_tpu_torch.liveplot import liveplot_cb
 
-            callback = liveplot_cb(truth=options.get("truth"))
-        except Exception as e:  # no live-plot backend: read nothing back between calls
-            logger.debug("no live plot: %s", e)
-            callback = None
-    elpd_cutoff = options.get("elpd_cutoff", 100)
-    check_every = options.get("check_every", default_check_every())
-    ckpt_path = options.get("checkpoint_path")
-    save_every = options.get("save_every", SAVE_EVERY)
-    start, ema, best = 0, None, None  # best = (iteration, ema, state snapshot)
-    writer = None
-    if ckpt_path:
-        writer = AsyncCheckpointWriter() if rank0 else None
-        resumed = load_checkpoint(ckpt_path, whole_state(state))
-        if resumed is not None:
-            place = (lambda s: s) if mesh is None else (lambda s: comms.place_state(mesh, s))
-            state, start, ema = place(resumed.state), resumed.step, resumed.ema
-            gen.set_state(resumed.rng_states[0])
-            if resumed.best_state is not None:
-                best = (resumed.best_step, resumed.best_ema, place(resumed.best_state))
-            if start % spc:
-                logger.warning("resuming from iteration %d, which is not a multiple of "
-                               "steps_per_call=%d; call boundaries realign from there",
-                               start, spc)
+                callback = liveplot_cb(truth=options.get("truth"))
+            except Exception as e:  # no live-plot backend: read nothing back between calls
+                logger.debug("no live plot: %s", e)
+                callback = None
+        elpd_cutoff = options.get("elpd_cutoff", 100)
+        check_every = options.get("check_every", default_check_every())
+        ckpt_path = options.get("checkpoint_path")
+        save_every = options.get("save_every", SAVE_EVERY)
+        start, ema, best = 0, None, None  # best = (iteration, ema, state snapshot)
+        writer = None
+        if ckpt_path:
+            writer = AsyncCheckpointWriter() if rank0 else None
+            resumed = load_checkpoint(ckpt_path, whole_state(state))
+            if resumed is not None:
+                place = (lambda s: s) if mesh is None else (lambda s: comms.place_state(mesh, s))
+                state, start, ema = place(resumed.state), resumed.step, resumed.ema
+                gen.set_state(resumed.rng_states[0])
+                if resumed.best_state is not None:
+                    best = (resumed.best_step, resumed.best_ema, place(resumed.best_state))
+                if start % spc:
+                    logger.warning("resuming from iteration %d, which is not a multiple of "
+                                   "steps_per_call=%d; call boundaries realign from there",
+                                   start, spc)
 
-    def save(step: int) -> None:
-        "The checkpoint of `step`, whole (a collective under a mesh), to rank 0's writer."
-        ckpt = TrainCheckpoint(
-            step=step, state=whole_state(state),
-            rng_states=(gen.get_state(),), ema=ema,
-            best_step=best[0] if best else step, best_ema=best[1] if best else None,
-            best_state=whole_state(best[2]) if best else None,
-        )
-        if writer is not None:
-            writer.save(ckpt_path, ckpt)  # snapshots at hand-off
+        def save(step: int) -> None:
+            "The checkpoint of `step`, whole (a collective under a mesh), to rank 0's writer."
+            ckpt = TrainCheckpoint(
+                step=step, state=whole_state(state),
+                rng_states=(gen.get_state(),), ema=ema,
+                best_step=best[0] if best else step, best_ema=best[1] if best else None,
+                best_state=whole_state(best[2]) if best else None,
+            )
+            if writer is not None:
+                writer.save(ckpt_path, ckpt)  # snapshots at hand-off
 
-    meter = StepMeter(sites_per_step=float(prog.S) * prog.num_particles
-                      * int(prog.kern.data.shape[-1]))
-    pbar = _progress(range(start, niter, spc), options.get("progress", True) and rank0)
-    patience = 0
-    next_check = next_elpd = start
-    next_save = start + save_every
-    last, saved_at = start, None
+        pbar = _progress(range(start, niter, spc), options.get("progress", True) and rank0)
+        patience = 0
+        next_check = next_elpd = start
+        next_save = start + save_every
+        last, saved_at = start, None
     for i in pbar:
         k = min(spc, niter - i)  # the final call may be partial
-        inds = torch.randint(prog.N, (k, prog.S), generator=gen, device=dev)
-        want_elpd = elpd is not None and i >= next_elpd
-        state, e_dev = call(state, inds, elpd_inds if want_elpd else None)
-        if i >= next_check or i + k >= niter:
-            next_check = i + check_every
-            _check_finite(state.particles, mesh, i)
-        meter.tick(k)
-        last = i + k
-        stop = False
-        if want_elpd:
-            next_elpd = i + ELPD_EVERY
-            e = float(e_dev)
-            ema = e if ema is None else 0.9 * ema + 0.1 * e
-            if best is None or ema > best[1]:
-                patience = 0
-                best = (i, ema, clone_state(state))
-            else:
-                patience += 1
-            stop = i - best[0] > elpd_cutoff
-            if hasattr(pbar, "set_description"):
-                pbar.set_description(f"elpd={ema:.2f} patience={patience}")
-        # saved after the call's ELPD, so that the saved ema and best state
-        # go with the saved state (a resume then evaluates at its first call)
-        if ckpt_path and last >= next_save:
-            next_save = last + save_every
-            saved_at = last
-            save(last)
-        if stop:
-            logger.info("ELPD has not improved in %d iterations; stopping early", elpd_cutoff)
-            break
-        if callback is not None:
-            particles = whole(state.particles)
-            if rank0:
-                callback(cloud(prog, particles))
+        with profiling.loop_call(k):
+            with profiling.call_span("phlash.call.draw"):
+                inds = torch.randint(prog.N, (k, prog.S), generator=gen, device=dev)
+            want_elpd = elpd is not None and i >= next_elpd
+            state, e_dev = call(state, inds, elpd_inds if want_elpd else None)
+            if i >= next_check or i + k >= niter:
+                next_check = i + check_every
+                _check_finite(state.particles, mesh, i)
+            rec.iterations += k
+            last = i + k
+            stop = False
+            if want_elpd:
+                next_elpd = i + ELPD_EVERY
+                with profiling.call_span("phlash.call.elpd_read"):
+                    e = float(e_dev)
+                    profiling.count("host_syncs")
+                ema = e if ema is None else 0.9 * ema + 0.1 * e
+                if best is None or ema > best[1]:
+                    patience = 0
+                    best = (i, ema, clone_state(state))
+                else:
+                    patience += 1
+                stop = i - best[0] > elpd_cutoff
+                if hasattr(pbar, "set_description"):
+                    pbar.set_description(f"elpd={ema:.2f} patience={patience}")
+            # saved after the call's ELPD, so that the saved ema and best state
+            # go with the saved state (a resume then evaluates at its first call)
+            if ckpt_path and last >= next_save:
+                next_save = last + save_every
+                saved_at = last
+                with profiling.call_span("phlash.call.checkpoint"):
+                    save(last)
+            if stop:
+                logger.info("ELPD has not improved in %d iterations; stopping early", elpd_cutoff)
+                break
+            rec.at_callback()
+            if callback is not None:
+                with profiling.call_span("phlash.call.readback"):
+                    particles = whole(state.particles)
+                    if rank0:
+                        dm = cloud(prog, particles)
+                        profiling.count("host_syncs")
+                if rank0:
+                    with profiling.call_span("phlash.call.user_callback"):
+                        callback(dm)
     if ckpt_path:
         if last != saved_at and last > start:
             # leave the run's final state on disk, so that a rerun with the
@@ -427,8 +456,7 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
             # the checkpoint (in a next fit) before it is on disk; the
             # all-gather over p below joins only rank 0's p group
             comms.barrier(mesh, "saved")
-    meter.setup_seconds = sum((sum(s.values()) for s in call.setup_seconds.values()), 0.0)
-    logger.info("fit finished: %s", meter.summary(), extra={"step_meter": meter})
+    logger.info("fit finished: %s", rec.summary(), extra={"fit_trace": rec})
     particles = state.particles
     if best is not None and not options.get("return_final", False):
         logger.info("returning best-ELPD state from iteration %d", best[0])

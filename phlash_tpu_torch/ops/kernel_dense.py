@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from phlash_tpu_torch.kernel_base import LikelihoodKernel, resolve_device
+from phlash_tpu_torch.kernel_base import LikelihoodKernel, upload
 from phlash_tpu_torch.ops.packing import dense_transition
 from phlash_tpu_torch.params import PSMCParams
 
@@ -81,8 +81,7 @@ class DenseKernel(LikelihoodKernel):
         super().__init__()
         self.M = M
         self.double_precision = double_precision
-        self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8,
-                                                     device=resolve_device(device)))
+        self.register_buffer("data", upload(data, device))
         self.seg_len = seg_len or _pick_seg_len(self.data.shape[-1])
 
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:

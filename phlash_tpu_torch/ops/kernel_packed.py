@@ -22,8 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phlash_tpu_torch.kernel_base import (LikelihoodKernel, batched_vjp, one_particle,
-                                          resolve_device)
+from phlash_tpu_torch.kernel_base import LikelihoodKernel, batched_vjp, one_particle, upload
 from phlash_tpu_torch.ops import build, packed
 from phlash_tpu_torch.ops.packing import dense_transition
 from phlash_tpu_torch.params import PSMCParams
@@ -115,8 +114,7 @@ class PackedKernel(LikelihoodKernel):
         self.M, self.L, self.seg_len = M, data.shape[-1], seg_len
         L_pad = -(-self.L // seg_len) * seg_len
         padded = np.pad(data, [(0, 0), (0, L_pad - self.L)], constant_values=-2)
-        self.register_buffer("data", torch.as_tensor(padded, dtype=torch.int8,
-                                                     device=resolve_device(device)))
+        self.register_buffer("data", upload(padded, device))
 
     def instance_grads(self, pp: PSMCParams, rows: torch.Tensor):
         return packed_instance_grads(pp, rows.contiguous(), self.seg_len)

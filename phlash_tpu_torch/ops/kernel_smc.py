@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from phlash_tpu_torch.kernel_base import LikelihoodKernel, one_particle, resolve_device
+from phlash_tpu_torch.kernel_base import LikelihoodKernel, one_particle, upload
 from phlash_tpu_torch.ops import build, smc
 from phlash_tpu_torch.params import PSMCParams
 
@@ -101,8 +101,7 @@ class SMCKernel(LikelihoodKernel):
         if M not in smc.SUPPORTED_M:
             raise ValueError(f"the SMC kernels support M in {smc.SUPPORTED_M}, got {M}")
         self.M = M
-        self.register_buffer("data", torch.as_tensor(data, dtype=torch.int8,
-                                                     device=resolve_device(device)))
+        self.register_buffer("data", upload(data, device))
 
     def instance_grads(self, pp: PSMCParams, rows: torch.Tensor):
         return smc_instance_grads(pp, rows.contiguous())

@@ -30,7 +30,9 @@ mesh=, svgd.SVGD with a gather):
 Every collective goes through `_all_reduce` / `_all_gather`, which count
 its calls and bytes by "op/axis/what" (`counts`, `reset_counts`,
 `add_counts`, as ops/smc.py counts kernel launches); a CUDA graph replay
-adds what its capture counted (training.Caller).  NCCL runs the
+adds what its capture counted (training.Caller).  Both also add the calls
+to the fit's counter `collectives` (profiling.count), so that a span of
+the fit counts the collectives made inside it.  NCCL runs the
 collectives on CUDA, gloo on the CPU; nothing falls back from one to the
 other.
 """
@@ -45,6 +47,9 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from phlash_tpu_torch import profiling
+from phlash_tpu_torch.kernel_base import upload
 
 PARTICLE_AXIS = "p"
 CHUNK_AXIS = "d"
@@ -155,6 +160,7 @@ _COUNTS: dict[str, int] = {}
 def _count(key: str, t: torch.Tensor) -> None:
     _COUNTS[key] = _COUNTS.get(key, 0) + 1
     _COUNTS[key + "/bytes"] = _COUNTS.get(key + "/bytes", 0) + t.numel() * t.element_size()
+    profiling.count("collectives")
 
 
 def counts() -> dict:
@@ -170,6 +176,9 @@ def reset_counts() -> None:
 def add_counts(n: dict) -> None:
     for k, v in n.items():
         _COUNTS[k] = _COUNTS.get(k, 0) + v
+    calls = sum(v for k, v in n.items() if not k.endswith("/bytes"))
+    if calls:
+        profiling.count("collectives", calls)
 
 
 def collectives(c: dict = None) -> dict:
@@ -242,7 +251,7 @@ def shard_chunks(mesh: DeviceMesh, warmup, body, make_kernel,
     rows = chunk_sharding(mesh, len(body))
     dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
         if mesh.device_type == "cuda" else torch.device("cpu")
-    warm = torch.as_tensor(warmup[rows], dtype=torch.int8, device=dev)
+    warm = upload(warmup[rows], dev)
     return ShardedChunks(mesh=mesh, warmup=warm, kern=make_kernel(body[rows]), lo=rows.start,
                          what=what)
 

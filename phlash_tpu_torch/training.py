@@ -39,8 +39,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from phlash_tpu_torch import profiling
 from phlash_tpu_torch.afs import default_afs_transform
 from phlash_tpu_torch.kernel import check_backend, get_kernel
+from phlash_tpu_torch.kernel_base import upload
 from phlash_tpu_torch.model import log_density_batched, log_density_rows
 from phlash_tpu_torch.ops import assembly, packed, smc
 from phlash_tpu_torch.ops import svgd as svgd_ops
@@ -123,7 +125,8 @@ class Caller:
       ran on the card: the warm-up's launches stay counted, the capture's
       are taken back, and every replay adds what its capture launched.
     `setup_seconds[(k, with_elpd)]` holds the host time of each graph's
-    warm-up and of its capture with instantiation.
+    warm-up and of its capture with instantiation, from the stamps of its
+    phlash.capture span.  A call is a phlash.call.launch span (profiling.py).
     """
 
     def __init__(self, base_step: Callable, elpd: Callable | None = None):
@@ -139,23 +142,24 @@ class Caller:
         return state, None if elpd_inds is None else self.elpd(state.particles, elpd_inds)
 
     def __call__(self, state: SVGDState, inds: torch.Tensor, elpd_inds: torch.Tensor | None = None):
-        if inds.device.type != "cuda":
-            return self.run(state, inds, elpd_inds)
-        if self.state is None:
-            self.state = clone_state(state)
-        elif state is not self.state:
-            _copy_into(self.state, state)
-        key = (len(inds), elpd_inds is not None)
-        if key not in self.graphs:
-            self.graphs[key] = self._capture(key, inds, elpd_inds)
-        g = self.graphs[key]
-        g.inds.copy_(inds)
-        if elpd_inds is not None:
-            g.elpd_inds.copy_(elpd_inds)
-        g.graph.replay()
-        for mod, n in zip(_COUNTED, g.launches):
-            mod.add_counts(n)
-        return self.state, g.elpd
+        with profiling.call_span("phlash.call.launch"):
+            if inds.device.type != "cuda":
+                return self.run(state, inds, elpd_inds)
+            if self.state is None:
+                self.state = clone_state(state)
+            elif state is not self.state:
+                _copy_into(self.state, state)
+            key = (len(inds), elpd_inds is not None)
+            if key not in self.graphs:
+                self.graphs[key] = self._capture(key, inds, elpd_inds)
+            g = self.graphs[key]
+            g.inds.copy_(inds)
+            if elpd_inds is not None:
+                g.elpd_inds.copy_(elpd_inds)
+            g.graph.replay()
+            for mod, n in zip(_COUNTED, g.launches):
+                mod.add_counts(n)
+            return self.state, g.elpd
 
     def _capture(self, key, inds: torch.Tensor, elpd_inds: torch.Tensor | None) -> _Graph:
         dev = inds.device
@@ -167,30 +171,32 @@ class Caller:
                    elpd=None if elpd_inds is None else torch.zeros(
                        (), dtype=self.state.particles.dtype, device=dev),
                    launches=[])
-        t0 = time.perf_counter()
-        self._stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self._stream):
-            self.run(clone_state(self.state), g.inds[:1], g.elpd_inds)
-        torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        before = [mod.counts() for mod in _COUNTED]
-        # thread_local: the checkpoint writer's thread may wait on a CUDA
-        # event while this thread captures
-        with torch.cuda.graph(g.graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            state, elpd = self.run(self.state, g.inds, g.elpd_inds)
-            _copy_into(self.state, state)
-            if elpd is not None:
-                g.elpd.copy_(elpd)
-        torch.cuda.synchronize(dev)
+        with profiling.span("phlash.capture", key=key) as sp:
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._stream):
+                self.run(clone_state(self.state), g.inds[:1], g.elpd_inds)
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter_ns()
+            before = [mod.counts() for mod in _COUNTED]
+            # thread_local: the checkpoint writer's thread may wait on a CUDA
+            # event while this thread captures
+            with torch.cuda.graph(g.graph, pool=self._pool, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                state, elpd = self.run(self.state, g.inds, g.elpd_inds)
+                _copy_into(self.state, state)
+                if elpd is not None:
+                    g.elpd.copy_(elpd)
+            torch.cuda.synchronize(dev)
         for mod, b in zip(_COUNTED, before):
             n = {name: v - b.get(name, 0) for name, v in mod.counts().items()}
             mod.add_counts({name: -v for name, v in n.items()})
             g.launches.append(n)
-        self.setup_seconds[key] = dict(warmup=t1 - t0, capture=time.perf_counter() - t1)
+        secs = dict(warmup=(t1 - sp.start) / 1e9, capture=(sp.end - t1) / 1e9)
+        sp.attrs.update(warmup_s=secs["warmup"], capture_s=secs["capture"])
+        self.setup_seconds[key] = secs
         logger.info("captured a CUDA graph of %d SVGD iterations%s: warm-up %.3f s, "
                     "capture and instantiation %.3f s", key[0], " and the ELPD" if key[1] else "",
-                    t1 - t0, self.setup_seconds[key]["capture"])
+                    secs["warmup"], secs["capture"])
         return g
 
 
@@ -251,6 +257,7 @@ def sharded_grad(init: MCMCParams, chunks: comms.ShardedChunks) -> Callable:
     return grad_fn
 
 
+@profiling.spanned("phlash.start.build")
 def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: int,
                    overlap: int, options: dict, device: torch.device,
                    generator: torch.Generator, kernel_backend: str = None,
@@ -349,8 +356,7 @@ def build_training(chunks: np.ndarray, afs: np.ndarray | None, *, window_size: i
     if mesh is None:
         svgd = SVGD(batched_grad(init), optimizer)
         state = svgd.init(particles)
-        warmup_dev = torch.as_tensor(np.ascontiguousarray(warmup_host), dtype=torch.int8,
-                                     device=device)
+        warmup_dev = upload(np.ascontiguousarray(warmup_host), device)
         kern = make_kernel(data_host)
 
         def one_step(state: SVGDState, inds: torch.Tensor) -> SVGDState:

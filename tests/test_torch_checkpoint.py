@@ -1,6 +1,6 @@
-"""Checkpoint/resume and the StepMeter of the port on the CPU: the
-counterparts of tests/test_checkpoint.py, plus the writer's snapshot at
-hand-off."""
+"""Checkpoint/resume and the fit's record of its loop on the CPU: the
+counterparts of tests/test_checkpoint.py (its StepMeter is the port's
+profiling.FitTrace), plus the writer's snapshot at hand-off."""
 
 import pytest
 
@@ -22,7 +22,7 @@ from phlash_tpu_torch.checkpoint import (
     save_checkpoint,
 )
 from phlash_tpu_torch.data import RawContig
-from phlash_tpu_torch.profiling import StepMeter
+from phlash_tpu_torch import profiling
 from phlash_tpu_torch.svgd import AMSGrad, SVGDState
 
 
@@ -168,21 +168,24 @@ def test_fit_resume_matches_uninterrupted(contig, tmp_path, held_out):
 
 
 def test_step_meter():
-    m = StepMeter(sites_per_step=1e6)
+    "A FitTrace counts the loop's iterations and its rate between the callbacks."
+    m = profiling.FitTrace()
     for _ in range(5):
-        m.tick(10)
-    assert m._steps == 50
-    assert m.steps_per_sec > 0 and m.msites_per_sec > 0
+        m.iterations += 10
+        m.at_callback()
+    assert m.iterations == 50
+    assert m.rate > 0
     assert "50 steps" in m.summary() and "graph set-up 0.000 s" in m.summary()
 
 
 def test_fit_logs_its_step_meter(contig, caplog):
-    """The "fit finished" record carries the loop's StepMeter: the
-    iterations it ran, and no graph set-up on the CPU."""
+    """The "fit finished" record carries the fit's FitTrace: the iterations
+    it ran, and no graph set-up on the CPU."""
     with caplog.at_level(logging.INFO, logger="phlash_tpu_torch.mcmc"):
         mcmc.fit([contig], niter=3, steps_per_call=2, **FIT)
-    (meter,) = [r.step_meter for r in caplog.records if hasattr(r, "step_meter")]
-    assert isinstance(meter, StepMeter) and meter._steps == 3 and meter.setup_seconds == 0.0
+    (rec,) = [r.fit_trace for r in caplog.records if hasattr(r, "fit_trace")]
+    assert rec is profiling.last_fit() and rec.closed
+    assert rec.iterations == 3 and rec.setup_seconds == 0.0
 
 
 def test_async_writer_orders_saves_and_surfaces_errors(tmp_path, monkeypatch):

@@ -30,6 +30,7 @@ NOT_TO_PORT_NAMES = {
     "ops/packing.py": {"block_diag_pack"},  # the TPU's MXU packing
     "utils/numerics.py": {"kahan_add", "invert_cpwli"},  # exported, called by nothing
     "utils/__init__.py": {"kahan_add", "invert_cpwli", "tree_stack", "tree_unstack"},
+    "profiling.py": {"StepMeter"},  # folded into the fit's record, profiling.FitTrace
 }
 # the port's names for phlash_tpu's modules and classes
 MODULE_RENAMES = {"ops/kernel_pallas.py": "ops/kernel_packed.py"}

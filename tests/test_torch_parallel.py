@@ -6,7 +6,8 @@ detail: the sharded SVGD step at world sizes 2, as (2, 1), and 4, as
 float64) and phlash_tpu's (1e-9); so must the sharded held-out ELPD (the
 aux_out of phlash_tpu's shard_training_step), a meshed fit, and a meshed
 fit resumed from its checkpoint.  The comms contract of
-test_parallel.py:119-163 is read from the port's collective counter.
+test_parallel.py:119-163 is read from the port's collective counter, and
+a traced fit's spans count the collectives that counter counts.
 
 Each world size is one spawn of its ranks, which run every case and
 return numpy arrays; the parent computes the unsharded and the JAX side.
@@ -364,3 +365,30 @@ def test_world_of_one_fit_equals_unsharded(world_of_one, unsharded):
     train, held = _contigs()[:2], _contigs()[2]
     got = _c(mcmc.fit(train, held, niter=NITER, mesh=world_of_one, **FIT))
     np.testing.assert_array_equal(got, unsharded["fit"])
+
+
+def test_traced_meshed_fit_counts_its_collectives(world_of_one, tmp_path):
+    """Under the profiler, a call's counter `collectives` on a mesh is what
+    the mesh's own counter counted from the previous call's callback to this
+    one's; the finiteness check and the read-back make one each, and the
+    fit's root span holds every collective of the fit."""
+    from phlash_tpu_torch import profiling
+
+    train, held = _contigs()[:2], _contigs()[2]
+    seen = []
+
+    def made() -> int:
+        return sum(n for n, _ in comms.collectives().values())
+
+    comms.reset_counts()
+    with profiling.trace(str(tmp_path)):
+        mcmc.fit(train, held, niter=NITER, mesh=world_of_one,
+                 callback=lambda dm: seen.append(made()), **FIT)
+    tr = profiling.last_fit()
+    calls = tr.calls()
+    assert len(calls) == len(seen) == NITER // FIT["steps_per_call"]
+    for c in calls[1:]:
+        assert c.counts["collectives"] == seen[c.call] - seen[c.call - 1] > 0
+    for name in ("phlash.call.finite_check", "phlash.call.readback"):
+        assert tr.named(name) and all(s.counts["collectives"] == 1 for s in tr.named(name))
+    assert tr.named("phlash.fit")[0].counts["collectives"] == made()

@@ -115,15 +115,15 @@ def metrics(post: list[DemographicModel], truth: DemographicModel) -> dict:
 
 
 class _Meter(logging.Handler):
-    "Keeps the StepMeter of fit's 'fit finished' record."
+    "Keeps the FitTrace of fit's 'fit finished' record."
 
     def __init__(self):
         super().__init__(logging.INFO)
         self.meter = None
 
     def emit(self, record):
-        if hasattr(record, "step_meter"):
-            self.meter = record.step_meter
+        if hasattr(record, "fit_trace"):
+            self.meter = record.fit_trace
 
 
 def plot(path: str, name: str, m: dict) -> None:
@@ -179,7 +179,7 @@ def run(name: str, truth: DemographicModel, args, dev: torch.device, card: str) 
     m = metrics(post, truth)
     finite = all(bool(torch.isfinite(d.eta.c).all() and torch.isfinite(d.eta.t).all())
                  for d in post)
-    iters = meter.meter.steps
+    iters = meter.meter.iterations
     print(f"{name}: tv(median, truth) = {m['tv']:.3f}, 95%-band coverage = {m['coverage']:.2f}, "
           f"{len(post)} samples, wall {wall:.0f}s; {iters} iterations run (of {args.niter}); "
           f"{card}", flush=True)

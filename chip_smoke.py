@@ -151,8 +151,12 @@ Phases, each of which prints its own lines and aborts the run on failure:
    exactly what 30 iterations, one capture and the timed replays imply and
    B1 what the ELPDs imply, packed launched nothing, and the cloud is finite.
 12. posterior recovery against the truth: B1-B3 against their plain
-   versions at the validation fit's chunk length (L = 100,000, B = 500,
-   S = 5; phase 3's tolerances), then `python tools/torch_validate.py
+   versions at a genome fit's chunk body (L = 94,000, B = 500, S = 1) and
+   at the validation fit's chunk length (L = 100,000, B = 500, S = 5;
+   phase 3's tolerances; wherever ops/smc.segment_plan splits the rows, as
+   there and in phase 14, the split kernels are also held to the unsplit
+   ones: pstates and alpha bitwise, the four device counts printed), then
+   `python tools/torch_validate.py
    --n-samples n` at full size (constant, bottleneck and zigzag; three
    contigs of 500,000 windows from the continuous SMC' simulator, one held
    out; 500 particles, up to 300 iterations with ELPD early stopping,
@@ -325,10 +329,39 @@ def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs, f32_floor=Fa
         fail(f"forward kernel disagrees with the plain version at {where}")
     if not (torch.equal(ll_1, ll_k) and torch.equal(a_1, a_k)):
         fail(f"the forward without residuals differs from the one with at {where}")
+    check_split(torch, smc, p32, pi32, obs, g32, ab32, where, ll_k, a_k, ps_k, g_k, dpi_k)
     fwd["ll"], fwd["state"] = max(fwd["ll"], e_ll), max(fwd["state"], e_a, e_ps)
     fwd["abs"] = max(fwd["abs"], max_abs(ll_k, ll_p), max_abs(a_k, a_p))
     bwd["grad"] = max(bwd["grad"], worst)
     return float(ps_p[ps_p > 0].min())
+
+
+def check_split(torch, smc, p32, pi32, obs, g32, ab32, where, ll_k, a_k, ps_k, g_k, dpi_k):
+    """Where segment_plan splits the rows (K > 1), the kernels as the
+    wrappers ran them against the unsplit kernels (K = 1) on the same
+    float32 inputs: pstates and alpha bitwise equal, ll and the gradients
+    printed (the same terms summed in another order); and the four device
+    counts of the split launches (forward and adjoint) printed."""
+    B, S, M = pi32.shape
+    L = obs.shape[1]
+    plan, plan_b = smc.segment_plan(B, S, L, M), smc.segment_plan(B, S, L, M, None, "adjoint")
+    if plan.K == 1 and plan_b.K == 1:
+        return
+    one = smc.Plan(1, 0)
+    ll_u, a_u, ps_u = smc.forward_launch(p32, pi32, obs, True, one)
+    g_u, dpi_u = smc.backward_launch(p32, obs, ps_u, g32, ab32, one)
+    smc.reset_device_counts()
+    smc.forward_launch(p32, pi32, obs, True, plan)
+    smc.backward_launch(p32, obs, ps_k, g32, ab32, plan_b)
+    counts = smc.device_counts()
+    if not (torch.equal(ps_k, ps_u) and torch.equal(a_k, a_u)):
+        fail(f"the split forward ({plan}) differs from the unsplit one at {where}")
+    grad = max(normalized(a, b.double()) for a, b in zip((*g_k, dpi_k), (*g_u, dpi_u)))
+    share = 100.0 * counts["smc_fix_sites"] / max(counts["smc_split_sites"], 1)
+    print(f"{where}: split {tuple(plan)} (adjoint {tuple(plan_b)}) against K = 1: pstates and "
+          f"alpha bitwise equal; max rel "
+          f"ll {max_rel(ll_k, ll_u.double()):.3e}, max normalized gradient {grad:.3e}; counts "
+          f"{json.dumps(counts)} (fix share {share:.2f}%)")
 
 
 def check_kernels(torch, smc, dev):
@@ -2792,18 +2825,20 @@ def whole_genome_phase(card_name: str, power_line: str) -> dict:
 VALIDATE_TOOL = "tools/torch_validate.py"
 VALIDATE_SAMPLES = (1, 2)
 VALIDATE_SECONDS = 360
-# (B, S, L) of B1-B3 against their plain versions before the validation: the
-# validation fit's likelihood and held-out ELPD run on chunk bodies of 0.2 L
-# = 100,000 windows (fit's default chunk; its warm-up filter, L = 500, is
-# phase 3's) at B = 500 and S = 5.  The plain float64 versions dispatch every
-# site from the host (~2.5 min a shape on an H100's host), so a ragged block
-# is left to phase 3's L = 2501.
-VALIDATE_GATE_SHAPES = ((500, 5, 100_000),)
+# (B, S, L) of B1-B3 against their plain versions before the validation: a
+# genome fit's chunk body at one diploid (S = 1, 94,000 windows: the rows
+# segment_plan splits most), then the validation fit's likelihood and
+# held-out ELPD on chunk bodies of 0.2 L = 100,000 windows (fit's default
+# chunk; its warm-up filter, L = 500, is phase 3's) at B = 500 and S = 5.
+# The plain float64 versions dispatch every site from the host (~2.5 min a
+# shape on an H100's host), so a ragged block is left to phase 3's L = 2501.
+VALIDATE_GATE_SHAPES = ((500, 1, 94_000), (500, 5, 100_000))
 
 
 def validation_phase(torch, smc, dev, power_line: str, tmp: str) -> tuple[dict, dict]:
     """Phase 12: B1-B3 at VALIDATE_GATE_SHAPES, M = 16, against their plain
-    versions (gate_smc at phase 3's tolerances); then `python
+    versions (gate_smc at phase 3's tolerances; the split kernels also
+    against the unsplit ones, check_split); then `python
     tools/torch_validate.py --n-samples n` at full size (L = 500,000, niter
     300, 500 particles, the continuous simulator) in its own process for
     each n of VALIDATE_SAMPLES (a deadline; plots under `tmp`), its lines
@@ -2824,7 +2859,7 @@ def validation_phase(torch, smc, dev, power_line: str, tmp: str) -> tuple[dict, 
         gate_smc(torch, smc, params, pi, obs, gbar, abar0, f"M=16 B={B} S={S} L={L}", errs)
         del params, pi, obs
         torch.cuda.empty_cache()
-    print(f"validation: B1-B3 at the fit's chunk length checked in "
+    print(f"validation: B1-B3 at a genome's and the validation's chunk lengths checked in "
           f"{time.perf_counter() - t0:.1f} s on {power_line}")
     runs = []
     for n in VALIDATE_SAMPLES:

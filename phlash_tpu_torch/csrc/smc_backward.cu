@@ -21,6 +21,13 @@
 // period's boundary state before the current period's work so its latency
 // leaves the chain, and stages the observation row in shared memory as the
 // forward does.  See ops/smc.py for the design note.
+//
+// phlash_smc_backward_split runs the same in K segments, as the forward's
+// split does: speculative sweeps (the last segment from abar0, exact; the
+// others from zero), fix sweeps from each upper neighbour's speculative abar
+// up to the first checkpoint where abar equals the stored one bitwise, and a
+// splice down the segments.  The gradients are summed by interval, segment
+// and row, in a fixed order.
 #include "smc_common.cuh"
 
 using namespace phlash;
@@ -140,6 +147,258 @@ smc_backward_kernel(const float* __restrict__ b, const float* __restrict__ d,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split path: K segments a row (ops/smc.segment_plan), three launches.
+// ---------------------------------------------------------------------------
+
+struct BwdSplit {
+  int K, P;                    // segments a row, periods a segment (P % CHECK_EVERY == 0)
+  float* top;                  // (K, S, B, M) the abar each segment's stored sweep started from
+  float* ab_ck;                // (n_chk, S, B, M) abar at each checkpoint (the start of period i C)
+  float* spec_end;             // (K, S, B, M) the speculative sweep's abar at its segment's start
+  float* int_grad;             // (n_chk, 6, S, B, M) each interval's six gradient sums
+  float* seg_grad;             // (K, 6, S, B, M) each segment's sums over its intervals
+  unsigned long long* counts;  // SplitCount
+};
+
+// Segment k of one instance's adjoint, swept from its last period down from
+// abar ab (registers, updated in place).  SPEC sweeps the whole segment and
+// stores abar at its checkpoints, its interval sums and the abar it started
+// from; FIX first compares ab with that start, then ab at each checkpoint
+// with the stored one, and is done at the first match bitwise (from there
+// down the stored sweep is this chain's), storing its own before.  A group
+// that is done computes on for the shuffles and stores nothing.  Returns the
+// sites the group ran before it was done.
+template <int M, int SPL, bool FIX>
+__device__ __forceinline__ unsigned backward_segment(float* ab, bool& done, bool& met, int k,
+                                                     const GroupLane& me, const Rows<SPL>& w,
+                                                     float g, const int8_t* __restrict__ row,
+                                                     const float* __restrict__ pstates, int B,
+                                                     int S, int L, const BwdSplit& ws,
+                                                     int8_t* sh) {
+  constexpr int G = Group<M, SPL>::G;
+  const int m0 = me.lane * SPL;
+  const int n_per = (L + NORM_EVERY - 1) / NORM_EVERY;
+  const Segment seg(k, ws.P, n_per);
+  const int t_beg = seg.q0 * NORM_EVERY, t_end = min(seg.q1 * NORM_EVERY, L);
+  const size_t inst = static_cast<size_t>(me.s) * B + me.p;  // chunk-major instance
+  const size_t per = static_cast<size_t>(S) * B;             // instances a period
+  float* top = ws.top + (static_cast<size_t>(k) * per + inst) * M + m0;
+  if constexpr (FIX) {
+    const bool same = group_equal<G, SPL>(ab, top);
+    met = met || (same && !done);
+    done = done || same;
+    if (!__syncthreads_or(!done)) return 0;
+  }
+  if (!done) store_states<SPL>(top, ab);
+
+  float gb[SPL], gd[SPL], gu[SPL], gv[SPL], g0[SPL], g1[SPL];
+#pragma unroll
+  for (int r = 0; r < SPL; ++r) gb[r] = gd[r] = gu[r] = gv[r] = g0[r] = g1[r] = 0.f;
+  const float* pst = pstates + inst * M + m0;
+  const size_t per_stride = per * M;
+  float next[SPL];  // the start state of the period below this one, in flight
+  load_states<SPL>(pst + static_cast<size_t>(seg.q1 - 1) * per_stride, next);
+  unsigned ran = 0;
+  bool wrote = false, stop = false;
+  for (int t0 = t_beg + (t_end - t_beg - 1) / OBS_TILE * OBS_TILE; t0 >= t_beg && !stop;
+       t0 -= OBS_TILE) {
+    const int n = min(OBS_TILE, t_end - t0);
+    __syncthreads();  // the previous tile's readers are done
+    const int mis = stage_obs(row + t0, n, sh);
+    __syncthreads();
+    for (int j0 = (n - 1) / NORM_EVERY * NORM_EVERY; j0 >= 0; j0 -= NORM_EVERY) {
+      const int q = (t0 + j0) / NORM_EVERY;
+      float a[SPL];
+#pragma unroll
+      for (int r = 0; r < SPL; ++r) a[r] = next[r];
+      load_states<SPL>(pst + static_cast<size_t>(max(q - 1, seg.q0)) * per_stride, next);
+      int obv[NORM_EVERY];
+#pragma unroll
+      for (int j = 0; j < NORM_EVERY; ++j) obv[j] = j0 + j < n ? sh[mis + j0 + j] : -2;
+      reverse_period<G, SPL>(a, obv, ab, g, me.lane, w.b, w.d, w.u, w.v, w.e0, w.e1, gb, gd,
+                             gu, gv, g0, g1);
+      if (!done) ran += min(NORM_EVERY, n - j0);
+      if (q % CHECK_EVERY == 0) {  // abar at checkpoint q: interval q / C is complete
+        const size_t i = q / CHECK_EVERY;
+        if (!done) {
+          float* o = ws.int_grad + (i * 6 * per + inst) * M + m0;
+          store_states<SPL>(o, gb);
+          store_states<SPL>(o + per_stride, gd);
+          store_states<SPL>(o + 2 * per_stride, gu);
+          store_states<SPL>(o + 3 * per_stride, gv);
+          store_states<SPL>(o + 4 * per_stride, g0);
+          store_states<SPL>(o + 5 * per_stride, g1);
+          wrote = true;
+        }
+#pragma unroll
+        for (int r = 0; r < SPL; ++r) gb[r] = gd[r] = gu[r] = gv[r] = g0[r] = g1[r] = 0.f;
+        float* ck = ws.ab_ck + (i * per + inst) * M + m0;
+        if constexpr (FIX) {
+          const bool same = group_equal<G, SPL>(ab, ck);
+          met = met || (same && !done);
+          done = done || same;
+          if (!__syncthreads_or(!done)) {
+            stop = true;
+            break;
+          }
+        }
+        if (!done) store_states<SPL>(ck, ab);
+      }
+    }
+  }
+  if (wrote) {  // the segment's sums over its intervals, top to bottom
+#pragma unroll
+    for (int r = 0; r < SPL; ++r) gb[r] = gd[r] = gu[r] = gv[r] = g0[r] = g1[r] = 0.f;
+    for (int i = (seg.q1 - 1) / CHECK_EVERY; i >= seg.q0 / CHECK_EVERY; --i) {
+      const float* o = ws.int_grad + (static_cast<size_t>(i) * 6 * per + inst) * M + m0;
+      float x[SPL];
+      load_states<SPL>(o, x);
+#pragma unroll
+      for (int r = 0; r < SPL; ++r) gb[r] += x[r];
+      load_states<SPL>(o + per_stride, x);
+#pragma unroll
+      for (int r = 0; r < SPL; ++r) gd[r] += x[r];
+      load_states<SPL>(o + 2 * per_stride, x);
+#pragma unroll
+      for (int r = 0; r < SPL; ++r) gu[r] += x[r];
+      load_states<SPL>(o + 3 * per_stride, x);
+#pragma unroll
+      for (int r = 0; r < SPL; ++r) gv[r] += x[r];
+      load_states<SPL>(o + 4 * per_stride, x);
+#pragma unroll
+      for (int r = 0; r < SPL; ++r) g0[r] += x[r];
+      load_states<SPL>(o + 5 * per_stride, x);
+#pragma unroll
+      for (int r = 0; r < SPL; ++r) g1[r] += x[r];
+    }
+    float* o = ws.seg_grad + (static_cast<size_t>(k) * 6 * per + inst) * M + m0;
+    store_states<SPL>(o, gb);
+    store_states<SPL>(o + per_stride, gd);
+    store_states<SPL>(o + 2 * per_stride, gu);
+    store_states<SPL>(o + 3 * per_stride, gv);
+    store_states<SPL>(o + 4 * per_stride, g0);
+    store_states<SPL>(o + 5 * per_stride, g1);
+  }
+  return ran;
+}
+
+// Speculative pass: segment k = blockIdx.z from abar0 (the last segment,
+// exact) or from zero (a guess).
+template <int M, int SPL>
+__global__ void __launch_bounds__(Group<M, SPL>::THREADS)
+smc_backward_kernel_speculate(const float* __restrict__ b, const float* __restrict__ d,
+                              const float* __restrict__ u, const float* __restrict__ vv,
+                              const float* __restrict__ e0, const float* __restrict__ e1,
+                              const int8_t* __restrict__ obs, const float* __restrict__ pstates,
+                              const float* __restrict__ gbar, const float* __restrict__ abar0,
+                              int B, int S, int L, BwdSplit ws) {
+  __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
+  const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
+  const int m0 = me.lane * SPL;
+  Rows<SPL> w;
+  w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
+  const int k = blockIdx.z;
+  float ab[SPL];
+  if (k == ws.K - 1) {
+    load_params<SPL>(abar0 + me.i * M + m0, ab);
+  } else {
+#pragma unroll
+    for (int r = 0; r < SPL; ++r) ab[r] = 0.f;
+  }
+  bool done = !me.active, met = false;
+  const unsigned ran = backward_segment<M, SPL, false>(
+      ab, done, met, k, me, w, gbar[me.i], obs + static_cast<size_t>(me.s) * L, pstates, B, S,
+      L, ws, sh);
+  if (me.active)
+    store_states<SPL>(
+        ws.spec_end + (static_cast<size_t>(k) * S * B + static_cast<size_t>(me.s) * B + me.p) * M + m0,
+        ab);
+  const bool first = me.active && me.lane == 0;
+  add_count(ws.counts, SEGMENTS, first ? 1u : 0u);
+  add_count(ws.counts, SPLIT_SITES, first ? ran : 0u);
+}
+
+// Fix pass: segment k = blockIdx.z (< K - 1) from segment k + 1's speculative
+// abar at its start.
+template <int M, int SPL>
+__global__ void __launch_bounds__(Group<M, SPL>::THREADS)
+smc_backward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d,
+                        const float* __restrict__ u, const float* __restrict__ vv,
+                        const float* __restrict__ e0, const float* __restrict__ e1,
+                        const int8_t* __restrict__ obs, const float* __restrict__ pstates,
+                        const float* __restrict__ gbar, int B, int S, int L, BwdSplit ws) {
+  __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
+  const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
+  const int m0 = me.lane * SPL;
+  Rows<SPL> w;
+  w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
+  const int k = blockIdx.z;
+  const size_t per = static_cast<size_t>(S) * B, inst = static_cast<size_t>(me.s) * B + me.p;
+  float ab[SPL];
+  load_states<SPL>(ws.spec_end + ((k + 1) * per + inst) * M + m0, ab);
+  bool done = !me.active, met = false;
+  const unsigned ran = backward_segment<M, SPL, true>(
+      ab, done, met, k, me, w, gbar[me.i], obs + static_cast<size_t>(me.s) * L, pstates, B, S,
+      L, ws, sh);
+  const bool first = me.active && me.lane == 0;
+  add_count(ws.counts, RESOLVED, first && met ? 1u : 0u);
+  add_count(ws.counts, FIX_SITES, first ? ran : 0u);
+}
+
+// Splice: a group an instance walks segments K-2 .. 0 from the last segment's
+// abar at its start, re-running (as the fix pass) any segment whose stored
+// sweep did not start from its upper neighbour's true abar; then the six
+// gradients (the segments' sums, in order) and dpi (abar at site 0).
+template <int M, int SPL>
+__global__ void __launch_bounds__(Group<M, SPL>::THREADS)
+smc_backward_kernel_splice(const float* __restrict__ b, const float* __restrict__ d,
+                           const float* __restrict__ u, const float* __restrict__ vv,
+                           const float* __restrict__ e0, const float* __restrict__ e1,
+                           const int8_t* __restrict__ obs, const float* __restrict__ pstates,
+                           const float* __restrict__ gbar, int B, int S, int L, BwdSplit ws,
+                           float* __restrict__ db, float* __restrict__ dd,
+                           float* __restrict__ du, float* __restrict__ dvv,
+                           float* __restrict__ de0, float* __restrict__ de1,
+                           float* __restrict__ dpi) {
+  __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
+  const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
+  const int m0 = me.lane * SPL;
+  Rows<SPL> w;
+  w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
+  const size_t per = static_cast<size_t>(S) * B, inst = static_cast<size_t>(me.s) * B + me.p;
+  const float g = gbar[me.i];
+  float ab[SPL];
+  load_states<SPL>(ws.ab_ck + (static_cast<size_t>((ws.K - 1) * ws.P / CHECK_EVERY) * per + inst) * M + m0, ab);
+  unsigned ran = 0;
+  for (int k = ws.K - 2; k >= 0; --k) {
+    bool done = !me.active, met = false;
+    ran += backward_segment<M, SPL, true>(ab, done, met, k, me, w, g,
+                                          obs + static_cast<size_t>(me.s) * L, pstates, B, S, L,
+                                          ws, sh);
+    load_states<SPL>(ws.ab_ck + (static_cast<size_t>(k * ws.P / CHECK_EVERY) * per + inst) * M + m0, ab);
+  }
+  if (me.active) {
+    float* outs[6] = {db, dd, du, dvv, de0, de1};
+    const size_t per_stride = per * M;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      float s[SPL];
+#pragma unroll
+      for (int r = 0; r < SPL; ++r) s[r] = 0.f;
+      for (int k = 0; k < ws.K; ++k) {
+        float x[SPL];
+        load_states<SPL>(ws.seg_grad + (static_cast<size_t>(k) * 6 * per + inst) * M + m0 + j * per_stride, x);
+#pragma unroll
+        for (int r = 0; r < SPL; ++r) s[r] += x[r];
+      }
+      store_states<SPL>(outs[j] + me.i * M + m0, s);
+    }
+    store_states<SPL>(dpi + me.i * M + m0, ab);
+  }
+  add_count(ws.counts, FIX_SITES, me.active && me.lane == 0 ? ran : 0u);
+}
+
 extern "C" int phlash_smc_backward(const float* b, const float* d, const float* u,
                                    const float* vv, const float* e0, const float* e1,
                                    const int8_t* obs, const float* pstates, const float* gbar,
@@ -158,5 +417,44 @@ extern "C" int phlash_smc_backward(const float* b, const float* d, const float* 
   }
   PHLASH_SMC_INSTANCES(PHLASH_BWD)
 #undef PHLASH_BWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split adjoint: K >= 2 segments of P periods, as the split forward.
+extern "C" int phlash_smc_backward_split(const float* b, const float* d, const float* u,
+                                         const float* vv, const float* e0, const float* e1,
+                                         const int8_t* obs, const float* pstates,
+                                         const float* gbar, const float* abar0, int B, int S,
+                                         int L, int M, int K, int P, float* db, float* dd,
+                                         float* du, float* dvv, float* de0, float* de1,
+                                         float* dpi, float* top, float* ab_ck, float* spec_end,
+                                         float* int_grad, float* seg_grad,
+                                         unsigned long long* counts, void* stream) {
+  const int n_per = L > 0 ? (L + NORM_EVERY - 1) / NORM_EVERY : 0;
+  if (B <= 0 || S <= 0 || S > 65535 || L <= 0 || K < 2 || K > 65535 || P <= 0 ||
+      P % CHECK_EVERY != 0 || static_cast<long long>(K - 1) * P >= n_per ||
+      static_cast<long long>(K) * P < n_per)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int gx = (B + INSTANCES_PER_BLOCK - 1) / INSTANCES_PER_BLOCK;
+  const BwdSplit ws{K, P, top, ab_ck, spec_end, int_grad, seg_grad, counts};
+#define PHLASH_BWD_SPLIT(MM, SS)                                                           \
+  if (M == MM) {                                                                           \
+    constexpr int T = Group<MM, SS>::THREADS;                                              \
+    smc_backward_kernel_speculate<MM, SS><<<dim3(gx, S, K), T, 0, st>>>(                   \
+        b, d, u, vv, e0, e1, obs, pstates, gbar, abar0, B, S, L, ws);                      \
+    cudaError_t err = cudaGetLastError();                                                  \
+    if (err != cudaSuccess) return static_cast<int>(err);                                  \
+    smc_backward_kernel_fix<MM, SS><<<dim3(gx, S, K - 1), T, 0, st>>>(                     \
+        b, d, u, vv, e0, e1, obs, pstates, gbar, B, S, L, ws);                             \
+    err = cudaGetLastError();                                                              \
+    if (err != cudaSuccess) return static_cast<int>(err);                                  \
+    smc_backward_kernel_splice<MM, SS><<<dim3(gx, S), T, 0, st>>>(                         \
+        b, d, u, vv, e0, e1, obs, pstates, gbar, B, S, L, ws, db, dd, du, dvv, de0, de1,   \
+        dpi);                                                                              \
+    return static_cast<int>(cudaGetLastError());                                           \
+  }
+  PHLASH_SMC_INSTANCES(PHLASH_BWD_SPLIT)
+#undef PHLASH_BWD_SPLIT
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,6 +16,26 @@
 //                                    load is one run of consecutive floats
 // A group past the last particle works on a clamped copy of it (its lanes must
 // still take part in the shuffles) and stores nothing.
+//
+// The split path (ops/smc.segment_plan picks K > 1 segments a row where the
+// unsplit grid leaves the card nearly empty): grid (ceil(B / 8), S, K), the
+// z axis a segment of P periods (P a multiple of CHECK_EVERY, so every
+// segment rescales at the unsplit kernel's sites).  Beside the outputs, a
+// per-call workspace, chunk-major as pstates, over checkpoints (every
+// CHECK_EVERY periods) and segments:
+//   forward   states at the checkpoints (B1; B2 compares with pstates),
+//             each interval's sum of log c (n_chk, S, B), each segment's sum
+//             of its intervals and end state (K, S, B[, M]), and the
+//             speculative pass's end states
+//   adjoint   abar at the checkpoints, the abar each segment's sweep started
+//             from, each interval's six gradient sums (n_chk, 6, S, B, M) and
+//             each segment's sums over its intervals
+// Three launches a direction: the speculative pass (every segment from a
+// guess), the fix pass (segment k from its neighbour's speculative end, up
+// to the first checkpoint where it equals the stored trajectory bitwise)
+// and the splice (a group an instance walks the segments in order and
+// re-runs any whose start was wrong).  What each stores stays one chain's
+// trajectory over the segment, so a later re-run may stop at any match.
 #pragma once
 
 #include <cstdint>
@@ -29,6 +49,12 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int INSTANCES_PER_BLOCK = 8;
 constexpr int OBS_TILE = 1024;         // sites per staged tile, a multiple of NORM_EVERY
 static_assert(OBS_TILE % NORM_EVERY == 0, "a period must not straddle two tiles");
+// periods between the split path's checkpoints: a fix chain compares with the
+// stored trajectory there, and the per-interval sums are kept at that grain
+constexpr int CHECK_EVERY = 16;
+
+// the split path's device counters (ops/smc.DEVICE_COUNTS names them)
+enum SplitCount { SEGMENTS = 0, RESOLVED = 1, FIX_SITES = 2, SPLIT_SITES = 3 };
 
 // emission factor: hom -> e0, het -> e1, missing -> 1 (padding never gets here)
 __device__ __forceinline__ float emis_factor(int ob, float e0, float e1) {
@@ -225,5 +251,131 @@ __device__ __forceinline__ int stage_obs(const int8_t* __restrict__ src, int n, 
   for (int k = max(w0, w1) * 16 + threadIdx.x; k < mis + n; k += blockDim.x) sh[k] = base[k];
   return mis;
 }
+
+// One period of the forward, the unsplit kernel's loop body: the NORM_EVERY
+// sites from j0 of a tile staged at sh[mis] (those at or past n are
+// padding), then the rescale; returns c.
+template <int G, int SPL>
+__device__ __forceinline__ float forward_period(float* a, const int8_t* sh, int mis, int j0,
+                                                int n, int lane, const float* rb,
+                                                const float* rd, const float* ru,
+                                                const float* rv, const float* r0,
+                                                const float* r1) {
+#pragma unroll
+  for (int j = 0; j < NORM_EVERY; ++j) {
+    const int ob = j0 + j < n ? sh[mis + j0 + j] : -2;
+    float sv[SPL], pv[SPL];
+    advance<G, SPL>(a, ob, lane, rb, rd, ru, rv, r0, r1, sv, pv);
+  }
+  const float c = fmaxf(group_sum<G, SPL>(a), TINY_NORM);
+#pragma unroll
+  for (int r = 0; r < SPL; ++r) a[r] = a[r] / c;
+  return c;
+}
+
+// One period of the adjoint: rebuild the period's sites from its start state
+// a (overwritten), then sweep them in reverse from abar (ab, in and out) with
+// the ll cotangent g, adding to the six gradient accumulators.
+template <int G, int SPL>
+__device__ __forceinline__ void reverse_period(float* a, const int* obv, float* ab, float g,
+                                               int lane, const float* rb, const float* rd,
+                                               const float* ru, const float* rv,
+                                               const float* r0, const float* r1, float* gb,
+                                               float* gd, float* gu, float* gv, float* g0,
+                                               float* g1) {
+  float xs[NORM_EVERY][SPL], svs[NORM_EVERY][SPL], pvs[NORM_EVERY][SPL];
+#pragma unroll
+  for (int j = 0; j < NORM_EVERY; ++j) {
+#pragma unroll
+    for (int r = 0; r < SPL; ++r) xs[j][r] = a[r];
+    advance<G, SPL>(a, obv[j], lane, rb, rd, ru, rv, r0, r1, svs[j], pvs[j]);
+  }
+  const float c = fmaxf(group_sum<G, SPL>(a), TINY_NORM);
+  float y[SPL];
+#pragma unroll
+  for (int r = 0; r < SPL; ++r) y[r] = ab[r] * (a[r] / c);
+  const float dot = group_sum<G, SPL>(y);
+#pragma unroll
+  for (int r = 0; r < SPL; ++r) y[r] = (ab[r] - dot + g) / c;
+
+#pragma unroll
+  for (int j = NORM_EVERY - 1; j >= 0; --j) {
+    const int ob = obv[j];
+    const bool live = ob != -2;
+    float vbar[SPL], wv[SPL], wb[SPL], t1[SPL], pb[SPL];
+#pragma unroll
+    for (int r = 0; r < SPL; ++r) {
+      const float yb = live ? y[r] : 0.f;
+      const float v = rb[r] * svs[j][r] + rd[r] * xs[j][r] + rv[r] * pvs[j][r];
+      const float dfull = v * yb;
+      g0[r] += ob == 0 ? dfull : 0.f;
+      g1[r] += ob == 1 ? dfull : 0.f;
+      vbar[r] = emis_factor(ob, r0[r], r1[r]) * yb;
+      gb[r] += svs[j][r] * vbar[r];
+      gd[r] += xs[j][r] * vbar[r];
+      gv[r] += pvs[j][r] * vbar[r];
+      wv[r] = rv[r] * vbar[r];
+      wb[r] = rb[r] * vbar[r];
+    }
+    scan_pair<G, SPL>(wv, wb, lane, t1, pb);  // S(vv vbar), P(b vbar)
+#pragma unroll
+    for (int r = 0; r < SPL; ++r) {
+      gu[r] += xs[j][r] * t1[r];
+      const float xbar = pb[r] + rd[r] * vbar[r] + ru[r] * t1[r];
+      y[r] = live ? xbar : y[r];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < SPL; ++r) ab[r] = y[r];
+}
+
+// ---------------------------------------------------------------------------
+// the split path's pieces
+// ---------------------------------------------------------------------------
+
+// A lane's six per-particle rows (b, d, u, vv, e0, e1).
+template <int SPL>
+struct Rows {
+  float b[SPL], d[SPL], u[SPL], v[SPL], e0[SPL], e1[SPL];
+  __device__ __forceinline__ void load(const float* __restrict__ pb, const float* __restrict__ pd,
+                                       const float* __restrict__ pu, const float* __restrict__ pv,
+                                       const float* __restrict__ p0, const float* __restrict__ p1,
+                                       size_t o) {
+    load_params<SPL>(pb + o, b);
+    load_params<SPL>(pd + o, d);
+    load_params<SPL>(pu + o, u);
+    load_params<SPL>(pv + o, v);
+    load_params<SPL>(p0 + o, e0);
+    load_params<SPL>(p1 + o, e1);
+  }
+};
+
+// Whether the group's M states equal a stored copy bit for bit (every lane of
+// the group gets the same answer).
+template <int G, int SPL>
+__device__ __forceinline__ bool group_equal(const float* x, const float* __restrict__ stored) {
+  float s[SPL];
+  load_states<SPL>(stored, s);
+  int same = 1;
+#pragma unroll
+  for (int r = 0; r < SPL; ++r) same &= __float_as_uint(x[r]) == __float_as_uint(s[r]);
+#pragma unroll
+  for (int k = G / 2; k >= 1; k >>= 1) same &= __shfl_xor_sync(FULL_MASK, same, k, G);
+  return same != 0;
+}
+
+// Add v (each lane's share; the whole warp calls) to device counter `which`:
+// one atomic a warp, integer only.
+__device__ __forceinline__ void add_count(unsigned long long* counts, int which, unsigned v) {
+  const unsigned s = __reduce_add_sync(FULL_MASK, v);
+  if ((threadIdx.x & 31) == 0 && s != 0) atomicAdd(counts + which, static_cast<unsigned long long>(s));
+}
+
+// The periods [q0, q1) of segment k (of P periods) in a row of n_per.
+struct Segment {
+  int q0, q1;
+  __device__ __forceinline__ Segment(int k, int P, int n_per)
+      : q0(k * P), q1(min(k * P + P, n_per)) {}
+};
 
 }  // namespace phlash

@@ -19,6 +19,15 @@
 // 315 one-warp blocks on all 132 SMs).  The block's observation row is staged
 // into shared memory by 16-byte loads, so every lane reads its site's code as
 // a broadcast.  No tensor cores: see ops/smc.py for the design note.
+//
+// Where the instances alone leave the card nearly empty (one genome: 500
+// instances on rows of ~94,000 sites), phlash_smc_forward_split cuts each row
+// into K segments on period boundaries and runs three kernels: speculate
+// (every segment from pi, the first exact), fix (each later segment from its
+// neighbour's speculative end, up to the first checkpoint where its state
+// equals the stored one bitwise) and splice (the segments in order, re-running
+// any whose stored trajectory did not start from its neighbour's true end).
+// Every period's state is the unsplit kernel's, bit for bit.
 #include "smc_common.cuh"
 
 using namespace phlash;
@@ -80,6 +89,184 @@ smc_forward_kernel(const float* __restrict__ b, const float* __restrict__ d,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split path: K segments a row (ops/smc.segment_plan), three launches.
+// ---------------------------------------------------------------------------
+
+struct FwdSplit {
+  int K, P;                    // segments a row, periods a segment (P % CHECK_EVERY == 0)
+  float* pstates;              // (n_per, S, B, M) the period states (B2), or nullptr (B1)
+  float* ckpt;                 // (n_chk, S, B, M) the states at the checkpoints (B1), or nullptr
+  float* int_ll;               // (n_chk, S, B) each interval's sum of log c
+  float* seg_ll;               // (K, S, B) each segment's sum of its intervals, in order
+  float* spec_end;             // (K, S, B, M) the speculative pass's end states
+  float* end;                  // (K, S, B, M) the end state of each segment's stored trajectory
+  unsigned long long* counts;  // SplitCount
+};
+
+// Segment k of one instance's row from the state a (registers, advanced in
+// place).  SPEC runs the whole segment and stores its trajectory; FIX
+// compares a with the stored trajectory at each checkpoint and is done at the
+// first one where they are equal bitwise (from there on the stored states are
+// this chain's), storing its own states, interval sums and (if it never met)
+// end state before that.  A group that is done (met, or a clamped copy)
+// computes on for the shuffles and stores nothing.  Returns the sites the
+// group ran before it was done.
+template <int M, int SPL, bool FIX>
+__device__ __forceinline__ unsigned forward_segment(float* a, bool& done, bool& met, int k,
+                                                    const GroupLane& me, const Rows<SPL>& w,
+                                                    const int8_t* __restrict__ row, int B, int S,
+                                                    int L, const FwdSplit& ws, int8_t* sh) {
+  constexpr int G = Group<M, SPL>::G;
+  const int m0 = me.lane * SPL;
+  const int n_per = (L + NORM_EVERY - 1) / NORM_EVERY;
+  const Segment seg(k, ws.P, n_per);
+  const int t_end = min(seg.q1 * NORM_EVERY, L);
+  const size_t inst = static_cast<size_t>(me.s) * B + me.p;  // chunk-major instance
+  const size_t per = static_cast<size_t>(S) * B;             // instances a period
+  unsigned ran = 0;
+  bool wrote = false, stop = false;
+  float acc = 0.f;
+  for (int t0 = seg.q0 * NORM_EVERY; t0 < t_end && !stop; t0 += OBS_TILE) {
+    const int n = min(OBS_TILE, t_end - t0);
+    __syncthreads();  // the previous tile's readers are done
+    const int mis = stage_obs(row + t0, n, sh);
+    __syncthreads();
+    for (int j0 = 0; j0 < n; j0 += NORM_EVERY) {
+      const int q = (t0 + j0) / NORM_EVERY;
+      if (q % CHECK_EVERY == 0) {
+        const size_t i = q / CHECK_EVERY;
+        if (q > seg.q0 && !done) {
+          if (me.lane == 0) ws.int_ll[(i - 1) * per + inst] = acc;
+          wrote = true;
+        }
+        acc = 0.f;
+        float* st = ws.pstates != nullptr ? ws.pstates + (q * per + inst) * M + m0
+                                          : ws.ckpt + (i * per + inst) * M + m0;
+        if constexpr (FIX) {
+          const bool same = group_equal<G, SPL>(a, st);
+          met = met || (same && !done);
+          done = done || same;
+          if (!__syncthreads_or(!done)) {
+            stop = true;
+            break;
+          }
+        }
+        if (!done && ws.ckpt != nullptr) store_states<SPL>(st, a);
+      }
+      if (!done && ws.pstates != nullptr)
+        store_states<SPL>(ws.pstates + (q * per + inst) * M + m0, a);
+      acc += logf(forward_period<G, SPL>(a, sh, mis, j0, n, me.lane, w.b, w.d, w.u, w.v, w.e0,
+                                         w.e1));
+      if (!done) ran += min(NORM_EVERY, n - j0);
+    }
+  }
+  if (!stop && !done) {  // ran the whole segment: its last interval and its end
+    if (me.lane == 0) ws.int_ll[static_cast<size_t>((seg.q1 - 1) / CHECK_EVERY) * per + inst] = acc;
+    store_states<SPL>(ws.end + (static_cast<size_t>(k) * per + inst) * M + m0, a);
+    wrote = true;
+  }
+  if (wrote && me.lane == 0) {  // the segment's sum of its intervals, in order
+    float s = 0.f;
+    for (int i = seg.q0 / CHECK_EVERY; i <= (seg.q1 - 1) / CHECK_EVERY; ++i)
+      s += ws.int_ll[static_cast<size_t>(i) * per + inst];
+    ws.seg_ll[static_cast<size_t>(k) * per + inst] = s;
+  }
+  return ran;
+}
+
+// Speculative pass: segment k = blockIdx.z from pi (exact for k = 0, a guess
+// after), storing its whole trajectory.
+template <int M, int SPL>
+__global__ void __launch_bounds__(Group<M, SPL>::THREADS)
+smc_forward_kernel_speculate(const float* __restrict__ b, const float* __restrict__ d,
+                             const float* __restrict__ u, const float* __restrict__ vv,
+                             const float* __restrict__ e0, const float* __restrict__ e1,
+                             const float* __restrict__ pi, const int8_t* __restrict__ obs,
+                             int B, int S, int L, FwdSplit ws) {
+  __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
+  const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
+  const int m0 = me.lane * SPL;
+  Rows<SPL> w;
+  w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
+  float a[SPL];
+  load_params<SPL>(pi + me.i * M + m0, a);
+  const int k = blockIdx.z;
+  bool done = !me.active, met = false;
+  const unsigned ran = forward_segment<M, SPL, false>(a, done, met, k, me, w,
+                                                      obs + static_cast<size_t>(me.s) * L, B, S,
+                                                      L, ws, sh);
+  if (me.active)
+    store_states<SPL>(
+        ws.spec_end + (static_cast<size_t>(k) * S * B + static_cast<size_t>(me.s) * B + me.p) * M + m0,
+        a);
+  const bool first = me.active && me.lane == 0;
+  add_count(ws.counts, SEGMENTS, first ? 1u : 0u);
+  add_count(ws.counts, SPLIT_SITES, first ? ran : 0u);
+}
+
+// Fix pass: segment k = blockIdx.z + 1 from segment k - 1's speculative end.
+template <int M, int SPL>
+__global__ void __launch_bounds__(Group<M, SPL>::THREADS)
+smc_forward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d,
+                       const float* __restrict__ u, const float* __restrict__ vv,
+                       const float* __restrict__ e0, const float* __restrict__ e1,
+                       const int8_t* __restrict__ obs, int B, int S, int L, FwdSplit ws) {
+  __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
+  const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
+  const int m0 = me.lane * SPL;
+  Rows<SPL> w;
+  w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
+  const int k = blockIdx.z + 1;
+  const size_t per = static_cast<size_t>(S) * B, inst = static_cast<size_t>(me.s) * B + me.p;
+  float a[SPL];
+  load_states<SPL>(ws.spec_end + ((k - 1) * per + inst) * M + m0, a);
+  bool done = !me.active, met = false;
+  const unsigned ran = forward_segment<M, SPL, true>(a, done, met, k, me, w,
+                                                     obs + static_cast<size_t>(me.s) * L, B, S,
+                                                     L, ws, sh);
+  const bool first = me.active && me.lane == 0;
+  add_count(ws.counts, RESOLVED, first && met ? 1u : 0u);
+  add_count(ws.counts, FIX_SITES, first ? ran : 0u);
+}
+
+// Splice: a group an instance walks segments 1 .. K-1 in order from segment
+// 0's end, re-running (as the fix pass) any segment whose stored trajectory
+// did not start from its predecessor's true end; then ll (the segments' sums
+// in order) and alpha (the last segment's end).
+template <int M, int SPL>
+__global__ void __launch_bounds__(Group<M, SPL>::THREADS)
+smc_forward_kernel_splice(const float* __restrict__ b, const float* __restrict__ d,
+                          const float* __restrict__ u, const float* __restrict__ vv,
+                          const float* __restrict__ e0, const float* __restrict__ e1,
+                          const int8_t* __restrict__ obs, int B, int S, int L, FwdSplit ws,
+                          float* __restrict__ ll, float* __restrict__ alpha) {
+  __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
+  const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
+  const int m0 = me.lane * SPL;
+  Rows<SPL> w;
+  w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
+  const size_t per = static_cast<size_t>(S) * B, inst = static_cast<size_t>(me.s) * B + me.p;
+  float a[SPL];
+  load_states<SPL>(ws.end + inst * M + m0, a);
+  unsigned ran = 0;
+  for (int k = 1; k < ws.K; ++k) {
+    bool done = !me.active, met = false;
+    ran += forward_segment<M, SPL, true>(a, done, met, k, me, w,
+                                         obs + static_cast<size_t>(me.s) * L, B, S, L, ws, sh);
+    load_states<SPL>(ws.end + (k * per + inst) * M + m0, a);
+  }
+  if (me.active) {
+    if (me.lane == 0) {
+      float s = 0.f;
+      for (int k = 0; k < ws.K; ++k) s += ws.seg_ll[k * per + inst];
+      ll[me.i] = s;
+    }
+    store_states<SPL>(alpha + me.i * M + m0, a);
+  }
+  add_count(ws.counts, FIX_SITES, me.active && me.lane == 0 ? ran : 0u);
+}
+
 extern "C" int phlash_smc_forward(const float* b, const float* d, const float* u,
                                   const float* vv, const float* e0, const float* e1,
                                   const float* pi, const int8_t* obs, int B, int S, int L,
@@ -98,6 +285,45 @@ extern "C" int phlash_smc_forward(const float* b, const float* d, const float* u
 #undef PHLASH_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The split forward: K >= 2 segments of P periods (the last may be shorter,
+// none empty); exactly one of pstates (B2) and ckpt (B1) is set.
+extern "C" int phlash_smc_forward_split(const float* b, const float* d, const float* u,
+                                        const float* vv, const float* e0, const float* e1,
+                                        const float* pi, const int8_t* obs, int B, int S, int L,
+                                        int M, int K, int P, float* ll, float* alpha,
+                                        float* pstates, float* ckpt, float* int_ll,
+                                        float* seg_ll, float* spec_end, float* end,
+                                        unsigned long long* counts, void* stream) {
+  const int n_per = L > 0 ? (L + NORM_EVERY - 1) / NORM_EVERY : 0;
+  if (B <= 0 || S <= 0 || S > 65535 || L <= 0 || K < 2 || K > 65535 || P <= 0 ||
+      P % CHECK_EVERY != 0 || static_cast<long long>(K - 1) * P >= n_per ||
+      static_cast<long long>(K) * P < n_per || (pstates == nullptr) == (ckpt == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int gx = (B + INSTANCES_PER_BLOCK - 1) / INSTANCES_PER_BLOCK;
+  const FwdSplit ws{K, P, pstates, ckpt, int_ll, seg_ll, spec_end, end, counts};
+#define PHLASH_FWD_SPLIT(MM, SS)                                                           \
+  if (M == MM) {                                                                           \
+    constexpr int T = Group<MM, SS>::THREADS;                                              \
+    smc_forward_kernel_speculate<MM, SS><<<dim3(gx, S, K), T, 0, st>>>(                    \
+        b, d, u, vv, e0, e1, pi, obs, B, S, L, ws);                                        \
+    cudaError_t err = cudaGetLastError();                                                  \
+    if (err != cudaSuccess) return static_cast<int>(err);                                  \
+    smc_forward_kernel_fix<MM, SS><<<dim3(gx, S, K - 1), T, 0, st>>>(                      \
+        b, d, u, vv, e0, e1, obs, B, S, L, ws);                                            \
+    err = cudaGetLastError();                                                              \
+    if (err != cudaSuccess) return static_cast<int>(err);                                  \
+    smc_forward_kernel_splice<MM, SS><<<dim3(gx, S), T, 0, st>>>(                          \
+        b, d, u, vv, e0, e1, obs, B, S, L, ws, ll, alpha);                                 \
+    return static_cast<int>(cudaGetLastError());                                           \
+  }
+  PHLASH_SMC_INSTANCES(PHLASH_FWD_SPLIT)
+#undef PHLASH_FWD_SPLIT
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int phlash_smc_check_every() { return CHECK_EVERY; }
 
 // the kernels' mapping at M: states per lane (0 if no kernel is built for M)
 // and instances per block

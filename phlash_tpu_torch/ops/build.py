@@ -75,6 +75,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_smc_forward.restype = I
     lib.phlash_smc_backward.argtypes = [P] * 10 + [I] * 4 + [P] * 8
     lib.phlash_smc_backward.restype = I
+    lib.phlash_smc_forward_split.argtypes = [P] * 8 + [I] * 6 + [P] * 10
+    lib.phlash_smc_forward_split.restype = I
+    lib.phlash_smc_backward_split.argtypes = [P] * 10 + [I] * 6 + [P] * 14
+    lib.phlash_smc_backward_split.restype = I
+    lib.phlash_smc_check_every.argtypes = []
+    lib.phlash_smc_check_every.restype = I
     lib.phlash_smc_states_per_lane.argtypes = [I]
     lib.phlash_smc_states_per_lane.restype = I
     lib.phlash_smc_instances_per_block.argtypes = []

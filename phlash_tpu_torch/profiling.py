@@ -42,7 +42,11 @@ then also opens a profiler range of the span's name, so the span sits in
 the profiler's trace on the same timeline as the device's work (`trace`
 around a fit shows every span).
 With the profiler off, a call's span site reads one flag and allocates
-nothing.  Counters (`count`) add to the innermost recorded open span and,
+nothing.  The record also carries `counts`: the SMC' kernels' split
+launches count on the device (ops/smc.DEVICE_COUNTS: smc_segments,
+smc_segments_resolved, smc_fix_sites, smc_split_sites), zeroed when the fit
+opens and read once when its record closes (zeros where nothing split, as
+on the CPU), so no call syncs for them.  Counters (`count`) add to the innermost recorded open span and,
 when it closes, to its parent: `host_syncs` counts the loop's blocking
 reads of the device (the finiteness check, the ELPD read and the
 read-back's copy), and on a mesh `collectives` counts every collective
@@ -128,11 +132,13 @@ class FitTrace:
     """The spans of one fit, in the order they opened, and the loop's
     throughput: `iterations` (SVGD iterations the loop ran) and `rate`
     (iterations a second between the first call's callback and the last
-    call's; where the fit has no callback, the points where it would run)."""
+    call's; where the fit has no callback, the points where it would run);
+    `counts`, the device's counts of the fit (empty until it closes)."""
 
     def __init__(self):
         self.id = next(_ids)
         self.spans: list[Span] = []
+        self.counts: dict[str, int] = {}
         self.iterations = 0
         self.closed = False
         self.call: int | None = None  # index of the call running
@@ -211,15 +217,26 @@ def records_fit(fit):
         global _open, _last, _autograd_profiler
         import torch.autograd.profiler
 
+        from phlash_tpu_torch.ops import smc
+
         _autograd_profiler = torch.autograd.profiler
         tr, outer = FitTrace(), _open
         _open = _last = tr
+        smc.reset_device_counts()
+        returned = False
         try:
             with Span("phlash.fit", {"fit": tr.id}):
-                return fit(*args, **kwargs)
+                out = fit(*args, **kwargs)
+            returned = True
+            return out
         finally:
             tr.closed = True
             _open = outer
+            try:
+                tr.counts.update(smc.device_counts())
+            except RuntimeError:  # a device fault: the fit's own exception says more
+                if returned:
+                    raise
 
     return recorded
 

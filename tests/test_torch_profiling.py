@@ -94,7 +94,7 @@ FIT = dict(device="cpu", kernel_backend="smc", num_particles=4, overlap=4, chunk
 CALL_CHILDREN = {"phlash.call.draw", "phlash.call.launch", "phlash.call.finite_check",
                  "phlash.call.elpd_read", "phlash.call.readback", "phlash.call.user_callback"}
 READERS = ("launch_ms_per_call", "readback_ms_per_call", "syncs_per_call", "fit_ingest_s",
-           "upload_s", "capture_s")
+           "upload_s", "capture_s", "hmm_fix_share")
 
 
 def _read(name: str):
@@ -115,7 +115,7 @@ def untraced():
 
 @pytest.fixture(scope="module")
 def traced(tmp_path_factory):
-    """(models, FitTrace, the Chrome trace's path, the six readers' readings)
+    """(models, FitTrace, the Chrome trace's path, the readers' readings)
     of the same fit inside profiling.trace."""
     log_dir = str(tmp_path_factory.mktemp("fit_trace"))
     with trace(log_dir):
@@ -283,5 +283,29 @@ def test_the_benchmarks_readers_read_the_record(traced, name):
         assert value == 3.0
     elif name == "capture_s":
         assert value == 0.0  # no CUDA graph on the CPU
+    elif name == "hmm_fix_share":
+        assert value == 0.0  # the plain versions split nothing
     else:
         assert value > 0
+
+
+def test_the_record_carries_the_split_kernels_device_counts(untraced, traced, monkeypatch):
+    """Each fit's record closes with the four device counts of the SMC'
+    kernels' split launches (zeros on the CPU, where nothing splits), read
+    when the fit ends, also by an exception; reset at each fit's start."""
+    from phlash_tpu_torch.ops import smc
+
+    want = dict.fromkeys(smc.DEVICE_COUNTS, 0)
+    assert set(smc.DEVICE_COUNTS) == {"smc_segments", "smc_segments_resolved", "smc_fix_sites",
+                                      "smc_split_sites"}
+    assert untraced[1].counts == want and traced[1].counts == want
+    resets = []
+    monkeypatch.setattr(smc, "reset_device_counts", lambda: resets.append(1))
+
+    def stop(dm):
+        raise RuntimeError("stop")
+
+    with pytest.raises(RuntimeError, match="stop"):
+        mcmc.fit([TRAIN], HELD_OUT, callback=stop, **FIT)
+    rec = profiling.last_fit()
+    assert resets == [1] and rec.closed and rec.counts == want

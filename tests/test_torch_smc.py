@@ -253,9 +253,11 @@ def test_pstates_are_chunk_major_period_states(Lr):
 
 def test_states_per_lane_and_geometry():
     """The kernels' mapping as csrc/smc_common.cuh states it: one states-per-
-    lane instance for each supported M, groups of 4 to 32 lanes; at the fit
-    shape (B=500, S=5, M=16) 4-lane groups, 8 instances a warp, one-warp
-    blocks.  kernel_geometry refuses an M with no kernel before it builds."""
+    lane instance for each supported M (as ops/smc.STATES_PER_LANE has it),
+    groups of 4 to 32 lanes, and the split path's checkpoint interval
+    (CHECK_PERIODS); at the fit shape (B=500, S=5, M=16) 4-lane groups, 8
+    instances a warp, one-warp blocks.  kernel_geometry refuses an M with no
+    kernel before it builds."""
     import re
     from pathlib import Path
 
@@ -264,6 +266,9 @@ def test_states_per_lane_and_geometry():
     spl = {int(m): int(s) for m, s in re.findall(r"X\((\d+), (\d+)\)", mapping)}
     per_block = int(re.search(r"INSTANCES_PER_BLOCK = (\d+);", header).group(1))
     assert tuple(spl) == smc.SUPPORTED_M
+    assert spl == smc.STATES_PER_LANE and per_block == smc.INSTANCES_PER_BLOCK
+    check_every = int(re.search(r"constexpr int CHECK_EVERY = (\d+);", header).group(1))
+    assert check_every == smc.CHECK_PERIODS
     for M, s in spl.items():
         lanes = M // s
         assert M % s == 0 and 4 <= lanes <= 32 and lanes & (lanes - 1) == 0
@@ -286,3 +291,105 @@ def test_dispatch_by_device():
         smc.forward_cuda([p.float() for p in params], pi.float(), obs, True)
     with pytest.raises(ValueError, match="support M"):
         SMCKernel(24, np.zeros((1, 8), np.int8), device="cpu")
+
+
+# The split path's plain rendering (forward_segmented / backward_segmented)
+# against the unsplit plain versions.  (B, S, L, K, dtype, theta = rho, het
+# rate, all missing): rows that forget their start within a few hundred
+# sites, in float32 and float64; all-missing rows with a tiny recombination
+# rate, where no fix chain meets and the splice re-runs segment after
+# segment; and more segments asked for than the row has checkpoint
+# intervals (38 periods: 3 intervals of 16).
+SPLIT_CASES = {
+    "mixes_f32": (3, 2, 3000, 6, torch.float32, 0.1, 0.1, False),
+    "mixes_f64": (3, 2, 6000, 6, torch.float64, 0.1, 0.1, False),
+    "never_meets": (3, 2, 2000, 4, torch.float64, 1e-9, 0.1, True),
+    "k_past_intervals": (3, 2, 300, 50, torch.float64, 1e-2, 0.1, False),
+}
+
+
+def _split_case(B, S, Lr, dtype, rho, het, missing, seed=11):
+    "Params at theta = 0.1, rho; random pi; rows at the het rate (or all missing), a padded tail."
+    rng = np.random.default_rng(seed)
+    base = PSMCParams.from_dm(DemographicModel.default(pattern="16*1", theta=0.1, rho=rho))
+    tpp = _batched(base, B, torch.float64)
+    params = [getattr(tpp, k).to(dtype).contiguous() for k in PARAMS6]
+    pi = torch.as_tensor(rng.dirichlet(np.ones(16), size=(B, S))).to(dtype)
+    obs = torch.as_tensor(rng.binomial(1, het, size=(S, Lr)).astype(np.int8))
+    if missing:
+        obs[:] = -1
+    obs[-1, Lr - 5:] = -2
+    gbar = torch.as_tensor(rng.standard_normal((B, S))).to(dtype)
+    abar0 = torch.as_tensor(rng.standard_normal((B, S, 16))).to(dtype)
+    return params, pi, obs, gbar, abar0
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_plan_matches_the_unsplit_plain_versions(case):
+    """The split forward's pstates and alpha are the unsplit forward's bit for
+    bit; ll and the adjoint's gradients equal the unsplit ones to rounding
+    (float64: 1e-12 of max; float32: within the card's gates of the float64
+    unsplit values, rtol 1e-5 and 2e-5 of max); the counts say what ran."""
+    B, S, Lr, K, dtype, rho, het, missing = SPLIT_CASES[case]
+    params, pi, obs, gbar, abar0 = _split_case(B, S, Lr, dtype, rho, het, missing)
+    plan = smc.segments(smc.n_periods(Lr), K)
+    ll, alpha, pst = smc.forward_structured(params, pi, obs, True)
+    ll_s, alpha_s, pst_s, fwd = smc.forward_segmented(params, pi, obs, True, smc.Plan(K, 0))
+    assert torch.equal(pst_s, pst) and torch.equal(alpha_s, alpha)
+    _, alpha_1, none, _ = smc.forward_segmented(params, pi, obs, False, smc.Plan(K, 0))
+    assert none is None and torch.equal(alpha_1, alpha)
+    grads, dpi = smc.backward_structured(params, obs, pst, gbar, abar0)
+    grads_s, dpi_s, bwd = smc.backward_segmented(params, obs, pst, gbar, abar0, smc.Plan(K, 0))
+    if dtype == torch.float64:
+        want_ll, want = ll, (*grads, dpi)
+        ll_tol, grad_tol = 1e-12, 1e-12
+    else:
+        p64 = [x.double() for x in params]
+        ll64, _, pst64 = smc.forward_structured(p64, pi.double(), obs, True)
+        g64, dpi64 = smc.backward_structured(p64, obs, pst64, gbar.double(), abar0.double())
+        want_ll, want = ll64, (*g64, dpi64)
+        ll_tol, grad_tol = 1e-5, 2e-5
+    np.testing.assert_allclose(ll_s.double().numpy(), want_ll.double().numpy(), rtol=ll_tol)
+    for name, got, ref in zip(("b", "d", "u", "v", "emis0", "emis1", "pi"), (*grads_s, dpi_s),
+                              want):
+        err = float((got.double() - ref.double()).abs().max())
+        assert err <= grad_tol * (float(ref.abs().max()) + 1e-300), (name, err)
+    n_inst = B * S
+    for c in (fwd, bwd):
+        assert c["smc_segments"] == plan.K * n_inst and c["smc_split_sites"] == n_inst * Lr
+        assert 0 <= c["smc_segments_resolved"] <= (plan.K - 1) * n_inst
+    if case.startswith("mixes"):  # most fix chains meet inside their own segment
+        for c in (fwd, bwd):
+            assert c["smc_segments_resolved"] >= (plan.K - 1) * n_inst // 2
+            assert 0 < c["smc_fix_sites"] < c["smc_split_sites"]
+    elif case == "never_meets":  # no fix meets; the splice re-runs segments 2 .. K-1 whole
+        assert fwd["smc_segments_resolved"] == 0
+        seg_sites = plan.periods * smc.NORM_EVERY
+        assert fwd["smc_fix_sites"] == n_inst * ((Lr - seg_sites) + (Lr - 2 * seg_sites))
+    else:
+        assert plan == smc.Plan(3, 16)
+
+
+@pytest.mark.parametrize("direction", ["forward", "adjoint"])
+def test_segment_plan(direction):
+    """K = 1 at the short cell's shapes (chunks of 500 + 100), for the
+    warm-up filter and on a card the instances already fill; K >= 2 along a
+    genome's rows, as many as fill the direction's TARGET_WARPS_PER_SM a SM;
+    segments of whole checkpoint intervals, none empty and none under
+    MIN_SEGMENT_SITES sites (but the last)."""
+    sms = 132
+    target = smc.TARGET_WARPS_PER_SM[direction]
+    for B, S, L in ((500, 5, 600), (500, 5, 100), (500, 5, 500), (500, 40, 94_000),
+                    (500, 5, 2000), (1, 1, smc.MIN_SEGMENT_SITES * 2 - 1)):
+        assert smc.segment_plan(B, S, L, 16, sms, direction).K == 1, (B, S, L)
+    for B, S, L in ((500, 1, 94_000), (500, 5, 94_000), (500, 4, 94_000), (32, 1, 5_000),
+                    (500, 1, 93_999), (1, 1, 10**6)):
+        n_per = smc.n_periods(L)
+        K, P = smc.segment_plan(B, S, L, 16, sms, direction)
+        assert K >= 2 and P % smc.CHECK_PERIODS == 0 and (K - 1) * P < n_per <= K * P
+        assert P * smc.NORM_EVERY >= smc.MIN_SEGMENT_SITES
+        warps = smc.launch_geometry(B, S, 16, smc.STATES_PER_LANE[16], smc.INSTANCES_PER_BLOCK)
+        assert K * warps["warps"] <= target * sms
+    want = {"forward": smc.Plan(32, 368), "adjoint": smc.Plan(16, 736)}[direction]
+    assert smc.segment_plan(500, 1, 94_000, 16, sms, direction) == want
+    assert smc.segments(100, 1) == smc.Plan(1, 100) and smc.segments(20, 8) == smc.Plan(2, 16)

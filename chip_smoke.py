@@ -171,7 +171,12 @@ Phases, each of which prints its own lines and aborts the run on failure:
    plain float64 versions at a genome fit's chunk (B = 500, S = 1,
    L = 94,000, PACKED_GENOME_SHAPE: the benchmark's diploid.packed cell,
    whose 376 MB of checkpoints an iteration live in HBM, not L2), at phase
-   3b's tolerances; ll, the checkpoints and dA, de0, de1, dpi.
+   3b's tolerances; ll, the checkpoints and dA, de0, de1, dpi; where the
+   rows split, the split kernels against K = 1 (checkpoints and dpi
+   bitwise, ll and the gradients at those tolerances); then B4 as the
+   held-out ELPD runs it (S = 4, no checkpoints) against its plain float64
+   version, and its split against K = 1 (checkpoints bitwise); the K sweeps
+   of both shapes printed.
 13. the step's ablation profile: B2 + B3 at L = 64 against their plain
    versions (the -sites row's length, below one observation tile), then
    `python tools/torch_step_profile.py` at its defaults in its own process
@@ -448,12 +453,146 @@ def gate_packed(torch, packed, params, pi, obs, gbar, where, errs):
                  f"normalized err {norm:.3e}")
     print(f"packed {where}: max rel err ll {e_ll:.3e} ckpt {e_ck:.3e}; "
           f"max normalized err over the 4 gradients {worst:.3e}")
+    check_packed_split(torch, packed, k_in, obs, gbar.float(), where, ll_k, ck_k, g_k)
     fwd, bwd = errs["forward"], errs["backward"]
     fwd["ll"], fwd["ckpt"] = max(fwd["ll"], e_ll), max(fwd["ckpt"], e_ck)
     fwd["abs"] = max(fwd["abs"], max_abs(ll_k, ll_p), max_abs(ck_k, ck_p))
     bwd["grad"] = max(bwd["grad"], worst)
     bwd["abs"] = max(bwd["abs"], *(max_abs(a, b) for a, b in zip(g_k, g_p)))
     return float(ck_p[ck_p > 0].min())
+
+
+def check_packed_split(torch, packed, k_in, obs, g32, where, ll_k, ck_k, g_k):
+    """Where packed.segment_plan splits the rows (K > 1), B4 / B5 as the
+    wrappers ran them against the unsplit kernels (K = 1) on the same
+    float32 inputs k_in = (A, e0, e1, pi): the checkpoints and dpi (abar at
+    site 0, the splice's last state) bitwise equal, ll and the other
+    gradients (the same terms summed in another order) within phase 3b's
+    gates; and the four device counts of the split launches (forward and
+    adjoint) printed."""
+    B, S, _ = k_in[3].shape
+    L = obs.shape[1]
+    plan = packed.segment_plan(B, S, L)
+    plan_b = packed.segment_plan(B, S, L, None, "adjoint")
+    if plan.K == 1 and plan_b.K == 1:
+        return
+    one = packed.Plan(1, 0)
+    ll_u, ck_u = packed.forward_launch(*k_in, obs, True, one)
+    g_u = packed.backward_launch(*k_in[:3], obs, ck_u, g32, one)
+    packed.reset_device_counts()
+    packed.forward_launch(*k_in, obs, True, plan)
+    packed.backward_launch(*k_in[:3], obs, ck_u, g32, plan_b)
+    counts = packed.device_counts()
+    if not torch.equal(ck_k, ck_u):
+        fail(f"the split packed forward ({tuple(plan)}) differs from the unsplit one at {where}")
+    if not torch.equal(g_k[3], g_u[3]):
+        fail(f"the split packed adjoint ({tuple(plan_b)}) gives another dpi than the unsplit "
+             f"one at {where}")
+    e_ll = max_rel(ll_k, ll_u.double())
+    grad = max(normalized(a, b.double()) for a, b in zip(g_k, g_u))
+    if not (e_ll <= 1e-5 and grad <= 2e-5):
+        fail(f"the split packed kernels ({tuple(plan)}, adjoint {tuple(plan_b)}) disagree with "
+             f"the unsplit ones at {where}: ll {e_ll:.3e}, gradients {grad:.3e}")
+    share = 100.0 * counts["packed_fix_sites"] / max(counts["packed_split_sites"], 1)
+    print(f"packed {where}: split {tuple(plan)} (adjoint {tuple(plan_b)}) against K = 1: "
+          f"checkpoints and dpi bitwise equal; max rel ll {e_ll:.3e}, max normalized gradient "
+          f"{grad:.3e}; counts {json.dumps(counts)} (fix share {share:.2f}%)")
+
+
+def gate_packed_elpd(torch, packed, params, pi, obs, where, errs):
+    """B4 as the held-out ELPD runs it (S > 1 chunks a particle, so the
+    split launches index rows by blockIdx.y, with its own segment plan):
+    the forward wrapper without checkpoints against the plain float64
+    forward at phase 3b's ll gate; at segment_plan's split, with and
+    without checkpoints the same ll bitwise, and the checkpoints bitwise
+    those of K = 1, its ll within the same gate.  Folds the ll error into
+    `errs`."""
+    from phlash_tpu_torch.ops.packing import dense_transition
+    from phlash_tpu_torch.params import PSMCParams
+
+    B, S, _ = pi.shape
+    L = obs.shape[1]
+    A = dense_transition(PSMCParams(*params, pi=pi))
+    k_in = tuple(x.float().contiguous() for x in (A, *params[4:], pi))
+    ll_p, _ = packed.forward_packed(A, *params[4:], pi, obs, with_ckpt=False)
+    del A
+    ll_w, no_ck = packed.forward_packed_cuda(*k_in, obs, with_ckpt=False)
+    torch.cuda.synchronize()
+    e_w = max_rel(ll_w, ll_p)
+    if no_ck is not None or not e_w <= 1e-5:
+        fail(f"the packed forward without checkpoints disagrees with the plain version at "
+             f"{where}: ll {e_w:.3e}")
+    fwd = errs["forward"]
+    fwd["ll"], fwd["abs"] = max(fwd["ll"], e_w), max(fwd["abs"], max_abs(ll_w, ll_p))
+    plan = packed.segment_plan(B, S, L)
+    line = f"packed {where} (the ELPD's B4): max rel err ll {e_w:.3e} without checkpoints"
+    if plan.K > 1:
+        ll_u, ck_u = packed.forward_launch(*k_in, obs, True, packed.Plan(1, 0))
+        packed.reset_device_counts()
+        ll_k, ck_k = packed.forward_launch(*k_in, obs, True, plan)
+        counts = packed.device_counts()
+        ll_k0, _ = packed.forward_launch(*k_in, obs, False, plan)
+        if not torch.equal(ck_k, ck_u):
+            fail(f"the split packed forward ({tuple(plan)}) differs from the unsplit one at "
+                 f"{where}")
+        if not torch.equal(ll_k0, ll_k):
+            fail(f"the split packed forward ({tuple(plan)}) without checkpoints gives another "
+                 f"ll at {where}")
+        e_u = max_rel(ll_k, ll_u.double())
+        if not e_u <= 1e-5:
+            fail(f"the split packed forward ({tuple(plan)}) disagrees with the unsplit one at "
+                 f"{where}: ll {e_u:.3e}")
+        share = 100.0 * counts["packed_fix_sites"] / max(counts["packed_split_sites"], 1)
+        line += (f"; split {tuple(plan)} against K = 1: checkpoints bitwise equal, ll the same "
+                 f"bits without them, max rel ll {e_u:.3e}; counts {json.dumps(counts)} "
+                 f"(fix share {share:.2f}%)")
+    print(line)
+
+
+# the K sweeps of phase 12b: (S, direction, the segments asked for)
+PACKED_K_SWEEP = ((1, "forward", (1, 8, 16, 24, 32, 40, 48, 64)),
+                  (1, "adjoint", (1, 2, 3, 4, 5, 6, 7, 8, 9, 12)),
+                  (4, "forward", (1, 2, 4, 6, 8, 10, 12, 16)))
+
+
+def packed_k_sweep(torch, packed, dev, gen, B: int, L: int) -> dict:
+    """Card ms of B4 (with checkpoints) and B5 at B x S x L over the plans of
+    PACKED_K_SWEEP on random float32 instances, each with its fix share
+    (the device counts of one launch); segment_plan's pick marked."""
+    from phlash_tpu_torch.ops.packing import dense_transition
+    from phlash_tpu_torch.params import PSMCParams
+
+    out = {}
+    for S, direction, ks in PACKED_K_SWEEP:
+        params, pi, obs = random_instances(torch, 16, B, S, L, dev, gen)
+        k_in = tuple(x.float().contiguous() for x in (
+            dense_transition(PSMCParams(*params, pi=pi)), *params[4:], pi))
+        del params, pi
+        g32 = torch.randn(B, S, generator=gen, device=dev)
+        _, ck = packed.forward_launch(*k_in, obs, True, packed.Plan(1, 0))
+        pick = packed.segment_plan(B, S, L, None, direction)
+        rows = []
+        for K in ks:
+            plan = packed.segments(packed.n_segments(L, packed.DEFAULT_SEG), K)
+            if direction == "forward":
+                run = lambda: packed.forward_launch(*k_in, obs, True, plan)  # noqa: E731
+            else:
+                run = lambda: packed.backward_launch(*k_in[:3], obs, ck, g32, plan)  # noqa: E731
+            packed.reset_device_counts()
+            run()
+            c = packed.device_counts()
+            ms = time_ms(torch, run, 5)
+            share = 100.0 * c["packed_fix_sites"] / max(c["packed_split_sites"], 1)
+            rows.append(dict(K=plan.K, periods=plan.periods, ms=ms, fix_share=share,
+                             resolved=c["packed_segments_resolved"], picked=plan == pick))
+            print(f"  K sweep {direction} B={B} S={S} L={L}: K = {plan.K} ({plan.periods} periods)"
+                  f" {ms:.3f} ms, fix share {share:.2f}%, resolved "
+                  f"{c['packed_segments_resolved']} of {(plan.K - 1) * B * S}"
+                  f"{'  <- segment_plan' if plan == pick else ''}")
+        out[f"{direction}_S{S}"] = rows
+        del k_in, obs, ck
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_packed_kernels(torch, packed, dev):
@@ -2908,12 +3047,15 @@ def validation_phase(torch, smc, dev, power_line: str, tmp: str) -> tuple[dict, 
 # phase 12b: B4 / B5 at a genome fit's chunk, as `fit(kernel_backend="packed",
 # overlap=0)` runs one diploid genome at its default chunking
 PACKED_GENOME_SHAPE = (500, 1, 94_000)
+# and the chunks a particle of the held-out ELPD's B4 at that shape (no checkpoints)
+PACKED_ELPD_S = 4
 
 
 def packed_genome_phase(torch, packed, dev, power_line: str) -> dict:
-    """Phase 12b: gate_packed at PACKED_GENOME_SHAPE on random instances
-    (phase 3b's tolerances; the plain float64 versions dispatch every site
-    from the host).  Returns the errors as check_packed_kernels does."""
+    """Phase 12b: gate_packed at PACKED_GENOME_SHAPE and gate_packed_elpd at
+    its PACKED_ELPD_S chunks a particle, on random instances (phase 3b's
+    tolerances; the plain float64 versions dispatch every site from the
+    host).  Returns the errors as check_packed_kernels does."""
     errs = {"forward": {"abs": 0.0, "ll": 0.0, "ckpt": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
     B, S, L = PACKED_GENOME_SHAPE
@@ -2923,8 +3065,14 @@ def packed_genome_phase(torch, packed, dev, power_line: str) -> dict:
     gate_packed(torch, packed, params, pi, obs, gbar, f"B={B} S={S} L={L}", errs)
     del params, pi, obs
     torch.cuda.empty_cache()
-    print(f"packed genome: B4 / B5 at B={B} S={S} L={L} checked in "
+    params, pi, obs = random_instances(torch, 16, B, PACKED_ELPD_S, L, dev, gen)
+    gate_packed_elpd(torch, packed, params, pi, obs, f"B={B} S={PACKED_ELPD_S} L={L}", errs)
+    del params, pi, obs
+    torch.cuda.empty_cache()
+    print(f"packed genome: B4 / B5 at B={B} S={S} L={L}, B4 at S={PACKED_ELPD_S}, checked in "
           f"{time.perf_counter() - t0:.1f} s on {power_line}: {json.dumps(errs)}")
+    if dev.type == "cuda":
+        errs["k_sweep"] = packed_k_sweep(torch, packed, dev, gen, B, L)
     return errs
 
 
@@ -3167,16 +3315,19 @@ def peak_entry(src: str, pk: dict) -> dict:
 
 def ptxas_report(log: str) -> dict:
     """(registers, spill-store bytes) of each kernel instance in a ptxas
-    log, by kernel<template arguments> (numbers, or float / double)."""
+    log, by kernel<template arguments> (numbers, or float / double), or by
+    its name alone where it is no template (the split kernels' suffixes,
+    `_speculate`, `_fix`, `_splice`, kept)."""
     import re
 
     out, name, spill = {}, None, 0
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?_kernel)I((?:Li\d+E|[fd])+)E", line)
+        m = re.search(r"Compiling entry function '_Z\d+(\w*?_kernel(?:_[a-z]+)?)"
+                      r"(?:I((?:Li\d+E|[fd])+)E)?", line)
         if m:
             args = [n or {"f": "float", "d": "double"}[t]
-                    for n, t in re.findall(r"Li(\d+)E|([fd])", m.group(2))]
-            name, spill = f"{m.group(1)}<{', '.join(args)}>", 0
+                    for n, t in re.findall(r"Li(\d+)E|([fd])", m.group(2) or "")]
+            name, spill = m.group(1) + (f"<{', '.join(args)}>" if args else ""), 0
             continue
         if name is None:
             continue

@@ -89,6 +89,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_packed_forward.restype = I
     lib.phlash_packed_backward.argtypes = [P] * 6 + [I] * 3 + [P] * 5
     lib.phlash_packed_backward.restype = I
+    lib.phlash_packed_forward_split.argtypes = [P] * 5 + [I] * 5 + [P] * 12
+    lib.phlash_packed_forward_split.restype = I
+    lib.phlash_packed_backward_split.argtypes = [P] * 6 + [I] * 5 + [P] * 14
+    lib.phlash_packed_backward_split.restype = I
     lib.phlash_packed_period.argtypes = []
     lib.phlash_packed_period.restype = I
     lib.phlash_packed_states_per_lane.argtypes = [I]

@@ -179,8 +179,15 @@ def segment_plan(B: int, S: int, L: int, M: int, sms: int | None = None,
     if sms is None:
         sms = _sm_count(torch.cuda.current_device())
     warps = launch_geometry(B, S, M, STATES_PER_LANE[M], INSTANCES_PER_BLOCK)["warps"]
-    K = min(TARGET_WARPS_PER_SM[direction] * sms // warps, L // MIN_SEGMENT_SITES)
-    return segments(n_periods(L), K)
+    return segments(n_periods(L), split_count(warps, TARGET_WARPS_PER_SM[direction], sms, L))
+
+
+def split_count(warps: int, target: int, sms: int, L: int) -> int:
+    """The rule of segment_plan (and of ops/packed.segment_plan) before
+    `segments` rounds it: as many segments as bring an unsplit grid of
+    `warps` warps to `target` warps on each of `sms` SMs, and no more than
+    rows of L sites hold at MIN_SEGMENT_SITES a segment."""
+    return min(target * sms // warps, L // MIN_SEGMENT_SITES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -315,10 +322,11 @@ def _same(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _keep(done: torch.Tensor, old, new):
-    "new where an instance is not done, old where it is (new alone where nothing was stored)."
+    """new where an instance is not done, old where it is (new alone where
+    nothing was stored); done (B, S) against (B, S, ...) values."""
     if old is None:
         return new
-    return torch.where(done if old.dim() == done.dim() else done[..., None], old, new)
+    return torch.where(done.view(*done.shape, *(1,) * (old.dim() - done.dim())), old, new)
 
 
 def forward_segmented(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool,
@@ -521,7 +529,7 @@ def forward_launch(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: 
             err = lib.lib.phlash_smc_forward_split(
                 *map(ptr, params), ptr(pi), ptr(obs), B, S, L, M, K, P,
                 ptr(ll), ptr(alpha), ptr(pstates), ptr(ckpt), *map(ptr, work), *map(ptr, ends),
-                ptr(_device_counter(dev)), stream(dev),
+                ptr(_counters.on(dev)), stream(dev),
             )
     check(lib, err, "smc_forward launch")
     return ll, alpha, pstates
@@ -567,7 +575,7 @@ def backward_launch(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torc
             err = lib.lib.phlash_smc_backward_split(
                 *map(ptr, params), ptr(obs), ptr(pstates), ptr(gbar), ptr(abar0),
                 B, S, L, M, K, P, *map(ptr, grads), *map(ptr, work),
-                ptr(_device_counter(dev)), stream(dev),
+                ptr(_counters.on(dev)), stream(dev),
             )
     check(lib, err, "smc_backward launch")
     return tuple(grads[:6]), grads[6]
@@ -577,25 +585,44 @@ def backward_launch(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torc
 # the split launches' device counters
 # ---------------------------------------------------------------------------
 
-_device_counters: dict = {}  # torch.device -> int64 (4,), added to by the split kernels
+class DeviceCounters:
+    """The split launches' integer counters on each device, one int64 a name
+    (`names`, in csrc's SplitCount order): made zeroed by the first split
+    launch on a device, zeroed and read by the fit's record (profiling.py),
+    never by a call."""
+
+    def __init__(self, names: tuple):
+        self.names, self.by_device = names, {}
+
+    def on(self, dev: torch.device) -> torch.Tensor:
+        "The device's counters, made (zeroed) at the first split launch on it."
+        t = self.by_device.get(dev)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the split kernels' device counters are made by an eager "
+                                   "launch; run the call once before capturing it")
+            t = self.by_device[dev] = torch.zeros(len(self.names), dtype=torch.int64, device=dev)
+        return t
+
+    def reset(self) -> None:
+        for t in self.by_device.values():
+            t.zero_()
+
+    def read(self) -> dict:
+        "The counts summed over the devices since the last reset (one sync where any exist)."
+        out = dict.fromkeys(self.names, 0)
+        for t in self.by_device.values():
+            for name, n in zip(self.names, t.tolist()):
+                out[name] += n
+        return out
 
 
-def _device_counter(dev: torch.device) -> torch.Tensor:
-    "The device's counters, made (zeroed) at the first split launch on it."
-    t = _device_counters.get(dev)
-    if t is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the split kernels' device counters are made by an eager launch; "
-                               "run the call once before capturing it")
-        t = _device_counters[dev] = torch.zeros(len(DEVICE_COUNTS), dtype=torch.int64,
-                                                device=dev)
-    return t
+_counters = DeviceCounters(DEVICE_COUNTS)
 
 
 def reset_device_counts() -> None:
     "Zero the split launches' device counters (a fit's record does at its start)."
-    for t in _device_counters.values():
-        t.zero_()
+    _counters.reset()
 
 
 def device_counts() -> dict:
@@ -603,11 +630,7 @@ def device_counts() -> dict:
     segments the split launches ran, those whose fix met inside their own
     segment, the sites the fix chains ran and the sites split.  Reads the
     device (one sync); zeros where nothing split."""
-    out = dict.fromkeys(DEVICE_COUNTS, 0)
-    for t in _device_counters.values():
-        for name, n in zip(DEVICE_COUNTS, t.tolist()):
-            out[name] += n
-    return out
+    return _counters.read()
 
 
 # ---------------------------------------------------------------------------

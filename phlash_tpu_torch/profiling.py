@@ -44,9 +44,12 @@ around a fit shows every span).
 With the profiler off, a call's span site reads one flag and allocates
 nothing.  The record also carries `counts`: the SMC' kernels' split
 launches count on the device (ops/smc.DEVICE_COUNTS: smc_segments,
-smc_segments_resolved, smc_fix_sites, smc_split_sites), zeroed when the fit
-opens and read once when its record closes (zeros where nothing split, as
-on the CPU), so no call syncs for them; the packed kernels' host tallies
+smc_segments_resolved, smc_fix_sites, smc_split_sites), and so do the
+packed kernels' (ops/packed.DEVICE_COUNTS: packed_segments,
+packed_segments_resolved, packed_fix_sites, packed_split_sites), zeroed
+when the fit opens and read once when its record closes (zeros where
+nothing split, as on the CPU), so no call syncs for them; the packed
+kernels' host tallies
 (ops/packed.WORK_COUNTS: packed_sites, the instance-sites B4 and B5 swept,
 and packed_ckpt_bytes, the checkpoint bytes B4 wrote; taken from each
 launch's shapes, added back at every graph replay) alike, zeros on a fit
@@ -227,6 +230,7 @@ def records_fit(fit):
         tr, outer = FitTrace(), _open
         _open = _last = tr
         smc.reset_device_counts()
+        packed.reset_device_counts()
         packed.reset_work()
         returned = False
         try:
@@ -240,6 +244,7 @@ def records_fit(fit):
             tr.counts.update(packed.work())
             try:
                 tr.counts.update(smc.device_counts())
+                tr.counts.update(packed.device_counts())
             except RuntimeError:  # a device fault: the fit's own exception says more
                 if returned:
                     raise

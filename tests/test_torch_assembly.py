@@ -696,12 +696,20 @@ def test_phase_2_ptxas_report_reads_each_kernel_instance():
         "ptxas info    : Compiling entry function '_Z18smc_forward_kernelILi16ELi4EEvPKfS1_' for "
         "'sm_90a'",
         "ptxas info    : Used 90 registers",
+        "ptxas info    : Compiling entry function '_Z28smc_forward_kernel_speculateILi16ELi4EEvPKf"
+        "' for 'sm_90a'",
+        "ptxas info    : Used 128 registers",
+        "ptxas info    : Compiling entry function '_Z29packed_backward_kernel_splicePKfS0_' for "
+        "'sm_90a'",
+        "ptxas info    : Used 168 registers",
         "ptxas info    : Function properties for _ZN6phlash4stepEv",
         "ptxas info    : Used 12 registers",
     ])
     assert chip_smoke.ptxas_report(log) == {"assembly_forward_kernel<float>": (56, 0),
                                             "assembly_backward_kernel<double>": (222, 16),
-                                            "smc_forward_kernel<16, 4>": (90, 0)}
+                                            "smc_forward_kernel<16, 4>": (90, 0),
+                                            "smc_forward_kernel_speculate<16, 4>": (128, 0),
+                                            "packed_backward_kernel_splice": (168, 0)}
 
 
 def test_a_workspace_beyond_the_card_is_refused(monkeypatch):

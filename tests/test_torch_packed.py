@@ -412,3 +412,124 @@ def test_refusals(case):
     call, match = REFUSALS[case]
     with pytest.raises(ValueError, match=match):
         call()
+
+
+# The split path's plain rendering (packed.forward_segmented /
+# backward_segmented) against the unsplit plain versions.  (B, S, L, K,
+# dtype, rho, het rate, all missing): rows that forget their start within a
+# few hundred sites, in float32 and float64; all-missing rows under a
+# near-identity A (rho = 1e-9), where no fix chain meets and the splice
+# re-runs segment after segment; and more segments asked for than the row
+# has checkpoint intervals (38 periods: 3 intervals of 16).
+SPLIT_CASES = {
+    "mixes_f32": (3, 2, 3000, 6, torch.float32, 0.1, 0.1, False),
+    "mixes_f64": (3, 2, 4000, 6, torch.float64, 0.1, 0.1, False),
+    "never_meets": (3, 2, 2000, 4, torch.float64, 1e-9, 0.1, True),
+    "k_past_intervals": (3, 2, 300, 50, torch.float64, 1e-2, 0.1, False),
+}
+
+
+def _split_case(B, S, Lr, dtype, rho, het, missing, seed=11):
+    "A, emissions at theta = 0.1 and rho; random pi; rows at the het rate (or all missing), a -2 tail."
+    rng = np.random.default_rng(seed)
+    base = PSMCParams.from_dm(DemographicModel.default(pattern="16*1", theta=0.1, rho=rho))
+    scale = 1.0 + 0.05 * torch.linspace(0.0, 1.0, B, dtype=torch.float64)[:, None]
+    tpp = base.replace(**{k: getattr(base, k).expand(B, -1) * (scale if k in ("b", "u") else 1.0)
+                          for k in PSMC_FIELDS})
+    A, e0, e1 = (x.to(dtype).contiguous() for x in (dense_transition(tpp), tpp.emis0, tpp.emis1))
+    pi = torch.as_tensor(rng.dirichlet(np.ones(M), size=(B, S))).to(dtype)
+    obs = torch.as_tensor(rng.binomial(1, het, size=(S, Lr)).astype(np.int8))
+    if missing:
+        obs[:] = -1
+    obs[-1, Lr - 5:] = -2
+    gbar = torch.as_tensor(rng.standard_normal((B, S))).to(dtype)
+    return A, e0, e1, pi, obs, gbar
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_plan_matches_the_unsplit_plain_versions(case):
+    """The split forward's checkpoints are the unsplit forward's bit for bit,
+    and so is the adjoint's dpi (abar at site 0, the carried state); ll and
+    dA, de0, de1 equal the unsplit ones to rounding (float64: 1e-12 of max;
+    float32: within the card's gates of the float64 unsplit values, rtol
+    1e-5 and 2e-5 of max); the counts say what ran."""
+    B, S, Lr, K, dtype, rho, het, missing = SPLIT_CASES[case]
+    A, e0, e1, pi, obs, gbar = _split_case(B, S, Lr, dtype, rho, het, missing)
+    plan = packed.segments(packed.n_segments(Lr, packed.DEFAULT_SEG), K)
+    ll, ck = packed.forward_packed(A, e0, e1, pi, obs)
+    ll_s, ck_s, fwd = packed.forward_segmented(A, e0, e1, pi, obs, packed.Plan(K, 0))
+    assert torch.equal(ck_s, ck)
+    ll_1, none, _ = packed.forward_segmented(A, e0, e1, pi, obs, packed.Plan(K, 0), False)
+    assert none is None and torch.equal(ll_1, ll_s)
+    *grads, dpi = packed.backward_packed(A, e0, e1, obs, ck, gbar)
+    *grads_s, dpi_s, bwd = packed.backward_segmented(A, e0, e1, obs, ck, gbar, packed.Plan(K, 0))
+    assert torch.equal(dpi_s, dpi)
+    if dtype == torch.float64:
+        want_ll, want = ll, grads
+        ll_tol, grad_tol = 1e-12, 1e-12
+    else:
+        x64 = [x.double() for x in (A, e0, e1)]
+        want_ll, ck64 = packed.forward_packed(*x64, pi.double(), obs)
+        want = packed.backward_packed(*x64, obs, ck64, gbar.double())[:3]
+        ll_tol, grad_tol = 1e-5, 2e-5
+    np.testing.assert_allclose(ll_s.double().numpy(), want_ll.double().numpy(), rtol=ll_tol)
+    for name, got, ref in zip(("A", "emis0", "emis1"), grads_s, want):
+        err = float((got.double() - ref.double()).abs().max())
+        assert err <= grad_tol * (float(ref.abs().max()) + 1e-300), (name, err)
+    n_inst = B * S
+    for c in (fwd, bwd):
+        assert set(c) == set(packed.DEVICE_COUNTS)
+        assert c["packed_segments"] == plan.K * n_inst and c["packed_split_sites"] == n_inst * Lr
+        assert 0 <= c["packed_segments_resolved"] <= (plan.K - 1) * n_inst
+    if case.startswith("mixes"):  # most fix chains meet inside their own segment
+        for c in (fwd, bwd):
+            assert c["packed_segments_resolved"] >= (plan.K - 1) * n_inst // 2
+            assert 0 < c["packed_fix_sites"] < c["packed_split_sites"]
+    elif case == "never_meets":  # no fix meets; the splice re-runs segments 2 .. K-1 whole
+        seg_sites = plan.periods * packed.DEFAULT_SEG
+        for c in (fwd, bwd):
+            assert c["packed_segments_resolved"] == 0
+        assert fwd["packed_fix_sites"] == n_inst * ((Lr - seg_sites) + (Lr - 2 * seg_sites))
+    else:
+        assert plan == packed.Plan(3, 16)
+
+
+@pytest.mark.parametrize("direction", ["forward", "adjoint"])
+def test_packed_segment_plan(direction):
+    """K = 1 at the L = 2,000 shapes (the bench's and chip_smoke's B = 500,
+    S = 5: B * S = 2,500 instances; the ragged 37 x 3) and wherever the
+    instances already fill the card; K >= 2 along a genome's rows (the
+    diploid.packed cell's 500 x 1 x 94,000 in both directions, its ELPD's
+    500 x 4 forward), as many as bring the direction's launch to
+    TARGET_WARPS_PER_SM an SM, in segments of whole checkpoint intervals,
+    none empty and none under MIN_SEGMENT_SITES sites (but the last).  The
+    states per lane it plans with are csrc/packed_common.cuh's."""
+    import re
+    from pathlib import Path
+
+    from phlash_tpu_torch.ops import smc
+
+    header = (Path(packed.__file__).parents[1] / "csrc" / "packed_common.cuh").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", header)}
+    assert packed.STATES_PER_LANE == {"forward": const["PACKED_FWD_SPL"],
+                                      "adjoint": const["PACKED_BWD_SPL"]}
+    sms = 132
+    target = packed.TARGET_WARPS_PER_SM[direction]
+    for B, S, L in ((500, 5, 2000), (37, 3, 2000), (37, 3, 2501), (500, 40, 94_000),
+                    (1, 1, smc.MIN_SEGMENT_SITES * 2 - 1)):
+        assert packed.segment_plan(B, S, L, sms, direction).K == 1, (B, S, L)
+    shapes = [(500, 1, 94_000), (500, 1, 93_999), (32, 1, 5_000), (1, 1, 10**6)]
+    if direction == "forward":
+        shapes.append((500, 4, 94_000))
+    for B, S, L in shapes:
+        n_per = packed.n_segments(L, packed.DEFAULT_SEG)
+        K, P = packed.segment_plan(B, S, L, sms, direction)
+        assert K >= 2 and P % smc.CHECK_PERIODS == 0 and (K - 1) * P < n_per <= K * P, (B, S, L)
+        assert P * packed.DEFAULT_SEG >= smc.MIN_SEGMENT_SITES
+        warps = smc.launch_geometry(B, S, M, packed.STATES_PER_LANE[direction],
+                                    smc.INSTANCES_PER_BLOCK)["warps"]
+        assert K * warps <= target * sms
+    want = {"forward": packed.Plan(16, 736), "adjoint": packed.Plan(6, 1968)}[direction]
+    assert packed.segment_plan(500, 1, 94_000, sms, direction) == want
+    if direction == "forward":
+        assert packed.segment_plan(500, 4, 94_000, sms, direction) == packed.Plan(4, 2944)

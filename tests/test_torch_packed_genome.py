@@ -176,6 +176,25 @@ def test_packed_work_counts_are_the_launches_shapes(fits):
     assert rec.counts["packed_ckpt_bytes"] == iters * (L // 8) * B * S_fit * 16 * 4
 
 
+def test_a_packed_fit_records_the_split_kernels_device_counts(fits, monkeypatch):
+    """A packed fit's record closes with the four device counts of B4 / B5's
+    split launches, zeros on the CPU (the plain versions split nothing), so
+    the benchmark's packed_fix_share reads 0 there."""
+    import importlib.util
+
+    rec, _ = fits["packed"]
+    assert set(packed.DEVICE_COUNTS) == {"packed_segments", "packed_segments_resolved",
+                                         "packed_fix_sites", "packed_split_sites"}
+    assert {k: rec.counts[k] for k in packed.DEVICE_COUNTS} == dict.fromkeys(
+        packed.DEVICE_COUNTS, 0)
+    spec = importlib.util.spec_from_file_location(
+        "reader_packed_fix_share", ROOT / "benchmark" / "metrics" / "packed_fix_share.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(profiling, "last_fit", lambda: rec)
+    assert mod.read(None) == 0.0
+
+
 def test_an_smc_fit_counts_no_packed_work(fits):
     rec, n = fits["smc"]
     assert rec.counts["packed_sites"] == rec.counts["packed_ckpt_bytes"] == 0
@@ -214,10 +233,12 @@ def test_packed_still_needs_overlap_zero(overlap):
         mcmc.fit([TRAIN], kernel_backend="packed", overlap=overlap, device="cpu", niter=1)
 
 
-def test_chip_smoke_packed_genome_phase_rehearsal(monkeypatch):
+def test_chip_smoke_packed_genome_phase_rehearsal(monkeypatch, capsys):
     """Phase 12b's gate (chip_smoke.packed_genome_phase) at a small shape, the
-    CUDA wrappers replaced by their plain versions in float32: it passes
-    and reports the errors as phase 3b does."""
+    CUDA wrappers replaced by their plain versions in float32 and the
+    launches at a plan by the split's plain rendering (4 segments): it
+    passes, holds the split to K = 1 at S = 1 and, as the held-out ELPD
+    runs B4, at S = 4, and reports the errors as phase 3b does."""
     import chip_smoke
 
     def fwd32(A, e0, e1, pi, obs, seg_len=packed.DEFAULT_SEG, with_ckpt=True):
@@ -226,9 +247,44 @@ def test_chip_smoke_packed_genome_phase_rehearsal(monkeypatch):
     def bwd32(A, e0, e1, obs, ckpt, gbar, seg_len=packed.DEFAULT_SEG):
         return packed.backward_packed(A, e0, e1, obs, ckpt, gbar, seg_len)
 
+    counts = dict.fromkeys(packed.DEVICE_COUNTS, 0)
+
+    def add(c):
+        for k in counts:
+            counts[k] += c[k]
+
+    def launch_fwd(A, e0, e1, pi, obs, with_ckpt, plan=None):
+        if plan.K == 1:
+            return fwd32(A, e0, e1, pi, obs, with_ckpt=with_ckpt)
+        ll, ck, c = packed.forward_segmented(A, e0, e1, pi, obs, plan, with_ckpt)
+        add(c)
+        return ll, ck
+
+    def launch_bwd(A, e0, e1, obs, ckpt, gbar, plan=None):
+        if plan.K == 1:
+            return bwd32(A, e0, e1, obs, ckpt, gbar)
+        *grads, c = packed.backward_segmented(A, e0, e1, obs, ckpt, gbar, plan)
+        add(c)
+        return tuple(grads)
+
     monkeypatch.setattr(packed, "forward_packed_cuda", fwd32)
     monkeypatch.setattr(packed, "backward_packed_cuda", bwd32)
+    monkeypatch.setattr(packed, "forward_launch", launch_fwd)
+    monkeypatch.setattr(packed, "backward_launch", launch_bwd)
+    monkeypatch.setattr(packed, "segment_plan", lambda B, S, L, sms=None, direction="forward":
+                        packed.segments(packed.n_segments(L, packed.DEFAULT_SEG), 4))
+    monkeypatch.setattr(packed, "reset_device_counts", lambda: counts.update(
+        dict.fromkeys(packed.DEVICE_COUNTS, 0)))
+    monkeypatch.setattr(packed, "device_counts", lambda: dict(counts))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "PACKED_GENOME_SHAPE", (37, 1, 1003))
     errs = chip_smoke.packed_genome_phase(torch, packed, torch.device("cpu"), "cpu")
     assert 0 < errs["forward"]["ll"] <= 1e-5 and 0 < errs["backward"]["grad"] <= 2e-5
+    out = capsys.readouterr().out
+    assert ("B=37 S=1 L=1003: split (4, 32) (adjoint (4, 32)) against K = 1: checkpoints and dpi "
+            "bitwise equal" in out)
+    assert ("B=37 S=4 L=1003 (the ELPD's B4): max rel err ll" in out
+            and "split (4, 32) against K = 1: checkpoints bitwise equal, ll the same bits" in out)
+    # the counts since the last reset: the ELPD's split forward with checkpoints, then without
+    assert counts["packed_segments"] == 2 * 4 * 37 * 4
+    assert counts["packed_split_sites"] == 2 * 37 * 4 * 1003

@@ -293,10 +293,11 @@ def test_the_record_carries_the_split_kernels_device_counts(untraced, traced, mo
     """Each fit's record closes with the four device counts of the SMC'
     kernels' split launches (zeros on the CPU, where nothing splits), read
     when the fit ends, also by an exception; reset at each fit's start.
-    Beside them the packed kernels' work tallies, zeros on this smc fit."""
+    Beside them the packed kernels' device counts and work tallies, zeros on
+    this smc fit."""
     from phlash_tpu_torch.ops import packed, smc
 
-    want = dict.fromkeys(smc.DEVICE_COUNTS + packed.WORK_COUNTS, 0)
+    want = dict.fromkeys(smc.DEVICE_COUNTS + packed.DEVICE_COUNTS + packed.WORK_COUNTS, 0)
     assert set(smc.DEVICE_COUNTS) == {"smc_segments", "smc_segments_resolved", "smc_fix_sites",
                                       "smc_split_sites"}
     assert untraced[1].counts == want and traced[1].counts == want
@@ -310,3 +311,16 @@ def test_the_record_carries_the_split_kernels_device_counts(untraced, traced, mo
         mcmc.fit([TRAIN], HELD_OUT, callback=stop, **FIT)
     rec = profiling.last_fit()
     assert resets == [1] and rec.closed and rec.counts == want
+
+
+def test_packed_fix_share_reads_none_without_the_packed_counts(monkeypatch):
+    """benchmark/metrics/packed_fix_share.py reads None where the newest fit's
+    record holds no packed device counts (a program without them, or no
+    fit), and the share of split sites that fix chains ran where it does."""
+    for rec in (None, SimpleNamespace(counts={}),
+                SimpleNamespace(counts={"smc_fix_sites": 3, "smc_split_sites": 9})):
+        monkeypatch.setattr(profiling, "last_fit", lambda rec=rec: rec)
+        assert _read("packed_fix_share") is None
+    rec = SimpleNamespace(counts={"packed_fix_sites": 3, "packed_split_sites": 12})
+    monkeypatch.setattr(profiling, "last_fit", lambda: rec)
+    assert _read("packed_fix_share") == 25.0

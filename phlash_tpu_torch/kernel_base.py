@@ -53,6 +53,14 @@ def upload(data, device) -> torch.Tensor:
     return t
 
 
+def kernel_dtype(leaves, device: torch.device) -> tuple:
+    """The leaves cast to build.KERNEL_DTYPE's entry for `device` (float32 on
+    CUDA) by the hand-kernel backends, so a float64 tensor never reaches a
+    kernel."""
+    dtype = build.KERNEL_DTYPE.get(device.type)
+    return tuple(leaves) if dtype is None else tuple(x.to(dtype) for x in leaves)
+
+
 def one_particle(pp: PSMCParams, n: int) -> PSMCParams:
     "Unbatched leaves (M,) as one particle on n chunks: (1, M), pi (1, n, M)."
     return PSMCParams(*(getattr(pp, k)[None] for k in PSMC_FIELDS[:-1]),
@@ -92,6 +100,11 @@ class LikelihoodKernel(nn.Module):
 
     def loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
+        """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
+        except pi, (B, S, M): the per-chunk initial distributions."""
+        return self.loglik_rows(pp, self.data[inds])
 
     @property
     def float_type(self) -> torch.dtype | None:

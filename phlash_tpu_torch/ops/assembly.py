@@ -20,9 +20,9 @@ backward A2.  Under no_grad (the held-out ELPD) only A1 runs.
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor takes
 the plain version; there is no other path and no fallback.  Every wrapper
-counts what it ran (`.launches` on the CUDA wrappers, `.calls` on the plain
-versions); a CUDA graph replay, which calls no wrapper, adds what its
-capture counted through `add_counts` (training.Caller does).
+counts what it ran in `tally` (`counts`, `reset_counts`, `add_counts`); a
+CUDA graph replay, which calls no wrapper, adds what its capture counted
+(training.Caller does).
 
 Kernel design note (csrc/assembly_common.cuh, csrc/assembly.cu).
 * Replaces: no Pallas kernel.  phlash_tpu's SVGD step is one XLA program
@@ -60,6 +60,7 @@ import math
 
 import torch
 
+from phlash_tpu_torch import profiling
 from phlash_tpu_torch.ops.build import check, load_library, ptr, stream
 from phlash_tpu_torch.params import PSMC_FIELDS, MCMCParams, PSMCParams, _expand_index
 from phlash_tpu_torch.size_history import SizeHistory, _W_tensor
@@ -67,6 +68,8 @@ from phlash_tpu_torch.utils import Pattern
 
 N_LEAVES = len(PSMC_FIELDS)  # b, d, u, v, emis0, emis1, pi
 DTYPES = (torch.float32, torch.float64)
+tally = profiling.Tally(("forward_cuda", "backward_cuda", "forward_plain", "backward_plain"))
+counts, reset_counts, add_counts = tally.counts, tally.reset, tally.add_counts
 
 
 @functools.lru_cache(maxsize=32)
@@ -129,7 +132,7 @@ def assemble_plain(init: MCMCParams, x: torch.Tensor, afs=None, afs_transform=No
     """(leaves (P, 7, M), l_prior (P,), l_afs (P,)) of the flat coordinates x
     (P, D) with init's statics (pattern, theta, alpha, beta): the port's
     tensor code, packed in A1's layout."""
-    assemble_plain.calls += 1
+    tally.add("forward_plain")
     return _assemble(init, x, afs, afs_transform)
 
 
@@ -137,7 +140,7 @@ def assemble_vjp_plain(init: MCMCParams, x: torch.Tensor, afs, afs_transform,
                        g_leaves: torch.Tensor, g_prior: torch.Tensor,
                        g_afs: torch.Tensor) -> torch.Tensor:
     "(P, D) gradient of the cotangents' dot with assemble_plain's outputs (autograd)."
-    assemble_vjp_plain.calls += 1
+    tally.add("backward_plain")
     with torch.enable_grad():
         xx = x.detach().requires_grad_(True)
         outs = _assemble(init, xx, afs, afs_transform)
@@ -229,7 +232,7 @@ def forward_cuda(init: MCMCParams, x: torch.Tensor, afs=None, afs_transform=None
         err = lib.lib.phlash_assembly_forward(*args, ptr(leaves), ptr(l_prior), ptr(l_afs),
                                               stream(x.device))
     check(lib, err, "assembly_forward launch")
-    forward_cuda.launches += 1
+    tally.add("forward_cuda")
     return leaves, l_prior, l_afs
 
 
@@ -250,12 +253,12 @@ def backward_cuda(init: MCMCParams, x: torch.Tensor, afs, afs_transform,
         err = lib.lib.phlash_assembly_backward(*args, ptr(g_leaves), ptr(g_prior), ptr(g_afs),
                                                ptr(grad), stream(x.device))
     check(lib, err, "assembly_backward launch")
-    backward_cuda.launches += 1
+    tally.add("backward_cuda")
     return grad
 
 
 # ---------------------------------------------------------------------------
-# dispatch, the autograd op and counters
+# dispatch and the autograd op
 # ---------------------------------------------------------------------------
 
 
@@ -304,24 +307,3 @@ def assemble(mcps: MCMCParams, afs=None, afs_transform=None):
     afs, afs_transform = _afs_consts(x, afs, afs_transform)
     leaves, l_prior, l_afs = AssemblyOp.apply(x, mcps, afs, afs_transform)
     return PSMCParams(*leaves.unbind(-2)), l_prior, l_afs
-
-
-def reset_counts() -> None:
-    forward_cuda.launches = backward_cuda.launches = 0
-    assemble_plain.calls = assemble_vjp_plain.calls = 0
-
-
-def counts() -> dict:
-    return dict(forward_cuda=forward_cuda.launches, backward_cuda=backward_cuda.launches,
-                forward_plain=assemble_plain.calls, backward_plain=assemble_vjp_plain.calls)
-
-
-def add_counts(n: dict) -> None:
-    "Add `n`, a dict as counts() gives it, to the counters."
-    forward_cuda.launches += n["forward_cuda"]
-    backward_cuda.launches += n["backward_cuda"]
-    assemble_plain.calls += n["forward_plain"]
-    assemble_vjp_plain.calls += n["backward_plain"]
-
-
-reset_counts()

@@ -84,11 +84,6 @@ class DenseKernel(LikelihoodKernel):
         self.register_buffer("data", upload(data, device))
         self.seg_len = seg_len or _pick_seg_len(self.data.shape[-1])
 
-    def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
-        """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
-        except pi, (B, S, M): the per-chunk initial distributions."""
-        return self.loglik_rows(pp, self.data[inds])
-
     def loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
         "loglik_batched on the body rows (S, L) themselves (a mesh fetches them, see parallel/)."
         if self.double_precision:

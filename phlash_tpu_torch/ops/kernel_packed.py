@@ -22,17 +22,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phlash_tpu_torch.kernel_base import LikelihoodKernel, batched_vjp, one_particle, upload
-from phlash_tpu_torch.ops import build, packed
+from phlash_tpu_torch.kernel_base import (LikelihoodKernel, batched_vjp, kernel_dtype, one_particle,
+                                          upload)
+from phlash_tpu_torch.ops import packed
 from phlash_tpu_torch.ops.packing import dense_transition
 from phlash_tpu_torch.params import PSMCParams
-
-
-def _kernel_leaves(*leaves, obs: torch.Tensor) -> tuple:
-    """The leaves cast to build.KERNEL_DTYPE (float32 on CUDA), so a float64
-    tensor never reaches a kernel."""
-    dtype = build.KERNEL_DTYPE.get(obs.device.type)
-    return leaves if dtype is None else tuple(x.to(dtype) for x in leaves)
 
 
 def _forward(A, e0, e1, pi, obs, seg_len: int, with_ckpt: bool):
@@ -72,7 +66,7 @@ def packed_op(A, emis0, emis1, pi, obs, seg_len: int = packed.DEFAULT_SEG) -> to
     """Run the kernel pair; checkpoints are kept only when autograd will ask.
     The inputs are cast to the kernels' dtype (autograd casts their
     gradients back) and ll to pi's dtype."""
-    leaves = _kernel_leaves(A, emis0, emis1, pi, obs=obs)
+    leaves = kernel_dtype((A, emis0, emis1, pi), obs.device)
     with_ckpt = torch.is_grad_enabled() and any(x.requires_grad for x in leaves)
     return PackedOp.apply(obs, seg_len, with_ckpt, *leaves).to(pi.dtype)
 
@@ -88,8 +82,8 @@ def packed_instance_grads(pp: PSMCParams, obs: torch.Tensor, seg_len: int):
     autograd, cast as packed_op casts; the per-instance dA (n, M, M) goes
     back through dense_transition in one batched VJP."""
     one = one_particle(pp, obs.shape[0])
-    A, e0, e1, pi = _kernel_leaves(dense_transition(pp)[None], one.emis0, one.emis1, one.pi,
-                                   obs=obs)
+    A, e0, e1, pi = kernel_dtype((dense_transition(pp)[None], one.emis0, one.emis1, one.pi),
+                                 obs.device)
     ll, ckpt = _forward(A, e0, e1, pi, obs, seg_len, True)
     dA, de0, de1, dpi = _adjoint(A, e0, e1, obs, ckpt, torch.ones_like(ll), seg_len)
     dtype = pp.pi.dtype
@@ -118,11 +112,6 @@ class PackedKernel(LikelihoodKernel):
 
     def instance_grads(self, pp: PSMCParams, rows: torch.Tensor):
         return packed_instance_grads(pp, rows.contiguous(), self.seg_len)
-
-    def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
-        """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
-        except pi, (B, S, M): the per-chunk initial distributions."""
-        return self.loglik_rows(pp, self.data[inds])
 
     def loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
         "loglik_batched on rows (S, L') of `data`, padding included (a mesh fetches them)."

@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from phlash_tpu_torch.kernel_base import LikelihoodKernel, one_particle, upload
-from phlash_tpu_torch.ops import build, smc
+from phlash_tpu_torch.kernel_base import LikelihoodKernel, kernel_dtype, one_particle, upload
+from phlash_tpu_torch.ops import smc
 from phlash_tpu_torch.params import PSMCParams
 
 _PARAMS = ("b", "d", "u", "v", "emis0", "emis1")
@@ -36,12 +36,9 @@ def _adjoint(params, obs, pstates, g_ll, g_alpha):
                         g_ll.contiguous(), g_alpha.contiguous())
 
 
-def _kernel_leaves(pp: PSMCParams, pi: torch.Tensor, obs: torch.Tensor) -> list:
-    """pp's six leaves and pi, cast to build.KERNEL_DTYPE (float32 on CUDA),
-    so a float64 tensor never reaches a kernel."""
-    leaves = [getattr(pp, k) for k in _PARAMS] + [pi]
-    dtype = build.KERNEL_DTYPE.get(obs.device.type)
-    return leaves if dtype is None else [x.to(dtype) for x in leaves]
+def _kernel_leaves(pp: PSMCParams, pi: torch.Tensor, obs: torch.Tensor) -> tuple:
+    "pp's six leaves and pi, cast to the kernels' dtype (kernel_base.kernel_dtype)."
+    return kernel_dtype([getattr(pp, k) for k in _PARAMS] + [pi], obs.device)
 
 
 class SMCOp(torch.autograd.Function):
@@ -105,11 +102,6 @@ class SMCKernel(LikelihoodKernel):
 
     def instance_grads(self, pp: PSMCParams, rows: torch.Tensor):
         return smc_instance_grads(pp, rows.contiguous())
-
-    def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
-        """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
-        except pi, (B, S, M): the per-chunk initial distributions."""
-        return self.loglik_rows(pp, self.data[inds])
 
     def loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
         "loglik_batched on the body rows (S, L) themselves (a mesh fetches them, see parallel/)."

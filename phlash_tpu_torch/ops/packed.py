@@ -29,18 +29,17 @@ Shapes, shared by both versions:
 Dispatch: `forward` / `backward` launch the CUDA kernels for CUDA tensors
 (split as `segment_plan` says) and take the plain version for CPU tensors;
 there is no other path and no fallback.  `forward_segmented` /
-`backward_segmented` render the split in plain PyTorch for the tests (and
-phase 12b's rehearsal on the CPU).  Every wrapper counts what it ran (`.launches` on the CUDA
-wrappers, `.calls` on the plain versions); `reset_counts` zeroes them, and
-`add_counts` adds what a CUDA graph replay launched (see ops/smc.py).
-Beside the launches, `forward` / `backward` tally on the host the work
-each call swept, from its shapes (`work`, `reset_work`; WORK_COUNTS):
-`packed_sites`, the instance-sites B * S * L of every forward and adjoint
-(padding included: the kernels sweep it), and `packed_ckpt_bytes`, the
-checkpoint bytes each forward with checkpoints wrote.  A graph replay
-calls neither, so training.Caller adds what its capture tallied through
-`add_counts`, as it adds the launches; the fit's record (profiling.py)
-zeroes the tallies when the fit opens and reads them when it closes.
+`backward_segmented` render the split (ops/split.py) in plain PyTorch for
+the tests (and phase 12b's rehearsal on the CPU).  Every wrapper counts
+what it ran in `tally` (`counts`, `reset_counts`, `add_counts`, as
+ops/smc.py).  Beside the launches, `forward` / `backward` tally on the
+host the work each call swept, from its shapes, in `work_tally` (`work`,
+`reset_work`; WORK_COUNTS): `packed_sites`, the instance-sites B * S * L
+of every forward and adjoint (padding included: the kernels sweep it), and
+`packed_ckpt_bytes`, the checkpoint bytes each forward with checkpoints
+wrote.  A graph replay adds it back as it adds the launches; the fit's
+record (profiling.py) zeroes it when the fit opens and reads it when it
+closes.
 
 Kernel design note (csrc/packed_common.cuh, packed_forward.cu,
 packed_backward.cu).
@@ -101,39 +100,25 @@ packed_backward.cu).
 * Segments along the row, where the instances leave the card nearly empty
   (one genome: 500 instances on rows of ~94,000 sites, 63 warps for B4 and
   252 for B5 on 132 SMs, so each kernel waited on one instance's chain of
-  94,000 sites).  `segment_plan` takes K from the launch's warps, the SM
-  count and L only (smc.split_count, the SMC' kernels' rule, with this
-  pair's TARGET_WARPS_PER_SM); K = 1 launches the unsplit kernels above.
-  The filter forgets its start: two states run through the same sites
-  meet, and once the carried state of two chains holds the same bits,
-  every later site is the same computation.  So each row is cut into K
-  segments of P periods (P a multiple of CHECK_PERIODS, so each segment
-  checkpoints and takes its logs where the unsplit kernel does), and each
-  direction runs three launches on grid (ceil(B / 8), S, K):
-  - speculate: every segment from a guess (the forward from pi, segment 0
-    exact; the adjoint from abar = 0, which is the last segment's true
-    start), storing its trajectory (the checkpoints, and every CHECK_PERIODS
-    periods the carried state), each interval's sums (log c; the lane's rows
-    of dA, de0, de1) and its end;
-  - fix: segment k from its neighbour's speculative end, comparing the
-    carried state with the stored one at each checkpoint: (x, rho) in the
-    forward, not alpha = x rho (two chains with the same rounded alpha can
-    still part later); (abar, <abar, alpha>) in the adjoint, its look-ahead
-    included.  At the first bitwise match it stops, and before that its
-    checkpoints, states and interval sums replace the speculative ones;
-  - splice: a group an instance walks the segments in order from the exact
-    one and re-runs, as the fix does, any segment whose stored trajectory did
-    not start from its neighbour's true end.  A row that never forgets
-    costs the unsplit time plus the two passes and never gives another
-    answer.
-  The checkpoints are bitwise the unsplit B4's, so B5 rebuilds every period
-  from spliced states, never speculative ones; ll and the gradients are
-  the same terms summed by interval, segment and then row in a fixed order
-  (no float atomics).  The adjoint's interval sums are 18 rows of 16 floats
-  an instance an interval (423 MB at a genome's chunk), its largest
-  workspace.  The flags and sums live in per-call workspace; the four
-  device counters (DEVICE_COUNTS) are integer atomics, zeroed and read by
-  the fit's record (profiling.py), never by a call.
+  94,000 sites).  ops/split.py holds the protocol (speculate, fix,
+  splice) and the rule; `segment_plan` binds it to this pair's
+  TARGET_WARPS_PER_SM, and K = 1 launches the unsplit kernels above.  Each
+  row is cut into K segments of P periods (P a multiple of CHECK_PERIODS,
+  so each segment checkpoints and takes its logs where the unsplit kernel
+  does), three launches a direction on grid (ceil(B / 8), S, K).  The
+  adjoint's guess is abar = 0, which is the last segment's true start.
+  The fix compares the carried state with the stored one at each
+  checkpoint: (x, rho) in the forward, not alpha = x rho (two chains with
+  the same rounded alpha can still part later); (abar, <abar, alpha>) in
+  the adjoint, its look-ahead included.  The checkpoints are bitwise the
+  unsplit B4's, so B5 rebuilds every period from spliced states, never
+  speculative ones; ll and the gradients are the same terms summed by
+  interval, segment and then row in a fixed order (no float atomics).  The
+  adjoint's interval sums are 18 rows of 16 floats an instance an interval
+  (423 MB at a genome's chunk), its largest workspace.  The flags and sums
+  live in per-call workspace; the four device counters (DEVICE_COUNTS) are
+  integer atomics, zeroed and read by the fit's record (profiling.py),
+  never by a call.
 * No tensor cores: the product is 16 x 16 per instance, far below wgmma's
   64-row tile, and TF32 or bf16 would break the rtol 1e-5 ll gate
   (docs/DESIGN.md, "Why not the MXU": bf16 gave a 0.4% ll error on the
@@ -148,17 +133,16 @@ from __future__ import annotations
 
 import torch
 
+from phlash_tpu_torch import profiling
+from phlash_tpu_torch.ops import split
 from phlash_tpu_torch.ops.build import check, load_library, ptr, require_cuda, stream
-from phlash_tpu_torch.ops.smc import (CHECK_PERIODS, INSTANCES_PER_BLOCK, DeviceCounters, Plan,
-                                      _keep, _same, _sm_count, launch_geometry, segments,
-                                      split_count)
+from phlash_tpu_torch.ops.split import (CHECK_PERIODS, INSTANCES_PER_BLOCK, Plan, launch_geometry,
+                                        segments, sm_count)
 
 M = 16  # HMM states (pallas_hmm.M)
 # sites per segment, the checkpoint spacing: the CUDA kernels' period
 # (PACKED_PERIOD in csrc/packed_common.cuh, which the library reports)
 DEFAULT_SEG = 8
-WORK_COUNTS = ("packed_sites", "packed_ckpt_bytes")  # the host tallies of `work`
-_work = dict.fromkeys(WORK_COUNTS, 0)
 # the kernels' states per lane by direction (PACKED_FWD_SPL, PACKED_BWD_SPL in
 # csrc/packed_common.cuh; a test reads the header), and the warps a split
 # launch aims for on each SM (set by the K sweeps, PERF.md §6): the forward's
@@ -171,6 +155,13 @@ TARGET_WARPS_PER_SM = {"forward": 8, "adjoint": 12}
 # the split launches' device counters, in csrc's SplitCount order
 DEVICE_COUNTS = ("packed_segments", "packed_segments_resolved", "packed_fix_sites",
                  "packed_split_sites")
+WORK_COUNTS = ("packed_sites", "packed_ckpt_bytes")  # the host tallies of `work`
+tally = profiling.Tally(("forward_cuda", "backward_cuda", "forward_plain", "backward_plain"))
+counts, reset_counts, add_counts = tally.counts, tally.reset, tally.add_counts
+work_tally = profiling.Tally(WORK_COUNTS, fit_record=True)
+work, reset_work = work_tally.counts, work_tally.reset
+device_tally = split.DeviceCounters(DEVICE_COUNTS)
+device_counts, reset_device_counts = device_tally.counts, device_tally.reset
 
 
 def n_segments(L: int, seg_len: int) -> int:
@@ -189,7 +180,7 @@ def _emission(ob, e0, e1):
 
 def forward_packed(A, emis0, emis1, pi, obs, seg_len: int = DEFAULT_SEG, with_ckpt: bool = True):
     "Plain forward: (ll (B, S), ckpt (n_seg, B * S, M) or None)."
-    forward_packed.calls += 1
+    tally.add("forward_plain")
     B, S, Mx = pi.shape
     e0, e1 = emis0[:, None, :], emis1[:, None, :]
     a = pi
@@ -210,7 +201,7 @@ def forward_packed(A, emis0, emis1, pi, obs, seg_len: int = DEFAULT_SEG, with_ck
 def backward_packed(A, emis0, emis1, obs, ckpt, gbar, seg_len: int = DEFAULT_SEG):
     """Plain adjoint of forward_packed for the ll cotangent gbar (B, S).
     Returns per-instance (dA (B, S, M, M), de0, de1, dpi (B, S, M))."""
-    backward_packed.calls += 1
+    tally.add("backward_plain")
     B, S = gbar.shape
     Mx = A.shape[-1]
     ab = torch.zeros(B, S, Mx, dtype=A.dtype, device=A.device)
@@ -260,17 +251,14 @@ def _reverse_sites(A, emis0, emis1, a, obs, t0: int, t1: int, ab, gbar, acc):
 def segment_plan(B: int, S: int, L: int, sms: int | None = None,
                  direction: str = "forward") -> Plan:
     """How the CUDA kernels of `direction` ("forward": B4, "adjoint": B5)
-    split a launch's rows: smc.split_count's K for the unsplit grid's warps
+    split a launch's rows: split.plan's K for the unsplit grid's warps
     (launch_geometry at STATES_PER_LANE[direction], as kernel_geometry
     reports them), TARGET_WARPS_PER_SM[direction] and the device's `sms`
     SMs (the current CUDA device's when None), in segments of whole
     checkpoint intervals.  K = 1 wherever the instances already fill the
     card or the rows are short."""
-    if sms is None:
-        sms = _sm_count(torch.cuda.current_device())
     warps = launch_geometry(B, S, M, STATES_PER_LANE[direction], INSTANCES_PER_BLOCK)["warps"]
-    K = split_count(warps, TARGET_WARPS_PER_SM[direction], sms, L)
-    return segments(n_segments(L, DEFAULT_SEG), K)
+    return split.plan(warps, TARGET_WARPS_PER_SM[direction], L, n_segments(L, DEFAULT_SEG), sms)
 
 
 def _forward_period(A, e0, e1, a, obs, q: int):
@@ -290,147 +278,40 @@ def _forward_period(A, e0, e1, a, obs, q: int):
 
 def forward_segmented(A, emis0, emis1, pi, obs, plan: Plan, with_ckpt: bool = True):
     """The split forward of the CUDA kernels (csrc/packed_forward.cu) in plain
-    PyTorch, `plan.K` segments (fewer where the row has too few intervals):
-    speculate, fix, splice.  Returns forward_packed's (ll, ckpt or None) at
-    DEFAULT_SEG and the four counts (DEVICE_COUNTS) the kernels add on the
-    card.  ckpt is forward_packed's bit for bit; ll is the same log c's
-    summed by period, interval, segment and row.  The plain arithmetic
-    carries alpha itself, so alpha is the state compared."""
-    L = obs.shape[1]
-    n_per = n_segments(L, DEFAULT_SEG)
-    K, P = segments(n_per, plan.K)
+    PyTorch, `plan.K` segments (split.forward_segmented on this pair's
+    period).  Returns forward_packed's (ll, ckpt or None) at DEFAULT_SEG and
+    the four counts (DEVICE_COUNTS) the kernels add on the card.  ckpt is
+    forward_packed's bit for bit; ll is the same log c's summed by period,
+    interval, segment and row.  The plain arithmetic carries alpha itself,
+    so alpha is the state compared."""
     B, S, Mx = pi.shape
     e0, e1 = emis0[:, None, :], emis1[:, None, :]
-    false = torch.zeros((B, S), dtype=torch.bool, device=pi.device)
-    st = [None] * n_per  # alpha at every period: the checkpoints
-    int_ll, seg_ll, spec_end, end = {}, [None] * K, [None] * K, [None] * K
-    counts = dict.fromkeys(DEVICE_COUNTS, 0)
-
-    def run(k: int, a: torch.Tensor, fix: bool):
-        q0, q1 = k * P, min(k * P + P, n_per)
-        done, met, wrote = false.clone(), false.clone(), false.clone()
-        ran = torch.zeros(false.shape, dtype=torch.int64, device=false.device)
-        acc = torch.zeros_like(false, dtype=pi.dtype)
-        for q in range(q0, q1):
-            if q % CHECK_PERIODS == 0:
-                i = q // CHECK_PERIODS
-                if q > q0:
-                    int_ll[i - 1] = _keep(done, int_ll.get(i - 1), acc)
-                    wrote |= ~done
-                acc = torch.zeros_like(acc)
-                if fix:
-                    same = _same(a, st[q])
-                    met |= same & ~done
-                    done |= same
-                    if bool(done.all()):
-                        break
-            st[q] = _keep(done, st[q], a)
-            a, lc = _forward_period(A, e0, e1, a, obs, q)
-            acc = acc + lc
-            ran += (~done) * (min((q + 1) * DEFAULT_SEG, L) - q * DEFAULT_SEG)
-        else:
-            i = (q1 - 1) // CHECK_PERIODS
-            int_ll[i] = _keep(done, int_ll.get(i), acc)
-            end[k] = _keep(done, end[k], a)
-            wrote |= ~done
-        total = torch.zeros_like(acc)
-        for i in range(q0 // CHECK_PERIODS, (q1 - 1) // CHECK_PERIODS + 1):
-            total = total + int_ll[i]
-        seg_ll[k] = _keep(~wrote, seg_ll[k], total)
-        return met, ran
-
-    for k in range(K):
-        _, ran = run(k, pi, False)
-        spec_end[k] = end[k]
-        counts["packed_split_sites"] += int(ran.sum())
-    counts["packed_segments"] += K * false.numel()
-    for k in range(1, K):
-        met, ran = run(k, spec_end[k - 1], True)
-        counts["packed_segments_resolved"] += int(met.sum())
-        counts["packed_fix_sites"] += int(ran.sum())
-    for k in range(1, K):
-        _, ran = run(k, end[k - 1], True)
-        counts["packed_fix_sites"] += int(ran.sum())
-    ll = torch.zeros_like(seg_ll[0])
-    for x in seg_ll:
-        ll = ll + x
-    ckpt = torch.stack(st).reshape(n_per, B * S, Mx) if with_ckpt else None
-    return ll, ckpt, counts
+    ll, _, st, c = split.forward_segmented(
+        lambda a, q: _forward_period(A, e0, e1, a, obs, q), pi, obs.shape[1], DEFAULT_SEG, plan,
+        DEVICE_COUNTS)
+    ckpt = torch.stack(st).reshape(len(st), B * S, Mx) if with_ckpt else None
+    return ll, ckpt, c
 
 
 def backward_segmented(A, emis0, emis1, obs, ckpt, gbar, plan: Plan):
     """The split adjoint of the CUDA kernels (csrc/packed_backward.cu) in
-    plain PyTorch, as forward_segmented: speculative sweeps (every segment
-    from abar = 0, the last one's true start), fix sweeps from each upper
-    neighbour's speculative abar, the splice.  Returns backward_packed's
-    (dA, de0, de1, dpi) at DEFAULT_SEG, the same terms summed by interval,
-    segment and row, and the four counts."""
-    L = obs.shape[1]
-    n_per = n_segments(L, DEFAULT_SEG)
-    K, P = segments(n_per, plan.K)
+    plain PyTorch (split.backward_segmented: every segment from abar = 0,
+    the last one's true start).  Returns backward_packed's (dA, de0, de1,
+    dpi) at DEFAULT_SEG, the same terms summed by interval, segment and
+    row, and the four counts."""
     B, S = gbar.shape
     Mx = A.shape[-1]
-    false = torch.zeros((B, S), dtype=torch.bool, device=gbar.device)
     zero = torch.zeros(B, S, Mx, dtype=A.dtype, device=A.device)
     zeros = (torch.zeros(B, S, Mx, Mx, dtype=A.dtype, device=A.device), zero, zero)
-    top, spec_end, seg_grad = [None] * K, [None] * K, [None] * K
-    ab_ck, int_grad = {}, {}
-    counts = dict.fromkeys(DEVICE_COUNTS, 0)
 
-    def run(k: int, ab: torch.Tensor, fix: bool):
-        q0, q1 = k * P, min(k * P + P, n_per)
-        done, met, wrote = false.clone(), false.clone(), false.clone()
-        ran = torch.zeros(false.shape, dtype=torch.int64, device=false.device)
-        if fix:
-            same = _same(ab, top[k])
-            met |= same
-            done |= same
-            if bool(done.all()):
-                return ab, met, ran
-        top[k] = _keep(done, top[k], ab)
-        acc = zeros
-        for q in reversed(range(q0, q1)):
-            t0 = q * DEFAULT_SEG
-            ab, acc = _reverse_sites(A, emis0, emis1, ckpt[q].view(B, S, Mx), obs, t0,
-                                     t0 + DEFAULT_SEG, ab, gbar, acc)
-            ran += (~done) * (min(t0 + DEFAULT_SEG, L) - t0)
-            if q % CHECK_PERIODS == 0:
-                i = q // CHECK_PERIODS
-                old = int_grad.get(i, (None,) * 3)
-                int_grad[i] = tuple(_keep(done, o, x) for o, x in zip(old, acc))
-                wrote |= ~done
-                acc = zeros
-                if fix:
-                    same = _same(ab, ab_ck[i])
-                    met |= same & ~done
-                    done |= same
-                    if bool(done.all()):
-                        break
-                ab_ck[i] = _keep(done, ab_ck.get(i), ab)
-        total = zeros
-        for i in range((q1 - 1) // CHECK_PERIODS, q0 // CHECK_PERIODS - 1, -1):
-            total = tuple(t + x for t, x in zip(total, int_grad[i]))
-        old = seg_grad[k] or (None,) * 3
-        seg_grad[k] = tuple(_keep(~wrote, o, t) for o, t in zip(old, total))
-        return ab, met, ran
+    def reverse(ab, q, acc):
+        t0 = q * DEFAULT_SEG
+        return _reverse_sites(A, emis0, emis1, ckpt[q].view(B, S, Mx), obs, t0, t0 + DEFAULT_SEG,
+                              ab, gbar, acc)
 
-    for k in range(K):
-        spec_end[k], _, ran = run(k, zero, False)
-        counts["packed_split_sites"] += int(ran.sum())
-    counts["packed_segments"] += K * false.numel()
-    for k in range(K - 1):
-        _, met, ran = run(k, spec_end[k + 1], True)
-        counts["packed_segments_resolved"] += int(met.sum())
-        counts["packed_fix_sites"] += int(ran.sum())
-    ab = ab_ck[(K - 1) * P // CHECK_PERIODS]
-    for k in reversed(range(K - 1)):
-        _, _, ran = run(k, ab, True)
-        counts["packed_fix_sites"] += int(ran.sum())
-        ab = ab_ck[k * P // CHECK_PERIODS]
-    grads = zeros
-    for x in seg_grad:
-        grads = tuple(t + y for t, y in zip(grads, x))
-    return (*grads, ab, counts)
+    grads, dpi, c = split.backward_segmented(reverse, zero, zeros, obs.shape[1], DEFAULT_SEG,
+                                             plan, DEVICE_COUNTS)
+    return (*grads, dpi, c)
 
 
 # ---------------------------------------------------------------------------
@@ -469,7 +350,7 @@ def forward_packed_cuda(A, emis0, emis1, pi, obs, seg_len: int = DEFAULT_SEG,
     "The forward kernels (B4); shapes as the plain version."
     _check_period(seg_len)
     out = forward_launch(A, emis0, emis1, pi, obs, with_ckpt)
-    forward_packed_cuda.launches += 1
+    tally.add("forward_cuda")
     return out
 
 
@@ -483,7 +364,7 @@ def forward_launch(A, emis0, emis1, pi, obs, with_ckpt: bool, plan: Plan | None 
     dev = require_cuda([A, emis0, emis1, pi], [obs])
     if tuple(pi.shape) != (B, S, M):
         raise ValueError(f"pi must be (B, S, {M})")
-    plan = plan or segment_plan(B, S, L, _sm_count(dev))
+    plan = plan or segment_plan(B, S, L, sm_count(dev))
     lib = load_library()
     f32 = dict(dtype=torch.float32, device=dev)
     n_per = n_segments(L, DEFAULT_SEG)
@@ -505,7 +386,7 @@ def forward_launch(A, emis0, emis1, pi, obs, with_ckpt: bool, plan: Plan | None 
                     torch.empty(K, N, M, **f32), torch.empty(K, N, **f32)]
             err = lib.lib.phlash_packed_forward_split(
                 ptr(A), ptr(emis0), ptr(emis1), ptr(pi), ptr(obs), B, S, L, K, P, ptr(ll),
-                ptr(ckpt), *map(ptr, work), *map(ptr, ends), ptr(_counters.on(dev)),
+                ptr(ckpt), *map(ptr, work), *map(ptr, ends), ptr(device_tally.on(dev)),
                 stream(dev),
             )
     check(lib, err, "packed_forward launch")
@@ -516,7 +397,7 @@ def backward_packed_cuda(A, emis0, emis1, obs, ckpt, gbar, seg_len: int = DEFAUL
     "The adjoint kernels (B5); shapes as the plain version."
     _check_period(seg_len)
     out = backward_launch(A, emis0, emis1, obs, ckpt, gbar)
-    backward_packed_cuda.launches += 1
+    tally.add("backward_cuda")
     return out
 
 
@@ -529,7 +410,7 @@ def backward_launch(A, emis0, emis1, obs, ckpt, gbar, plan: Plan | None = None):
     n_per = n_segments(L, DEFAULT_SEG)
     if tuple(ckpt.shape) != (n_per, B * S, M):
         raise ValueError(f"ckpt must be (n_seg, B * S, {M})")
-    plan = plan or segment_plan(B, S, L, _sm_count(dev), "adjoint")
+    plan = plan or segment_plan(B, S, L, sm_count(dev), "adjoint")
     lib = load_library()
     f32 = dict(dtype=torch.float32, device=dev)
     # the four outputs are all the unsplit kernel writes: the history stays in registers
@@ -554,34 +435,14 @@ def backward_launch(A, emis0, emis1, obs, ckpt, gbar, plan: Plan | None = None):
             err = lib.lib.phlash_packed_backward_split(
                 ptr(A), ptr(emis0), ptr(emis1), ptr(obs), ptr(ckpt), ptr(gbar), B, S, L, K, P,
                 ptr(dA), ptr(de0), ptr(de1), ptr(dpi), *map(ptr, work),
-                ptr(_counters.on(dev)), stream(dev),
+                ptr(device_tally.on(dev)), stream(dev),
             )
     check(lib, err, "packed_backward launch")
     return dA, de0, de1, dpi
 
 
 # ---------------------------------------------------------------------------
-# the split launches' device counters
-# ---------------------------------------------------------------------------
-
-_counters = DeviceCounters(DEVICE_COUNTS)
-
-
-def reset_device_counts() -> None:
-    "Zero the split launches' device counters (a fit's record does at its start)."
-    _counters.reset()
-
-
-def device_counts() -> dict:
-    """DEVICE_COUNTS summed over the devices since the last reset: the
-    segments the split launches ran, those whose fix met inside their own
-    segment, the sites the fix chains ran and the sites split.  Reads the
-    device (one sync) where a split launch ran; zeros where nothing split."""
-    return _counters.read()
-
-
-# ---------------------------------------------------------------------------
-# dispatch and counters
+# dispatch
 # ---------------------------------------------------------------------------
 
 
@@ -594,10 +455,10 @@ def forward(A, emis0, emis1, pi, obs, seg_len: int, with_ckpt: bool):
     else:
         raise ValueError(f"no packed forward for device {obs.device}")
     B, S, _ = pi.shape
-    _work["packed_sites"] += B * S * obs.shape[1]
+    work_tally.add("packed_sites", B * S * obs.shape[1])
     if with_ckpt:
-        _work["packed_ckpt_bytes"] += (n_segments(obs.shape[1], seg_len) * B * S * M
-                                       * out[1].element_size())
+        work_tally.add("packed_ckpt_bytes",
+                       n_segments(obs.shape[1], seg_len) * B * S * M * out[1].element_size())
     return out
 
 
@@ -609,40 +470,5 @@ def backward(A, emis0, emis1, obs, ckpt, gbar, seg_len: int):
         out = backward_packed(A, emis0, emis1, obs, ckpt, gbar, seg_len)
     else:
         raise ValueError(f"no packed adjoint for device {obs.device}")
-    _work["packed_sites"] += gbar.numel() * obs.shape[1]
+    work_tally.add("packed_sites", gbar.numel() * obs.shape[1])
     return out
-
-
-def reset_counts() -> None:
-    forward_packed_cuda.launches = backward_packed_cuda.launches = 0
-    forward_packed.calls = backward_packed.calls = 0
-
-
-def counts() -> dict:
-    return dict(
-        forward_cuda=forward_packed_cuda.launches, backward_cuda=backward_packed_cuda.launches,
-        forward_plain=forward_packed.calls, backward_plain=backward_packed.calls,
-    )
-
-
-def reset_work() -> None:
-    _work.update(dict.fromkeys(WORK_COUNTS, 0))
-
-
-def work() -> dict:
-    "The host tallies of the work `forward` and `backward` swept (WORK_COUNTS)."
-    return dict(_work)
-
-
-def add_counts(n: dict) -> None:
-    """Add `n`, a dict as counts() gives it, to the counters, and the work
-    tallies it holds (a dict as work() gives it) to theirs."""
-    forward_packed_cuda.launches += n["forward_cuda"]
-    backward_packed_cuda.launches += n["backward_cuda"]
-    forward_packed.calls += n["forward_plain"]
-    backward_packed.calls += n["backward_plain"]
-    for k in WORK_COUNTS:
-        _work[k] += n.get(k, 0)
-
-
-reset_counts()

@@ -21,7 +21,7 @@ output is the chains' sum in stream order (csrc/peak.cu lists the steps).
 `roll` overflows to +inf everywhere, on the TPU too; `mix` reaches ~1e38.
 So the check also runs SHORT steps, where every chain is finite.
 
-`run_cuda` counts its launches (`.launches`; `reset_counts`, `counts`).
+`run_cuda` counts its launches in `tally` (`counts`, `reset_counts`).
 There is no dispatch by device: the micro-kernels measure the card, so a
 CPU tensor is refused, as is a failed build or launch.
 
@@ -46,7 +46,7 @@ import re
 import numpy as np
 import torch
 
-from phlash_tpu_torch import roofline
+from phlash_tpu_torch import profiling, roofline
 from phlash_tpu_torch.ops.build import check, load_library, ptr, require_cuda, stream
 
 TB, M, LANES = 4, 16, 128  # tools/vpu_peak.py's block
@@ -83,6 +83,8 @@ SMC_WARPS = 320  # ~ the SMC' kernels' 315 one-warp blocks at B = 500, S = 5, M 
 FILLED_WARPS = 4 * 132 * 64  # four waves of the 64 warps an SM can hold, on 132 SMs
 MIX_RTOL, RTOL = 1e-4, 1e-5  # the gate: finite entries of mix, of the others
 REPS, WINDOW = 3, 10  # measure: the best of REPS windows of WINDOW launches
+tally = profiling.Tally(("run_cuda",))
+counts, reset_counts, add_counts = tally.counts, tally.reset, tally.add_counts
 
 
 def warps_per_copy(which: str) -> int:
@@ -205,19 +207,8 @@ def run_cuda(which: str, streams: int, unroll: int, a: torch.Tensor, b: torch.Te
                                   inner, copies, threads, ptr(out), stream(dev))
     check(lib, err, f"peak {which} launch (streams={streams}, unroll={unroll}, inner={inner}, "
                     f"copies={copies}, threads={threads})")
-    run_cuda.launches += 1
+    tally.add("run_cuda")
     return out
-
-
-def reset_counts() -> None:
-    run_cuda.launches = 0
-
-
-def counts() -> dict:
-    return dict(run_cuda=run_cuda.launches)
-
-
-reset_counts()
 
 
 def step_counts(which: str, streams: int) -> dict:

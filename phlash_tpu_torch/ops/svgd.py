@@ -22,10 +22,10 @@ update with the rest of the step.
 
 Dispatch (svgd.SVGD.step): a CUDA tensor launches the kernels (or raises),
 a CPU tensor takes the plain version; there is no other path and no
-fallback.  Every wrapper counts what it ran (`.launches` on the CUDA
-wrappers; the plain versions in svgd.py add to `plain_calls`); a CUDA graph
-replay, which calls no wrapper, adds what its capture counted through
-`add_counts` (training.Caller does).
+fallback.  Every wrapper counts what it ran in `tally` (the plain
+versions in svgd.py add to it too; `counts`, `reset_counts`,
+`add_counts`); a CUDA graph replay, which calls no wrapper, adds what its
+capture counted (training.Caller does).
 
 Kernel design note (csrc/svgd.cu).
 * Replaces: phlash_tpu/svgd.py:32-76, the exact bitwise median selection
@@ -83,15 +83,17 @@ import math
 import numpy as np
 import torch
 
+from phlash_tpu_torch import profiling
 from phlash_tpu_torch.ops.build import check, load_library, ptr, stream
 
 DTYPES = (torch.float32, torch.float64)
 RADIX = 13  # bits of each digit of S2's selection (csrc/svgd.cu's RADIX); S1 makes the first
 SELECT_BLOCKS = 64  # S2's blocks (csrc/svgd.cu's SELECT_BLOCKS), each with its bins' offsets
-# the plain versions' calls (svgd.py's median_bandwidth, svgd_direction and
-# AMSGrad.update add to them); the CUDA wrappers count on their `.launches`
-PLAIN = ("bandwidth_plain", "direction_plain", "amsgrad_plain")
-plain_calls = dict.fromkeys(PLAIN, 0)
+# the CUDA wrappers' launches and the plain versions' calls (svgd.py's
+# median_bandwidth, svgd_direction and AMSGrad.update add theirs)
+tally = profiling.Tally(("distances_cuda", "bandwidth_cuda", "update_cuda", "bandwidth_plain",
+                         "direction_plain", "amsgrad_plain"))
+counts, reset_counts, add_counts = tally.counts, tally.reset, tally.add_counts
 
 
 def pairs(P: int) -> int:
@@ -179,7 +181,7 @@ def distances_cuda(x: torch.Tensor, g: torch.Tensor) -> tuple[torch.Tensor, ...]
                                             ptr(xt), ptr(gt), ptr(sel), ptr(ws),
                                             stream(x.device))
     check(lib, err, "svgd_distances launch")
-    distances_cuda.launches += 1
+    tally.add("distances_cuda")
     return tri, xt, gt, sel
 
 
@@ -204,7 +206,7 @@ def bandwidth_cuda(tri: torch.Tensor, sel: torch.Tensor, P: int) -> torch.Tensor
                                             inv_log(P, tri.dtype), ptr(work), ptr(offs),
                                             ptr(ws), ptr(h), stream(tri.device))
     check(lib, err, "svgd_bandwidth launch")
-    bandwidth_cuda.launches += 1
+    tally.add("bandwidth_cuda")
     return h
 
 
@@ -245,7 +247,7 @@ def update_cuda(x: torch.Tensor, xt: torch.Tensor, gt: torch.Tensor, h: torch.Te
             float(optimizer.b2), float(optimizer.eps), *map(ptr, outs),
             ptr(count_out), stream(x.device))
     check(lib, err, "svgd_update launch")
-    update_cuda.launches += 1
+    tally.add("update_cuda")
     return (*outs, count_out)
 
 
@@ -261,26 +263,3 @@ def step_cuda(x: torch.Tensor, g: torch.Tensor, rows: slice, opt_state, optimize
     h = bandwidth_cuda(tri, sel, x.shape[0])
     o = opt_state
     return update_cuda(x, xt, gt, h, rows, o.mu, o.nu, o.nu_max, o.count, optimizer)
-
-
-def reset_counts() -> None:
-    distances_cuda.launches = bandwidth_cuda.launches = update_cuda.launches = 0
-    for k in PLAIN:
-        plain_calls[k] = 0
-
-
-def counts() -> dict:
-    return dict(distances_cuda=distances_cuda.launches, bandwidth_cuda=bandwidth_cuda.launches,
-                update_cuda=update_cuda.launches, **plain_calls)
-
-
-def add_counts(n: dict) -> None:
-    "Add `n`, a dict as counts() gives it, to the counters."
-    distances_cuda.launches += n["distances_cuda"]
-    bandwidth_cuda.launches += n["bandwidth_cuda"]
-    update_cuda.launches += n["update_cuda"]
-    for k in PLAIN:
-        plain_calls[k] += n[k]
-
-
-reset_counts()

@@ -28,11 +28,11 @@ mesh=, svgd.SVGD with a gather):
 4. each rank applies amsgrad to its block.
 
 Every collective goes through `_all_reduce` / `_all_gather`, which count
-its calls and bytes by "op/axis/what" (`counts`, `reset_counts`,
+its calls and bytes by "op/axis/what" in `tally` (`counts`, `reset_counts`,
 `add_counts`, as ops/smc.py counts kernel launches); a CUDA graph replay
-adds what its capture counted (training.Caller).  Both also add the calls
-to the fit's counter `collectives` (profiling.count), so that a span of
-the fit counts the collectives made inside it.  NCCL runs the
+adds what its capture counted (training.Caller).  The tally also adds the
+calls to the fit's counter `collectives` (profiling.count), so that a span
+of the fit counts the collectives made inside it.  NCCL runs the
 collectives on CUDA, gloo on the CPU; nothing falls back from one to the
 other.
 """
@@ -154,31 +154,26 @@ def share(mesh: DeviceMesh, S: int) -> slice:
 
 # -- counted collectives ------------------------------------------------------
 
-_COUNTS: dict[str, int] = {}
+class _Collectives(profiling.Tally):
+    """Collectives run since the last reset: "op/axis/what" -> calls and
+    "op/axis/what/bytes" -> the bytes each rank put in (summed); the calls
+    it adds also go to the fit's counter `collectives`."""
+
+    __slots__ = ()
+
+    def add_counts(self, n: dict) -> None:
+        super().add_counts(n)
+        calls = sum(v for k, v in n.items() if not k.endswith("/bytes"))
+        if calls:
+            profiling.count("collectives", calls)
+
+
+tally = _Collectives()
+counts, reset_counts, add_counts = tally.counts, tally.reset, tally.add_counts
 
 
 def _count(key: str, t: torch.Tensor) -> None:
-    _COUNTS[key] = _COUNTS.get(key, 0) + 1
-    _COUNTS[key + "/bytes"] = _COUNTS.get(key + "/bytes", 0) + t.numel() * t.element_size()
-    profiling.count("collectives")
-
-
-def counts() -> dict:
-    """Collectives run since the last reset: "op/axis/what" -> calls and
-    "op/axis/what/bytes" -> the bytes each rank put in (summed)."""
-    return dict(_COUNTS)
-
-
-def reset_counts() -> None:
-    _COUNTS.clear()
-
-
-def add_counts(n: dict) -> None:
-    for k, v in n.items():
-        _COUNTS[k] = _COUNTS.get(k, 0) + v
-    calls = sum(v for k, v in n.items() if not k.endswith("/bytes"))
-    if calls:
-        profiling.count("collectives", calls)
+    tally.add_counts({key: 1, key + "/bytes": t.numel() * t.element_size()})
 
 
 def collectives(c: dict = None) -> dict:

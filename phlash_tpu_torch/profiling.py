@@ -42,22 +42,27 @@ then also opens a profiler range of the span's name, so the span sits in
 the profiler's trace on the same timeline as the device's work (`trace`
 around a fit shows every span).
 With the profiler off, a call's span site reads one flag and allocates
-nothing.  The record also carries `counts`: the SMC' kernels' split
-launches count on the device (ops/smc.DEVICE_COUNTS: smc_segments,
-smc_segments_resolved, smc_fix_sites, smc_split_sites), and so do the
-packed kernels' (ops/packed.DEVICE_COUNTS: packed_segments,
-packed_segments_resolved, packed_fix_sites, packed_split_sites), zeroed
-when the fit opens and read once when its record closes (zeros where
-nothing split, as on the CPU), so no call syncs for them; the packed
-kernels' host tallies
-(ops/packed.WORK_COUNTS: packed_sites, the instance-sites B4 and B5 swept,
-and packed_ckpt_bytes, the checkpoint bytes B4 wrote; taken from each
-launch's shapes, added back at every graph replay) alike, zeros on a fit
-of another backend.  Counters (`count`) add to the innermost recorded open span and,
+nothing.  Counters (`count`) add to the innermost recorded open span and,
 when it closes, to its parent: `host_syncs` counts the loop's blocking
 reads of the device (the finiteness check, the ELPD read and the
 read-back's copy), and on a mesh `collectives` counts every collective
-(parallel/mesh.py's counter adds to it, a graph replay what it captured).
+(parallel/mesh.py's tally adds to it, a graph replay what it captured).
+
+The kernels' counters live here too, in one registry that names no kernel.
+A module declares a `Tally` (a named set of integer counters on the host:
+its launches, its work) where it is defined, and every tally registers
+itself, so training.Caller takes a CUDA graph capture's share back and
+adds it at each replay (`snapshot`, `since`, `replay`).  The counter sets
+made with `fit_record=True`, and the split launches' device counters
+(ops/split.DeviceCounters), belong to the fit's record: `records_fit`
+zeroes them when a fit opens and reads them into `FitTrace.counts` when
+its record closes (the device's once, so no call syncs for them; zeros
+where nothing split, as on the CPU).  These are the SMC' kernels' and the
+packed kernels' four device counts each (ops/smc.DEVICE_COUNTS,
+ops/packed.DEVICE_COUNTS) and the packed kernels' host tallies
+(ops/packed.WORK_COUNTS: packed_sites, the instance-sites B4 and B5 swept,
+and packed_ckpt_bytes, the checkpoint bytes B4 wrote), zeros on a fit of
+another backend.
 """
 
 from __future__ import annotations
@@ -73,6 +78,68 @@ _ids = itertools.count(1)
 _open: FitTrace | None = None  # the fit being recorded
 _last: FitTrace | None = None  # the newest fit of the process
 _autograd_profiler = None  # torch.autograd.profiler, once a fit has opened
+_tallies: list[Tally] = []  # every host tally, in the order they were made
+_fit_record: list = []  # the counter sets a fit's record zeroes and reads
+
+
+class Tally:
+    """A named set of integer counters on the host: `add` one, and
+    `counts` / `reset` / `add_counts` the set (a module binds these as its
+    own functions).  `keys` are the counters `reset` sets to zero; `add`
+    may make others, which `reset` drops.  Every tally registers itself for
+    graph replays; with fit_record=True it also belongs to the fit's record."""
+
+    __slots__ = ("keys", "n")
+
+    def __init__(self, keys: tuple = (), fit_record: bool = False):
+        self.keys = tuple(keys)
+        self.reset()
+        _tallies.append(self)
+        if fit_record:
+            in_fit_record(self)
+
+    def add(self, key: str, n: int = 1) -> None:
+        self.n[key] = self.n.get(key, 0) + n
+
+    def counts(self) -> dict:
+        return dict(self.n)
+
+    def reset(self) -> None:
+        self.n = dict.fromkeys(self.keys, 0)
+
+    def add_counts(self, n: dict) -> None:
+        "Add `n`, a dict as counts() gives it (a graph replay's share), to the counters."
+        for k, v in n.items():
+            self.n[k] = self.n.get(k, 0) + v
+
+
+def in_fit_record(counters) -> None:
+    """Make a counter set (its `reset()` and `counts()`) part of every fit's
+    record: zeroed when a fit opens, read into FitTrace.counts when it closes."""
+    _fit_record.append(counters)
+
+
+def snapshot() -> dict:
+    "Every tally's counts now (taken before a graph capture)."
+    return {t: t.counts() for t in _tallies}
+
+
+def since(before: dict) -> list:
+    """What the tallies counted since `before` (a snapshot): (tally, its
+    changed counters and their changes) for each tally that changed."""
+    out = []
+    for t in _tallies:
+        b = before.get(t, {})
+        n = {k: v - b.get(k, 0) for k, v in t.n.items() if v != b.get(k, 0)}
+        if n:
+            out.append((t, n))
+    return out
+
+
+def replay(share: list, sign: int = 1) -> None:
+    "Add `share` (since's) to the tallies, once a graph replay; sign=-1 takes it back."
+    for t, n in share:
+        t.add_counts(n if sign == 1 else {k: -v for k, v in n.items()})
 
 
 class Span:
@@ -224,14 +291,11 @@ def records_fit(fit):
         global _open, _last, _autograd_profiler
         import torch.autograd.profiler
 
-        from phlash_tpu_torch.ops import packed, smc
-
         _autograd_profiler = torch.autograd.profiler
         tr, outer = FitTrace(), _open
         _open = _last = tr
-        smc.reset_device_counts()
-        packed.reset_device_counts()
-        packed.reset_work()
+        for c in _fit_record:
+            c.reset()
         returned = False
         try:
             with Span("phlash.fit", {"fit": tr.id}):
@@ -241,13 +305,12 @@ def records_fit(fit):
         finally:
             tr.closed = True
             _open = outer
-            tr.counts.update(packed.work())
-            try:
-                tr.counts.update(smc.device_counts())
-                tr.counts.update(packed.device_counts())
-            except RuntimeError:  # a device fault: the fit's own exception says more
-                if returned:
-                    raise
+            for c in _fit_record:
+                try:
+                    tr.counts.update(c.counts())
+                except RuntimeError:  # a device fault: the fit's own exception says more
+                    if returned:
+                        raise
 
     return recorded
 

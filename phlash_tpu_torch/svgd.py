@@ -40,7 +40,7 @@ def median_bandwidth(sq_dists: torch.Tensor, num_particles: int) -> torch.Tensor
     appears twice in the full matrix, which preserves the median, so the
     diagonal is masked to +inf and the two middle order statistics of the
     sorted matrix are averaged."""
-    kernels.plain_calls["bandwidth_plain"] += 1
+    kernels.tally.add("bandwidth_plain")
     P = num_particles
     d = torch.sqrt(sq_dists)
     eye = torch.eye(P, dtype=torch.bool, device=d.device)
@@ -100,7 +100,7 @@ def svgd_direction(flat_particles: torch.Tensor, flat_grads: torch.Tensor,
     """SVGD update direction for flattened particles (P, D), at the particles
     `rows` (all by default; a rank of a mesh's particle axis takes its
     block: the bandwidth and the sums still run over every particle)."""
-    kernels.plain_calls["direction_plain"] += 1
+    kernels.tally.add("direction_plain")
     P = flat_particles.shape[0]
     diffs = flat_particles[:, None, :] - flat_particles[None, :, :]  # (P, P, D)
     sq = (diffs**2).sum(-1)
@@ -135,7 +135,7 @@ class AMSGrad:
 
     def update(self, g: torch.Tensor, state: AMSGradState):
         "(updates to add to the params, new state) for the descent direction g."
-        kernels.plain_calls["amsgrad_plain"] += 1
+        kernels.tally.add("amsgrad_plain")
         mu = (1 - self.b1) * g + self.b1 * state.mu
         nu = (1 - self.b2) * g**2 + self.b2 * state.nu
         count = state.count + 1

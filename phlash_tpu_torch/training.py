@@ -44,23 +44,12 @@ from phlash_tpu_torch.afs import default_afs_transform
 from phlash_tpu_torch.kernel import check_backend, get_kernel
 from phlash_tpu_torch.kernel_base import upload
 from phlash_tpu_torch.model import log_density_batched, log_density_rows
-from phlash_tpu_torch.ops import assembly, packed, smc
-from phlash_tpu_torch.ops import svgd as svgd_ops
 from phlash_tpu_torch.parallel import mesh as comms
 from phlash_tpu_torch.params import MCMCParams
 from phlash_tpu_torch.svgd import SVGD, AMSGrad, SVGDState
 from phlash_tpu_torch.utils import Pattern
 
 logger = logging.getLogger(__name__)
-
-# the modules whose launch (and collective) counters a graph replay adds to
-_COUNTED = (smc, packed, assembly, svgd_ops, comms)
-
-
-def _tallies(mod) -> dict:
-    "mod's host counters a replay adds to: its counts(), and its work() where it keeps one."
-    work = getattr(mod, "work", None)
-    return mod.counts() if work is None else {**mod.counts(), **work()}
 
 
 def make_multi_step(step: Callable, k: int) -> Callable:
@@ -100,7 +89,7 @@ class _Graph:
     inds: torch.Tensor  # (k, S) static index rows
     elpd_inds: torch.Tensor | None  # static held-out chunk indices
     elpd: torch.Tensor | None  # 0-d static output
-    launches: list  # per module of _COUNTED, counts() of one replay
+    counts: list  # profiling.since's share of one replay, in the host tallies
 
 
 class Caller:
@@ -126,11 +115,10 @@ class Caller:
       and the capture draw no random numbers (the indices come in), so
       they move neither the trajectory nor any generator.
     - a capture that fails raises; nothing falls back to eager stepping.
-    - the kernel launch counters (ops/smc.py, ops/packed.py, ops/assembly.py,
-      ops/svgd.py) count what
-      ran on the card: the warm-up's launches stay counted, the capture's
-      are taken back, and every replay adds what its capture launched;
-      ops/packed.py's work tallies (packed_sites, packed_ckpt_bytes) alike.
+    - the host tallies (profiling.Tally: the kernels' launches, the packed
+      kernels' work, a mesh's collectives) count what ran on the card: the
+      warm-up's counts stay, the capture's are taken back, and every
+      replay adds what its capture counted.
     `setup_seconds[(k, with_elpd)]` holds the host time of each graph's
     warm-up and of its capture with instantiation, from the stamps of its
     phlash.capture span.  A call is a phlash.call.launch span (profiling.py).
@@ -164,8 +152,7 @@ class Caller:
             if elpd_inds is not None:
                 g.elpd_inds.copy_(elpd_inds)
             g.graph.replay()
-            for mod, n in zip(_COUNTED, g.launches):
-                mod.add_counts(n)
+            profiling.replay(g.counts)
             return self.state, g.elpd
 
     def _capture(self, key, inds: torch.Tensor, elpd_inds: torch.Tensor | None) -> _Graph:
@@ -177,14 +164,14 @@ class Caller:
                    elpd_inds=None if elpd_inds is None else elpd_inds.clone(),
                    elpd=None if elpd_inds is None else torch.zeros(
                        (), dtype=self.state.particles.dtype, device=dev),
-                   launches=[])
+                   counts=[])
         with profiling.span("phlash.capture", key=key) as sp:
             self._stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(self._stream):
                 self.run(clone_state(self.state), g.inds[:1], g.elpd_inds)
             torch.cuda.synchronize(dev)
             t1 = time.perf_counter_ns()
-            before = [_tallies(mod) for mod in _COUNTED]
+            before = profiling.snapshot()
             # thread_local: the checkpoint writer's thread may wait on a CUDA
             # event while this thread captures
             with torch.cuda.graph(g.graph, pool=self._pool, stream=self._stream,
@@ -194,10 +181,8 @@ class Caller:
                 if elpd is not None:
                     g.elpd.copy_(elpd)
             torch.cuda.synchronize(dev)
-        for mod, b in zip(_COUNTED, before):
-            n = {name: v - b.get(name, 0) for name, v in _tallies(mod).items()}
-            mod.add_counts({name: -v for name, v in n.items()})
-            g.launches.append(n)
+        g.counts = profiling.since(before)
+        profiling.replay(g.counts, -1)
         secs = dict(warmup=(t1 - sp.start) / 1e9, capture=(sp.end - t1) / 1e9)
         sp.attrs.update(warmup_s=secs["warmup"], capture_s=secs["capture"])
         self.setup_seconds[key] = secs

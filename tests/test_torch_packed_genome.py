@@ -202,24 +202,27 @@ def test_an_smc_fit_counts_no_packed_work(fits):
 
 
 def test_the_work_tallies_ride_on_a_replay():
-    """training.Caller takes a capture's tallies (counts() and work()) back and
-    adds them at every replay through add_counts: the work keys with them;
-    a module without work() tallies its counts() alone."""
+    """training.Caller takes a capture's share of the registered tallies
+    (profiling.snapshot / since) back and adds it at every replay
+    (profiling.replay): the work tallies with the launch counts; a tally
+    that counted nothing has no share."""
     packed.reset_counts()
     packed.reset_work()
     A = torch.eye(16)[None].expand(2, 16, 16).contiguous()
     e = torch.full((2, 16), 0.5)
     pi = torch.full((2, 3, 16), 1 / 16)
     obs = torch.zeros(3, 16, dtype=torch.int8)
-    before = training._tallies(packed)
+    before = profiling.snapshot()
     ll, ck = packed.forward(A, e, e, pi, obs, 8, True)
     packed.backward(A, e, e, obs, ck, torch.ones_like(ll), 8)
-    n = {k: v - before[k] for k, v in training._tallies(packed).items()}
+    share = dict(profiling.since(before))
+    n = share[packed.work_tally]
     assert n["packed_sites"] == 2 * 2 * 3 * 16 and n["packed_ckpt_bytes"] == 2 * 2 * 3 * 16 * 4
-    packed.add_counts(n)
+    assert share[packed.tally] == {"forward_plain": 1, "backward_plain": 1}
+    assert smc.tally not in share
+    profiling.replay(list(share.items()))
     assert packed.work() == {k: 2 * n[k] for k in packed.WORK_COUNTS}
     assert packed.counts()["forward_plain"] == 2
-    assert training._tallies(smc) == smc.counts()
     packed.reset_work()
     assert packed.work() == dict.fromkeys(packed.WORK_COUNTS, 0)
 

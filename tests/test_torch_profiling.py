@@ -302,7 +302,7 @@ def test_the_record_carries_the_split_kernels_device_counts(untraced, traced, mo
                                       "smc_split_sites"}
     assert untraced[1].counts == want and traced[1].counts == want
     resets = []
-    monkeypatch.setattr(smc, "reset_device_counts", lambda: resets.append(1))
+    monkeypatch.setattr(smc.device_tally, "reset", lambda: resets.append(1))
 
     def stop(dm):
         raise RuntimeError("stop")

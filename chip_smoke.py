@@ -15,6 +15,17 @@ Phases, each of which prints its own lines and aborts the run on failure:
    for every M, at the fit's likelihood (L=2000) and warm-up filter (L=500)
    shapes, and at a ragged row over three observation tiles (L=2501);
    after phase 4c also on the smc fit's own late inputs;
+3e. the SMC' kernels with each row's live end (the likelihood's trim):
+   the trimmed kernels against the plain trimmed versions (float64 on the
+   card) on ragged rows whose ends fall mid-period, on a checkpoint, on a
+   period, nowhere (a wholly missing row) and past a padded tail; the live
+   ends the card finds and their two counters against the host's count;
+   the whole-row kernels' states before each end bitwise the trimmed ones;
+   and at a genome chunk's length (L = 94,000, S = 1 and 5) the trimmed
+   split kernels' live period states and alpha bitwise trimmed K = 1's,
+   their ll, gradients and dpi within phase 3's gates of K = 1's (or no
+   further than K = 1 from the plain float64 adjoint, plus that gate), timed
+   against whole rows, and an explicit full end bitwise whole rows;
 3b. the packed kernels (B4, B5) against theirs, the same way, at ragged
    shapes (B=37, S=3, L=1000 and L=2501: three observation tiles, a
    partial last period) and the fit shape (B=500, S=5, L=2000), with the
@@ -155,7 +166,11 @@ Phases, each of which prints its own lines and aborts the run on failure:
    at the validation fit's chunk length (L = 100,000, B = 500, S = 5;
    phase 3's tolerances; wherever ops/smc.segment_plan splits the rows, as
    there and in phase 14, the split kernels are also held to the unsplit
-   ones: pstates and alpha bitwise, the four device counts printed), then
+   ones: pstates and alpha bitwise, the four device counts printed), on
+   whole rows and again with rows cut short (a chromosome's last chunk; ends
+   mid-row, on a checkpoint, none, a wholly missing row) and run to their
+   live ends as the fit's likelihood runs them, the split there within
+   phase 3's gates of trimmed K = 1, then
    `python tools/torch_validate.py
    --n-samples n` at full size (constant, bottleneck and zigzag; three
    contigs of 500,000 windows from the continuous SMC' simulator, one held
@@ -287,7 +302,8 @@ CHECK_SHAPES = ((37, 3, 1000, (8, 16, 32, 64)), (500, 5, 2000, (16,)), (500, 5, 
                 (37, 3, 2501, (16,)))
 
 
-def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs, f32_floor=False):
+def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs, f32_floor=False,
+             live=None):
     """The forward (B2, with residuals) and adjoint (B3) kernels against
     their plain versions in float64 on the card; B1 (no residuals) must give
     B2's ll and alpha;
@@ -297,25 +313,37 @@ def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs, f32_floor=Fa
     period-state entry.  With f32_floor (short rows, whose |ll| can be
     ~0.1, where float32's rounding alone exceeds 1e-5 relative) an
     instance's ll may also sit within twice the plain float32 forward's
-    error on that instance, as phase 3c's float32 rule reads."""
+    error on that instance, as phase 3c's float32 rule reads.  With `live`
+    (each row's live end, as the fit's likelihood runs it) the trimmed
+    wrappers against the plain trimmed versions: the plain ll against
+    psmc_ll's whole rows within 1e-10 of max |ll| (the model's transition is
+    row-stochastic, so the tail adds log 1), the period states below each
+    end, and the split
+    against trimmed K = 1 (check_trim_split)."""
     from phlash_tpu_torch.hmm import psmc_ll
     from phlash_tpu_torch.params import PSMCParams
 
     f32 = lambda xs: tuple(x.float().contiguous() for x in xs)  # noqa: E731
     p32, pi32, g32, ab32 = f32(params), pi.float().contiguous(), gbar.float(), abar0.float()
-    ll_p, a_p, ps_p = smc.forward_structured(params, pi, obs, True)
+    ll_p, a_p, ps_p = smc.forward_structured(params, pi, obs, True, live)
     a_o, ll_o = psmc_ll(PSMCParams(*(x[:, None, :] for x in params), pi=pi), obs)
-    e_o = max(max_rel(ll_p, ll_o), max_rel(a_p, a_o))
+    # trimmed, the tail's log 1 is left out: a wholly missing row's ll is 0
+    # there and float64's rounding of log 1 in psmc_ll, so measured against max |ll|
+    e_o = (normalized(ll_p, ll_o) if live is not None
+           else max(max_rel(ll_p, ll_o), max_rel(a_p, a_o)))
     print(f"plain forward {where} vs psmc_ll: max rel err {e_o:.3e}")
     if not e_o <= 1e-10:
         fail(f"the plain forward disagrees with hmm.psmc_ll at {where}")
-    g_p, dpi_p = smc.backward_structured(params, obs, ps_p, gbar, abar0)
+    g_p, dpi_p = smc.backward_structured(params, obs, ps_p, gbar, abar0, live)
     names = ("b", "d", "u", "v", "emis0", "emis1", "pi")
     fwd, bwd = errs["forward"], errs["backward"]
-    ll_k, a_k, ps_k = smc.forward_cuda(p32, pi32, obs, True)
-    ll_1, a_1, _ = smc.forward_cuda(p32, pi32, obs, False)
-    g_k, dpi_k = smc.backward_cuda(p32, obs, ps_k, g32, ab32)
+    ll_k, a_k, ps_k = smc.forward_cuda(p32, pi32, obs, True, live)
+    ll_1, a_1, _ = smc.forward_cuda(p32, pi32, obs, False, live)
+    g_k, dpi_k = smc.backward_cuda(p32, obs, ps_k, g32, ab32, live)
     torch.cuda.synchronize()
+    if live is not None:  # the states below each row's end
+        mask = torch.arange(ps_p.shape[0], device=ps_p.device)[:, None] < live.to(ps_p.device)
+        ps_k, ps_p = ps_k[mask], ps_p[mask]
     e_ll, e_a, e_ps = max_rel(ll_k, ll_p), max_rel(a_k, a_p), max_rel(ps_k, ps_p)
     ll_ok = e_ll <= 1e-5
     if f32_floor:
@@ -339,7 +367,10 @@ def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs, f32_floor=Fa
         fail(f"forward kernel disagrees with the plain version at {where}")
     if not (torch.equal(ll_1, ll_k) and torch.equal(a_1, a_k)):
         fail(f"the forward without residuals differs from the one with at {where}")
-    check_split(torch, smc, p32, pi32, obs, g32, ab32, where, ll_k, a_k, ps_k, g_k, dpi_k)
+    if live is None:
+        check_split(torch, smc, p32, pi32, obs, g32, ab32, where, ll_k, a_k, ps_k, g_k, dpi_k)
+    else:
+        check_trim_split(torch, smc, p32, pi32, obs, g32, ab32, live, where, (*g_p, dpi_p))
     fwd["ll"], fwd["state"] = max(fwd["ll"], e_ll), max(fwd["state"], e_a, e_ps)
     fwd["abs"] = max(fwd["abs"], max_abs(ll_k, ll_p), max_abs(a_k, a_p))
     bwd["grad"] = max(bwd["grad"], worst)
@@ -405,6 +436,198 @@ def check_fit_inputs(torch, smc, dev, fit_inputs: dict, errs: dict):
         tiny = gate_smc(torch, smc, tuple(x.double() for x in params), pi.double(), obs, gbar,
                         abar0, where, errs)
         print(f"{where}: smallest period-state entry {tiny:.3e}")
+
+
+# Phase 3e: each row to its live end (the likelihood's trim).  (B, S, L, each
+# row's last observed site; None: no tail, -1: wholly missing): ragged rows
+# whose ends fall mid-period, on a checkpoint interval (128 sites) and on a
+# period, one wholly missing and one padded (random_instances' -2 tail on row
+# 2 % S); the fit's likelihood shape, which segment_plan leaves unsplit; and
+# rows of 20,000 sites, which it splits (K = 9), one ending on a checkpoint.
+TRIM_SHAPES = ((37, 4, 1000, (None, 613, 2 * 128 - 1, -1)), (37, 3, 2501, (2000, None, 7)),
+               (500, 5, 2000, (1500, None, -1, 1023, 8)),
+               (37, 3, 20_000, (None, 9_000, 40 * 128 - 1)))
+# at a genome chunk's length (L = 94,000, as diploid.genome's rows): S = 1 with
+# about half the row padded (a chromosome's last chunk), and S = 5 with ends
+# mid-row, on a checkpoint, none, wholly missing and past three quarters
+TRIM_GENOME = ((500, 1, 94_000, (50_131,)),
+               (500, 5, 94_000, (40_000, 16 * 8 * 300 - 1, None, -1, 71_003)))
+
+
+def trim_rows(torch, obs, lasts):
+    "Rows `obs` made missing (-1) after each one's last observed site (`lasts`)."
+    obs = obs.clone()
+    for s, last in enumerate(lasts):
+        if last is not None:
+            obs[s, last + 1:] = -1
+    return obs
+
+
+def check_live_ends(torch, smc, obs, B: int, where: str):
+    """The live ends the card finds (phlash_smc_live_periods) against the
+    plain rule, and its two counters against the host's count of the rows'
+    trimmed and whole instance-sites; returns the ends."""
+    S, L = obs.shape
+    smc.reset_trim_counts()
+    live = smc.live_periods(obs, B)
+    got = smc.trim_counts()
+    want = smc.live_periods(obs.cpu())
+    if not torch.equal(live.cpu(), want):
+        fail(f"the card's live ends {live.tolist()} are not the rule's {want.tolist()} at {where}")
+    ends = torch.clamp(want.long() * smc.NORM_EVERY, max=L)
+    host = {"smc_trimmed_sites": B * int((L - ends).sum()), "smc_row_sites": B * S * L}
+    if got != host:
+        fail(f"the live-end counters read {got}, the host counts {host} at {where}")
+    print(f"{where}: live ends {live.tolist()} periods; counters {json.dumps(got)} (trim share "
+          f"{100.0 * got['smc_trimmed_sites'] / got['smc_row_sites']:.2f}%)")
+    return live
+
+
+def live_parts_equal(torch, a, b, live, L: int) -> bool:
+    "pstates (n_per, S, B, M) a and b bitwise equal in each row's periods below its live end."
+    return all(torch.equal(a[:int(n), s], b[:int(n), s]) for s, n in enumerate(live.tolist()))
+
+
+def check_trim(torch, smc, dev):
+    """Phase 3e, first part: the trimmed kernels (B1 / B2 / B3 with each row's
+    live end) against the plain trimmed versions in float64 on the card, at
+    TRIM_SHAPES: ll max rel 1e-5, alpha and the live periods' states 1e-4,
+    gradients normalized 2e-5; B1's ll and alpha bitwise B2's; the whole-row
+    kernels' period states before each end bitwise the trimmed ones; the
+    live ends and their counters (check_live_ends); and where segment_plan
+    splits, the split against K = 1 (check_trim_split)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    for B, S, L, lasts in TRIM_SHAPES:
+        where = f"trim M=16 B={B} S={S} L={L}"
+        params, pi, obs = random_instances(torch, 16, B, S, L, dev, gen)
+        obs = trim_rows(torch, obs, lasts)
+        gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
+        abar0 = torch.randn(B, S, 16, generator=gen, device=dev, dtype=torch.float64)
+        live = check_live_ends(torch, smc, obs, B, where)
+        p32, pi32 = tuple(x.float().contiguous() for x in params), pi.float().contiguous()
+        g32, ab32 = gbar.float(), abar0.float()
+        ll_p, a_p, ps_p = smc.forward_structured(params, pi, obs, True, live)
+        g_p, dpi_p = smc.backward_structured(params, obs, ps_p, gbar, abar0, live)
+        ll_k, a_k, ps_k = smc.forward_cuda(p32, pi32, obs, True, live)
+        ll_1, a_1, _ = smc.forward_cuda(p32, pi32, obs, False, live)
+        g_k, dpi_k = smc.backward_cuda(p32, obs, ps_k, g32, ab32, live)
+        _, _, ps_w = smc.forward_cuda(p32, pi32, obs, True)
+        torch.cuda.synchronize()
+        mask = torch.arange(ps_p.shape[0], device=dev)[:, None] < live.to(dev)[None, :]
+        e_ll, e_a = max_rel(ll_k, ll_p), max_rel(a_k, a_p)
+        e_ps = max_rel(ps_k[mask], ps_p[mask])
+        grad = max(normalized(a, b) for a, b in zip((*g_k, dpi_k), (*g_p, dpi_p)))
+        print(f"{where}: trimmed kernels against the plain trimmed versions: max rel err ll "
+              f"{e_ll:.3e} alpha {e_a:.3e} live pstates {e_ps:.3e}; max normalized err over the "
+              f"7 gradients {grad:.3e}")
+        if not (e_ll <= 1e-5 and e_a <= 1e-4 and e_ps <= 1e-4 and grad <= 2e-5):
+            fail(f"the trimmed kernels disagree with the plain trimmed versions at {where}")
+        if not (torch.equal(ll_1, ll_k) and torch.equal(a_1, a_k)):
+            fail(f"the trimmed forward without residuals differs from the one with at {where}")
+        if not live_parts_equal(torch, ps_k, ps_w, live, L):
+            fail(f"the trimmed forward's states before the live ends are not the whole rows' "
+                 f"at {where}")
+        check_trim_split(torch, smc, p32, pi32, obs, g32, ab32, live, where, (*g_p, dpi_p))
+
+
+def check_trim_split(torch, smc, p32, pi32, obs, g32, ab32, live, where, want, timed=False):
+    """Where segment_plan splits the rows, the trimmed split kernels against
+    the trimmed unsplit ones (K = 1) on the same float32 inputs: alpha and
+    the live periods' states bitwise equal (B2's pstates, and B1's, which
+    keeps checkpoints, through its alpha beside B2's); ll within 1e-5
+    relative of K = 1's; dpi and each of the six gradients within 2e-5 of
+    max of K = 1's (phase 3's gates; the unsplit adjoint's body orders its
+    operations otherwise than the split's period step, so B3's abar chain
+    is not the split's bit for bit, on whole rows as on trimmed ones), or,
+    where K = 1 itself lies further from `want` (the plain float64 seven
+    gradients at these inputs, trimmed), no further from it than K = 1 plus
+    2e-5: a gradient whose float32 sums cancel (db of a row that ends in a
+    long run of hom sites reads 5e-4 from float64 on both paths) differs
+    between two summation orders by more than phase 3's gate.  The split
+    launches' device counts printed.  With `timed`, CUDA-event ms of B2 +
+    B3 trimmed and whole, split and K = 1."""
+    B, S, M = pi32.shape
+    L = obs.shape[1]
+    plan, plan_b = smc.segment_plan(B, S, L, M), smc.segment_plan(B, S, L, M, None, "adjoint")
+    if plan.K == 1 and plan_b.K == 1:
+        return
+    one = smc.Plan(1, 0)
+    ll_u, a_u, ps_u = smc.forward_launch(p32, pi32, obs, True, one, live)
+    g_u, dpi_u = smc.backward_launch(p32, obs, ps_u, g32, ab32, one, live)
+    smc.reset_device_counts()
+    ll_k, a_k, ps_k = smc.forward_launch(p32, pi32, obs, True, plan, live)
+    g_k, dpi_k = smc.backward_launch(p32, obs, ps_k, g32, ab32, plan_b, live)
+    counts = smc.device_counts()
+    ll_b1, a_b1, _ = smc.forward_launch(p32, pi32, obs, False, plan, live)
+    if not (live_parts_equal(torch, ps_k, ps_u, live, L) and torch.equal(a_k, a_u)):
+        fail(f"the trimmed split forward ({plan}) differs from trimmed K = 1 at {where}")
+    if not (torch.equal(a_b1, a_k) and max_rel(ll_b1, ll_k.double()) <= 1e-6):
+        fail(f"the trimmed split forward without residuals differs from the one with at {where}")
+    e_ll = max_rel(ll_k, ll_u.double())
+    names = ("b", "d", "u", "v", "emis0", "emis1", "pi")
+    e_g, off = {}, []
+    for name, a, b, w in zip(names, (*g_k, dpi_k), (*g_u, dpi_u), want):
+        e_g[name] = normalized(a, b.double())
+        if not e_g[name] <= 2e-5 and not normalized(a, w) <= normalized(b, w) + 2e-5:
+            off.append(f"d{name} {e_g[name]:.3e} (from float64: split {normalized(a, w):.3e}, "
+                       f"K = 1 {normalized(b, w):.3e})")
+    grad = max(e_g[k] for k in names[:6])
+    share = 100.0 * counts["smc_fix_sites"] / max(counts["smc_split_sites"], 1)
+    print(f"{where}: trimmed split {tuple(plan)} (adjoint {tuple(plan_b)}) against trimmed K = 1: "
+          f"live pstates and alpha bitwise equal; max rel ll {e_ll:.3e}, max normalized "
+          f"gradient {grad:.3e}, dpi {e_g['pi']:.3e}; counts {json.dumps(counts)} (fix share "
+          f"{share:.2f}%)")
+    if not e_ll <= 1e-5 or off:
+        fail(f"the trimmed split kernels ({plan}, adjoint {plan_b}) disagree with trimmed K = 1 "
+             f"at {where}: ll {e_ll:.3e}; " + "; ".join(off))
+    if timed:
+        _, _, ps_w = smc.forward_launch(p32, pi32, obs, True, plan)
+        t = {}
+        for name, lv in (("trimmed", live), ("whole", None)):
+            for label, pf, pb in (("split", plan, plan_b), ("K = 1", one, one)):
+                ps = ps_k if lv is not None else ps_w
+                t[f"{name}, {label}"] = (
+                    time_ms(torch, lambda: smc.forward_launch(p32, pi32, obs, True, pf, lv), 5),
+                    time_ms(torch, lambda: smc.backward_launch(p32, obs, ps, g32, ab32, pb, lv), 5))
+        print(f"{where}: CUDA-event ms (B2, B3): " + "; ".join(
+            f"{k} {f:.3f} + {b:.3f} = {f + b:.3f}" for k, (f, b) in t.items()))
+
+
+def check_trim_genome(torch, smc, dev):
+    """Phase 3e, second part: at a genome chunk's length (TRIM_GENOME) the
+    trimmed split kernels against trimmed K = 1 and the plain trimmed
+    float64 adjoint (check_trim_split, timed), the live ends and their
+    counters, and the whole-row path unmoved: the
+    forward and the adjoint with every row's end at its last period (an
+    explicit full `live`) bitwise those without ends."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    for B, S, L, lasts in TRIM_GENOME:
+        where = f"trim genome M=16 B={B} S={S} L={L}"
+        params, pi, obs = random_instances(torch, 16, B, S, L, dev, gen)
+        obs = trim_rows(torch, obs, lasts)
+        obs[obs == -2] = 0  # a genome's chunks carry no padding
+        p32, pi32 = tuple(x.float().contiguous() for x in params), pi.float().contiguous()
+        g32 = torch.randn(B, S, generator=gen, device=dev)
+        ab32 = torch.zeros(B, S, 16, device=dev)  # the likelihood's: the final state unread
+        live = check_live_ends(torch, smc, obs, B, where)
+        _, _, ps_p = smc.forward_structured(params, pi, obs, True, live)
+        want = smc.backward_structured(params, obs, ps_p, g32.double(), ab32.double(), live)
+        del ps_p
+        check_trim_split(torch, smc, p32, pi32, obs, g32, ab32, live, where, (*want[0], want[1]),
+                         timed=True)
+        full = torch.full_like(live, smc.n_periods(L))
+        ll_n, a_n, ps_n = smc.forward_cuda(p32, pi32, obs, True)
+        ll_f, a_f, ps_f = smc.forward_cuda(p32, pi32, obs, True, full)
+        if not (torch.equal(ll_n, ll_f) and torch.equal(a_n, a_f) and torch.equal(ps_n, ps_f)):
+            fail(f"the forward with every row's end at its last period is not the whole-row "
+                 f"forward at {where}")
+        g_n, dpi_n = smc.backward_cuda(p32, obs, ps_n, g32, ab32)
+        g_f, dpi_f = smc.backward_cuda(p32, obs, ps_n, g32, ab32, full)
+        if not all(torch.equal(a, b) for a, b in zip((*g_n, dpi_n), (*g_f, dpi_f))):
+            fail(f"the adjoint with every row's end at its last period is not the whole-row "
+                 f"adjoint at {where}")
+        print(f"{where}: whole rows by an explicit full end and by none: forward and adjoint "
+              f"bitwise equal")
 
 
 # (B, S, L) of the phase-3b checks: a ragged last block (37 particles: 5 real
@@ -2977,12 +3200,42 @@ VALIDATE_SECONDS = 360
 # The plain float64 versions dispatch every site from the host (~2.5 min a
 # shape on an H100's host), so a ragged block is left to phase 3's L = 2501.
 VALIDATE_GATE_SHAPES = ((500, 1, 94_000), (500, 5, 100_000))
+# then each shape again as the fit's likelihood runs it, each row to its live
+# end, with every row made missing past its site here (None: the row as drawn,
+# padded tail and all): a chromosome's last chunk at S = 1; at S = 5 ends
+# mid-row, on a checkpoint, none, a wholly missing row and past three quarters
+VALIDATE_TRIM_LASTS = ((50_131,), (40_000, 16 * 8 * 300 - 1, None, -1, 71_003))
+
+
+def validation_gates(torch, smc, dev, power_line: str) -> dict:
+    """Phase 12, first part: B1-B3 at VALIDATE_GATE_SHAPES, M = 16, against
+    their plain float64 versions (gate_smc at phase 3's tolerances; the split
+    kernels also against the unsplit ones), on whole rows and then on the
+    same rows cut at VALIDATE_TRIM_LASTS and run to their live ends (the
+    card's smc.live_periods, its counters against the host's).  Returns the
+    gate errors."""
+    errs = {"forward": {"abs": 0.0, "ll": 0.0, "state": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    t0 = time.perf_counter()
+    for (B, S, L), lasts in zip(VALIDATE_GATE_SHAPES, VALIDATE_TRIM_LASTS):
+        params, pi, obs = random_instances(torch, 16, B, S, L, dev, gen)
+        gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
+        abar0 = torch.randn(B, S, 16, generator=gen, device=dev, dtype=torch.float64)
+        where = f"M=16 B={B} S={S} L={L}"
+        gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs)
+        obs = trim_rows(torch, obs, lasts)
+        live = check_live_ends(torch, smc, obs, B, f"{where} trimmed")
+        gate_smc(torch, smc, params, pi, obs, gbar, abar0, f"{where} trimmed", errs, live=live)
+        del params, pi, obs
+        torch.cuda.empty_cache()
+    print(f"validation: B1-B3 at a genome's and the validation's chunk lengths, whole rows and "
+          f"to their live ends, checked in {time.perf_counter() - t0:.1f} s on {power_line}")
+    return errs
 
 
 def validation_phase(torch, smc, dev, power_line: str, tmp: str) -> tuple[dict, dict]:
-    """Phase 12: B1-B3 at VALIDATE_GATE_SHAPES, M = 16, against their plain
-    versions (gate_smc at phase 3's tolerances; the split kernels also
-    against the unsplit ones, check_split); then `python
+    """Phase 12: B1-B3 at VALIDATE_GATE_SHAPES against their plain versions,
+    whole and trimmed (validation_gates); then `python
     tools/torch_validate.py --n-samples n` at full size (L = 500,000, niter
     300, 500 particles, the continuous simulator) in its own process for
     each n of VALIDATE_SAMPLES (a deadline; plots under `tmp`), its lines
@@ -2993,18 +3246,7 @@ def validation_phase(torch, smc, dev, power_line: str, tmp: str) -> tuple[dict, 
     Coverage and each posterior's tv against the other demographies' truths
     are printed, not gated.  Returns each module's launches over every fit,
     and the long rows' gate errors."""
-    errs = {"forward": {"abs": 0.0, "ll": 0.0, "state": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
-    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
-    t0 = time.perf_counter()
-    for B, S, L in VALIDATE_GATE_SHAPES:
-        params, pi, obs = random_instances(torch, 16, B, S, L, dev, gen)
-        gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
-        abar0 = torch.randn(B, S, 16, generator=gen, device=dev, dtype=torch.float64)
-        gate_smc(torch, smc, params, pi, obs, gbar, abar0, f"M=16 B={B} S={S} L={L}", errs)
-        del params, pi, obs
-        torch.cuda.empty_cache()
-    print(f"validation: B1-B3 at a genome's and the validation's chunk lengths checked in "
-          f"{time.perf_counter() - t0:.1f} s on {power_line}")
+    errs = validation_gates(torch, smc, dev, power_line)
     runs = []
     for n in VALIDATE_SAMPLES:
         t0 = time.perf_counter()
@@ -3395,10 +3637,12 @@ def main() -> int:
              f"({packed.DEFAULT_SEG})")
     lap("1-2 device, build")
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions; 3e. each row to its live end
     errs = check_kernels(torch, smc, dev)
+    check_trim(torch, smc, dev)
+    check_trim_genome(torch, smc, dev)
     perrs = check_packed_kernels(torch, packed, dev)
-    lap("3, 3b")
+    lap("3, 3e, 3b")
     # 3c. the assembly kernels
     aerrs = check_assembly(torch, dev)
     lap("3c")

@@ -28,6 +28,10 @@
 // up to the first checkpoint where abar equals the stored one bitwise, and a
 // splice down the segments.  The gradients are summed by interval, segment
 // and row, in a fixed order.
+//
+// With `live` set (smc_common.cuh: each row's live end) both paths sweep
+// each row down from its live end: the unsplit kernel from period
+// n_live - 1, the split from its last live segment (the exact start) down.
 #include "smc_common.cuh"
 
 using namespace phlash;
@@ -39,7 +43,8 @@ smc_backward_kernel(const float* __restrict__ b, const float* __restrict__ d,
                     const float* __restrict__ e0, const float* __restrict__ e1,
                     const int8_t* __restrict__ obs, const float* __restrict__ pstates,
                     const float* __restrict__ gbar, const float* __restrict__ abar0,
-                    int B, int S, int L, float* __restrict__ db, float* __restrict__ dd,
+                    const int* __restrict__ live, int B, int S, int L,
+                    float* __restrict__ db, float* __restrict__ dd,
                     float* __restrict__ du, float* __restrict__ dvv,
                     float* __restrict__ de0, float* __restrict__ de1,
                     float* __restrict__ dpi) {
@@ -66,13 +71,15 @@ smc_backward_kernel(const float* __restrict__ b, const float* __restrict__ d,
   // period q's boundary state is pstates[q, s, p, m0:m0+SPL]
   const float* pst = pstates + (static_cast<size_t>(me.s) * B + me.p) * M + m0;
   const size_t per_stride = static_cast<size_t>(S) * B * M;
-  const int n_per = (L + NORM_EVERY - 1) / NORM_EVERY;
+  const int n_per = row_periods(live, me.s, L);  // the row's live periods
+  const int L_live = min(n_per * NORM_EVERY, L);
   float next[SPL];  // the boundary state of the period after this one, in flight
-  load_states<SPL>(pst + static_cast<size_t>(n_per - 1) * per_stride, next);
+  load_states<SPL>(pst + static_cast<size_t>(max(n_per - 1, 0)) * per_stride, next);
 
   const int8_t* row = obs + static_cast<size_t>(me.s) * L;
-  for (int t0 = (L - 1) / OBS_TILE * OBS_TILE; t0 >= 0; t0 -= OBS_TILE) {
-    const int n = min(OBS_TILE, L - t0);
+  for (int t0 = L_live > 0 ? (L_live - 1) / OBS_TILE * OBS_TILE : -OBS_TILE; t0 >= 0;
+       t0 -= OBS_TILE) {
+    const int n = min(OBS_TILE, L_live - t0);
     __syncthreads();  // the previous tile's readers are done
     const int mis = stage_obs(row + t0, n, sh);
     __syncthreads();
@@ -153,6 +160,7 @@ smc_backward_kernel(const float* __restrict__ b, const float* __restrict__ d,
 
 struct BwdSplit {
   int K, P;                    // segments a row, periods a segment (P % CHECK_EVERY == 0)
+  const int* live;             // (S,) each row's live periods, or nullptr (whole rows)
   float* top;                  // (K, S, B, M) the abar each segment's stored sweep started from
   float* ab_ck;                // (n_chk, S, B, M) abar at each checkpoint (the start of period i C)
   float* spec_end;             // (K, S, B, M) the speculative sweep's abar at its segment's start
@@ -178,8 +186,7 @@ __device__ __forceinline__ unsigned backward_segment(float* ab, bool& done, bool
                                                      int8_t* sh) {
   constexpr int G = Group<M, SPL>::G;
   const int m0 = me.lane * SPL;
-  const int n_per = (L + NORM_EVERY - 1) / NORM_EVERY;
-  const Segment seg(k, ws.P, n_per);
+  const Segment seg(k, ws.P, row_periods(ws.live, me.s, L));
   const int t_beg = seg.q0 * NORM_EVERY, t_end = min(seg.q1 * NORM_EVERY, L);
   const size_t inst = static_cast<size_t>(me.s) * B + me.p;  // chunk-major instance
   const size_t per = static_cast<size_t>(S) * B;             // instances a period
@@ -283,8 +290,9 @@ __device__ __forceinline__ unsigned backward_segment(float* ab, bool& done, bool
   return ran;
 }
 
-// Speculative pass: segment k = blockIdx.z from abar0 (the last segment,
-// exact) or from zero (a guess).
+// Speculative pass: segment k = blockIdx.z from abar0 (the row's last live
+// segment, exact) or from zero (a guess); a segment past the row's live end
+// is empty.
 template <int M, int SPL>
 __global__ void __launch_bounds__(Group<M, SPL>::THREADS)
 smc_backward_kernel_speculate(const float* __restrict__ b, const float* __restrict__ d,
@@ -295,12 +303,13 @@ smc_backward_kernel_speculate(const float* __restrict__ b, const float* __restri
                               int B, int S, int L, BwdSplit ws) {
   __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
   const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
+  const int k = blockIdx.z, k_last = last_segment(row_periods(ws.live, me.s, L), ws.P);
+  if (k > k_last) return;  // the whole block's row
   const int m0 = me.lane * SPL;
   Rows<SPL> w;
   w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
-  const int k = blockIdx.z;
   float ab[SPL];
-  if (k == ws.K - 1) {
+  if (k == k_last) {
     load_params<SPL>(abar0 + me.i * M + m0, ab);
   } else {
 #pragma unroll
@@ -319,8 +328,8 @@ smc_backward_kernel_speculate(const float* __restrict__ b, const float* __restri
   add_count(ws.counts, SPLIT_SITES, first ? ran : 0u);
 }
 
-// Fix pass: segment k = blockIdx.z (< K - 1) from segment k + 1's speculative
-// abar at its start.
+// Fix pass: segment k = blockIdx.z (below the row's last live segment) from
+// segment k + 1's speculative abar at its start.
 template <int M, int SPL>
 __global__ void __launch_bounds__(Group<M, SPL>::THREADS)
 smc_backward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d,
@@ -330,10 +339,11 @@ smc_backward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d
                         const float* __restrict__ gbar, int B, int S, int L, BwdSplit ws) {
   __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
   const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
+  const int k = blockIdx.z;
+  if (k >= last_segment(row_periods(ws.live, me.s, L), ws.P)) return;
   const int m0 = me.lane * SPL;
   Rows<SPL> w;
   w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
-  const int k = blockIdx.z;
   const size_t per = static_cast<size_t>(S) * B, inst = static_cast<size_t>(me.s) * B + me.p;
   float ab[SPL];
   load_states<SPL>(ws.spec_end + ((k + 1) * per + inst) * M + m0, ab);
@@ -346,21 +356,23 @@ smc_backward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d
   add_count(ws.counts, FIX_SITES, first ? ran : 0u);
 }
 
-// Splice: a group an instance walks segments K-2 .. 0 from the last segment's
-// abar at its start, re-running (as the fix pass) any segment whose stored
-// sweep did not start from its upper neighbour's true abar; then the six
-// gradients (the segments' sums, in order) and dpi (abar at site 0).
+// Splice: a group an instance walks segments k_last - 1 .. 0 from its last
+// live segment's abar at that segment's start (k_last = K - 1 on whole
+// rows), re-running (as the fix pass) any segment whose stored sweep did not
+// start from its upper neighbour's true abar; then the six gradients (the
+// segments' sums, in order) and dpi (abar at site 0; zeros and abar0 on a
+// row with no live period).
 template <int M, int SPL>
 __global__ void __launch_bounds__(Group<M, SPL>::THREADS)
 smc_backward_kernel_splice(const float* __restrict__ b, const float* __restrict__ d,
                            const float* __restrict__ u, const float* __restrict__ vv,
                            const float* __restrict__ e0, const float* __restrict__ e1,
                            const int8_t* __restrict__ obs, const float* __restrict__ pstates,
-                           const float* __restrict__ gbar, int B, int S, int L, BwdSplit ws,
-                           float* __restrict__ db, float* __restrict__ dd,
-                           float* __restrict__ du, float* __restrict__ dvv,
-                           float* __restrict__ de0, float* __restrict__ de1,
-                           float* __restrict__ dpi) {
+                           const float* __restrict__ gbar, const float* __restrict__ abar0,
+                           int B, int S, int L, BwdSplit ws, float* __restrict__ db,
+                           float* __restrict__ dd, float* __restrict__ du,
+                           float* __restrict__ dvv, float* __restrict__ de0,
+                           float* __restrict__ de1, float* __restrict__ dpi) {
   __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
   const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
   const int m0 = me.lane * SPL;
@@ -368,10 +380,14 @@ smc_backward_kernel_splice(const float* __restrict__ b, const float* __restrict_
   w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
   const size_t per = static_cast<size_t>(S) * B, inst = static_cast<size_t>(me.s) * B + me.p;
   const float g = gbar[me.i];
+  const int k_last = last_segment(row_periods(ws.live, me.s, L), ws.P);
   float ab[SPL];
-  load_states<SPL>(ws.ab_ck + (static_cast<size_t>((ws.K - 1) * ws.P / CHECK_EVERY) * per + inst) * M + m0, ab);
+  if (k_last < 0)
+    load_params<SPL>(abar0 + me.i * M + m0, ab);
+  else
+    load_states<SPL>(ws.ab_ck + (static_cast<size_t>(k_last * ws.P / CHECK_EVERY) * per + inst) * M + m0, ab);
   unsigned ran = 0;
-  for (int k = ws.K - 2; k >= 0; --k) {
+  for (int k = k_last - 1; k >= 0; --k) {
     bool done = !me.active, met = false;
     ran += backward_segment<M, SPL, true>(ab, done, met, k, me, w, g,
                                           obs + static_cast<size_t>(me.s) * L, pstates, B, S, L,
@@ -386,7 +402,7 @@ smc_backward_kernel_splice(const float* __restrict__ b, const float* __restrict_
       float s[SPL];
 #pragma unroll
       for (int r = 0; r < SPL; ++r) s[r] = 0.f;
-      for (int k = 0; k < ws.K; ++k) {
+      for (int k = 0; k <= k_last; ++k) {
         float x[SPL];
         load_states<SPL>(ws.seg_grad + (static_cast<size_t>(k) * 6 * per + inst) * M + m0 + j * per_stride, x);
 #pragma unroll
@@ -402,17 +418,17 @@ smc_backward_kernel_splice(const float* __restrict__ b, const float* __restrict_
 extern "C" int phlash_smc_backward(const float* b, const float* d, const float* u,
                                    const float* vv, const float* e0, const float* e1,
                                    const int8_t* obs, const float* pstates, const float* gbar,
-                                   const float* abar0, int B, int S, int L, int M,
-                                   float* db, float* dd, float* du, float* dvv, float* de0,
-                                   float* de1, float* dpi, void* stream) {
+                                   const float* abar0, const int* live, int B, int S, int L,
+                                   int M, float* db, float* dd, float* du, float* dvv,
+                                   float* de0, float* de1, float* dpi, void* stream) {
   if (B <= 0 || S <= 0 || S > 65535 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + INSTANCES_PER_BLOCK - 1) / INSTANCES_PER_BLOCK, S);
 #define PHLASH_BWD(MM, SS)                                                              \
   if (M == MM) {                                                                        \
     smc_backward_kernel<MM, SS><<<grid, Group<MM, SS>::THREADS, 0, st>>>(               \
-        b, d, u, vv, e0, e1, obs, pstates, gbar, abar0, B, S, L, db, dd, du, dvv, de0,  \
-        de1, dpi);                                                                      \
+        b, d, u, vv, e0, e1, obs, pstates, gbar, abar0, live, B, S, L, db, dd, du, dvv, \
+        de0, de1, dpi);                                                                 \
     return static_cast<int>(cudaGetLastError());                                        \
   }
   PHLASH_SMC_INSTANCES(PHLASH_BWD)
@@ -424,11 +440,11 @@ extern "C" int phlash_smc_backward(const float* b, const float* d, const float* 
 extern "C" int phlash_smc_backward_split(const float* b, const float* d, const float* u,
                                          const float* vv, const float* e0, const float* e1,
                                          const int8_t* obs, const float* pstates,
-                                         const float* gbar, const float* abar0, int B, int S,
-                                         int L, int M, int K, int P, float* db, float* dd,
-                                         float* du, float* dvv, float* de0, float* de1,
-                                         float* dpi, float* top, float* ab_ck, float* spec_end,
-                                         float* int_grad, float* seg_grad,
+                                         const float* gbar, const float* abar0, const int* live,
+                                         int B, int S, int L, int M, int K, int P, float* db,
+                                         float* dd, float* du, float* dvv, float* de0,
+                                         float* de1, float* dpi, float* top, float* ab_ck,
+                                         float* spec_end, float* int_grad, float* seg_grad,
                                          unsigned long long* counts, void* stream) {
   const int n_per = L > 0 ? (L + NORM_EVERY - 1) / NORM_EVERY : 0;
   if (B <= 0 || S <= 0 || S > 65535 || L <= 0 || K < 2 || K > 65535 || P <= 0 ||
@@ -437,7 +453,7 @@ extern "C" int phlash_smc_backward_split(const float* b, const float* d, const f
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int gx = (B + INSTANCES_PER_BLOCK - 1) / INSTANCES_PER_BLOCK;
-  const BwdSplit ws{K, P, top, ab_ck, spec_end, int_grad, seg_grad, counts};
+  const BwdSplit ws{K, P, live, top, ab_ck, spec_end, int_grad, seg_grad, counts};
 #define PHLASH_BWD_SPLIT(MM, SS)                                                           \
   if (M == MM) {                                                                           \
     constexpr int T = Group<MM, SS>::THREADS;                                              \
@@ -450,8 +466,8 @@ extern "C" int phlash_smc_backward_split(const float* b, const float* d, const f
     err = cudaGetLastError();                                                              \
     if (err != cudaSuccess) return static_cast<int>(err);                                  \
     smc_backward_kernel_splice<MM, SS><<<dim3(gx, S), T, 0, st>>>(                         \
-        b, d, u, vv, e0, e1, obs, pstates, gbar, B, S, L, ws, db, dd, du, dvv, de0, de1,   \
-        dpi);                                                                              \
+        b, d, u, vv, e0, e1, obs, pstates, gbar, abar0, B, S, L, ws, db, dd, du, dvv, de0, \
+        de1, dpi);                                                                         \
     return static_cast<int>(cudaGetLastError());                                           \
   }
   PHLASH_SMC_INSTANCES(PHLASH_BWD_SPLIT)

@@ -36,6 +36,26 @@
 // and the splice (a group an instance walks the segments in order and
 // re-runs any whose start was wrong).  What each stores stays one chain's
 // trajectory over the segment, so a later re-run may stop at any match.
+//
+// Each row's live end (`live`, (S,) int32, or nullptr for whole rows): the
+// periods up to and including the one that holds the row's last observed
+// site (code 0 or 1), n_live = last / NORM_EVERY + 1, 0 where the row has
+// none; phlash_smc_live_periods finds them on the card.  Past that site
+// every emission factor is 1 and the structured transition is row-stochastic,
+// so the tail's rescalings sum to log 1 = 0: it adds nothing to ll, and its
+// gradient with respect to the model's parameters is zero, as is its abar
+// once the last live period's rescale takes the direction of ones out.  A
+// likelihood that discards the final state (the step's and the held-out
+// ELPD's) therefore runs each row to its live end only: the forward sums
+// log c over n_live periods and stores their states, the adjoint starts at
+// period n_live - 1 from abar0, and the split treats a segment wholly past
+// n_live as empty (the last live segment k_last = (n_live - 1) / P takes the
+// adjoint's exact start).  The live end is rounded up to a whole period, so
+// every state and c before it keeps the whole-row kernel's bits.  The
+// warm-up filter reads the final state, which a missing run at the end of
+// its prefix does move: it always runs whole rows.  Grids and plans stay
+// those of whole rows (L on the host); a block's row, and so its end, is
+// uniform over the block.
 #pragma once
 
 #include <cstdint>
@@ -55,6 +75,14 @@ constexpr int CHECK_EVERY = 16;
 
 // the split path's device counters (ops/smc.DEVICE_COUNTS names them)
 enum SplitCount { SEGMENTS = 0, RESOLVED = 1, FIX_SITES = 2, SPLIT_SITES = 3 };
+// the live ends' device counters (ops/smc.TRIM_COUNTS names them): the
+// instance-sites past the live ends and all instance-sites of the rows
+enum TrimCount { TRIMMED_SITES = 0, ROW_SITES = 1 };
+
+// The periods row s runs: its live end, or every period of L sites.
+__device__ __forceinline__ int row_periods(const int* __restrict__ live, int s, int L) {
+  return live == nullptr ? (L + NORM_EVERY - 1) / NORM_EVERY : live[s];
+}
 
 // emission factor: hom -> e0, het -> e1, missing -> 1 (padding never gets here)
 __device__ __forceinline__ float emis_factor(int ob, float e0, float e1) {
@@ -371,11 +399,18 @@ __device__ __forceinline__ void add_count(unsigned long long* counts, int which,
   if ((threadIdx.x & 31) == 0 && s != 0) atomicAdd(counts + which, static_cast<unsigned long long>(s));
 }
 
-// The periods [q0, q1) of segment k (of P periods) in a row of n_per.
+// The periods [q0, q1) of segment k (of P periods) in a row that runs n_per
+// (its live end): empty where q0 >= n_per.
 struct Segment {
   int q0, q1;
   __device__ __forceinline__ Segment(int k, int P, int n_per)
       : q0(k * P), q1(min(k * P + P, n_per)) {}
 };
+
+// The row's last live segment (its adjoint's exact start), -1 where the row
+// has no live period.
+__device__ __forceinline__ int last_segment(int n_live, int P) {
+  return n_live > 0 ? (n_live - 1) / P : -1;
+}
 
 }  // namespace phlash

@@ -28,6 +28,10 @@
 // equals the stored one bitwise) and splice (the segments in order, re-running
 // any whose stored trajectory did not start from its neighbour's true end).
 // Every period's state is the unsplit kernel's, bit for bit.
+//
+// With `live` set (smc_common.cuh: each row's live end, which
+// phlash_smc_live_periods finds) both paths run each row up to its live end
+// only, and alpha is the state there.
 #include "smc_common.cuh"
 
 using namespace phlash;
@@ -38,8 +42,9 @@ smc_forward_kernel(const float* __restrict__ b, const float* __restrict__ d,
                    const float* __restrict__ u, const float* __restrict__ vv,
                    const float* __restrict__ e0, const float* __restrict__ e1,
                    const float* __restrict__ pi, const int8_t* __restrict__ obs,
-                   int B, int S, int L, float* __restrict__ ll,
-                   float* __restrict__ alpha, float* __restrict__ pstates) {
+                   const int* __restrict__ live, int B, int S, int L,
+                   float* __restrict__ ll, float* __restrict__ alpha,
+                   float* __restrict__ pstates) {
   constexpr int G = Group<M, SPL>::G;
   __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
   const GroupLane me = group_lane<G>(B, S);
@@ -62,9 +67,10 @@ smc_forward_kernel(const float* __restrict__ b, const float* __restrict__ d,
   const size_t per_stride = static_cast<size_t>(S) * B * M;
 
   const int8_t* row = obs + static_cast<size_t>(me.s) * L;
+  const int L_live = min(row_periods(live, me.s, L) * NORM_EVERY, L);  // the row's live end
   float acc = 0.f;
-  for (int t0 = 0; t0 < L; t0 += OBS_TILE) {
-    const int n = min(OBS_TILE, L - t0);
+  for (int t0 = 0; t0 < L_live; t0 += OBS_TILE) {
+    const int n = min(OBS_TILE, L_live - t0);
     __syncthreads();  // the previous tile's readers are done
     const int mis = stage_obs(row + t0, n, sh);
     __syncthreads();
@@ -95,6 +101,7 @@ smc_forward_kernel(const float* __restrict__ b, const float* __restrict__ d,
 
 struct FwdSplit {
   int K, P;                    // segments a row, periods a segment (P % CHECK_EVERY == 0)
+  const int* live;             // (S,) each row's live periods, or nullptr (whole rows)
   float* pstates;              // (n_per, S, B, M) the period states (B2), or nullptr (B1)
   float* ckpt;                 // (n_chk, S, B, M) the states at the checkpoints (B1), or nullptr
   float* int_ll;               // (n_chk, S, B) each interval's sum of log c
@@ -119,8 +126,7 @@ __device__ __forceinline__ unsigned forward_segment(float* a, bool& done, bool& 
                                                     int L, const FwdSplit& ws, int8_t* sh) {
   constexpr int G = Group<M, SPL>::G;
   const int m0 = me.lane * SPL;
-  const int n_per = (L + NORM_EVERY - 1) / NORM_EVERY;
-  const Segment seg(k, ws.P, n_per);
+  const Segment seg(k, ws.P, row_periods(ws.live, me.s, L));
   const int t_end = min(seg.q1 * NORM_EVERY, L);
   const size_t inst = static_cast<size_t>(me.s) * B + me.p;  // chunk-major instance
   const size_t per = static_cast<size_t>(S) * B;             // instances a period
@@ -176,7 +182,8 @@ __device__ __forceinline__ unsigned forward_segment(float* a, bool& done, bool& 
 }
 
 // Speculative pass: segment k = blockIdx.z from pi (exact for k = 0, a guess
-// after), storing its whole trajectory.
+// after), storing its whole trajectory; a segment past the row's live end
+// is empty.
 template <int M, int SPL>
 __global__ void __launch_bounds__(Group<M, SPL>::THREADS)
 smc_forward_kernel_speculate(const float* __restrict__ b, const float* __restrict__ d,
@@ -186,12 +193,13 @@ smc_forward_kernel_speculate(const float* __restrict__ b, const float* __restric
                              int B, int S, int L, FwdSplit ws) {
   __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
   const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
+  const int k = blockIdx.z;
+  if (k * ws.P >= row_periods(ws.live, me.s, L)) return;  // the whole block's row
   const int m0 = me.lane * SPL;
   Rows<SPL> w;
   w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
   float a[SPL];
   load_params<SPL>(pi + me.i * M + m0, a);
-  const int k = blockIdx.z;
   bool done = !me.active, met = false;
   const unsigned ran = forward_segment<M, SPL, false>(a, done, met, k, me, w,
                                                       obs + static_cast<size_t>(me.s) * L, B, S,
@@ -205,7 +213,8 @@ smc_forward_kernel_speculate(const float* __restrict__ b, const float* __restric
   add_count(ws.counts, SPLIT_SITES, first ? ran : 0u);
 }
 
-// Fix pass: segment k = blockIdx.z + 1 from segment k - 1's speculative end.
+// Fix pass: segment k = blockIdx.z + 1 from segment k - 1's speculative end,
+// up to the row's last live segment.
 template <int M, int SPL>
 __global__ void __launch_bounds__(Group<M, SPL>::THREADS)
 smc_forward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d,
@@ -214,10 +223,11 @@ smc_forward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d,
                        const int8_t* __restrict__ obs, int B, int S, int L, FwdSplit ws) {
   __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
   const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
+  const int k = blockIdx.z + 1;
+  if (k > last_segment(row_periods(ws.live, me.s, L), ws.P)) return;
   const int m0 = me.lane * SPL;
   Rows<SPL> w;
   w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
-  const int k = blockIdx.z + 1;
   const size_t per = static_cast<size_t>(S) * B, inst = static_cast<size_t>(me.s) * B + me.p;
   float a[SPL];
   load_states<SPL>(ws.spec_end + ((k - 1) * per + inst) * M + m0, a);
@@ -230,27 +240,34 @@ smc_forward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d,
   add_count(ws.counts, FIX_SITES, first ? ran : 0u);
 }
 
-// Splice: a group an instance walks segments 1 .. K-1 in order from segment
-// 0's end, re-running (as the fix pass) any segment whose stored trajectory
-// did not start from its predecessor's true end; then ll (the segments' sums
-// in order) and alpha (the last segment's end).
+// Splice: a group an instance walks segments 1 .. k_last (the row's last
+// live segment, K - 1 on whole rows) in order from segment 0's end,
+// re-running (as the fix pass) any segment whose stored trajectory did not
+// start from its predecessor's true end; then ll (the segments' sums in
+// order) and alpha (the last live segment's end; pi and ll 0 on a row with
+// no live period).
 template <int M, int SPL>
 __global__ void __launch_bounds__(Group<M, SPL>::THREADS)
 smc_forward_kernel_splice(const float* __restrict__ b, const float* __restrict__ d,
                           const float* __restrict__ u, const float* __restrict__ vv,
                           const float* __restrict__ e0, const float* __restrict__ e1,
-                          const int8_t* __restrict__ obs, int B, int S, int L, FwdSplit ws,
-                          float* __restrict__ ll, float* __restrict__ alpha) {
+                          const float* __restrict__ pi, const int8_t* __restrict__ obs, int B,
+                          int S, int L, FwdSplit ws, float* __restrict__ ll,
+                          float* __restrict__ alpha) {
   __shared__ __align__(16) int8_t sh[OBS_TILE + 16];
   const GroupLane me = group_lane<Group<M, SPL>::G>(B, S);
   const int m0 = me.lane * SPL;
   Rows<SPL> w;
   w.load(b, d, u, vv, e0, e1, static_cast<size_t>(me.p) * M + m0);
   const size_t per = static_cast<size_t>(S) * B, inst = static_cast<size_t>(me.s) * B + me.p;
+  const int k_last = last_segment(row_periods(ws.live, me.s, L), ws.P);
   float a[SPL];
-  load_states<SPL>(ws.end + inst * M + m0, a);
+  if (k_last < 0)
+    load_params<SPL>(pi + me.i * M + m0, a);
+  else
+    load_states<SPL>(ws.end + inst * M + m0, a);
   unsigned ran = 0;
-  for (int k = 1; k < ws.K; ++k) {
+  for (int k = 1; k <= k_last; ++k) {
     bool done = !me.active, met = false;
     ran += forward_segment<M, SPL, true>(a, done, met, k, me, w,
                                          obs + static_cast<size_t>(me.s) * L, B, S, L, ws, sh);
@@ -259,7 +276,7 @@ smc_forward_kernel_splice(const float* __restrict__ b, const float* __restrict__
   if (me.active) {
     if (me.lane == 0) {
       float s = 0.f;
-      for (int k = 0; k < ws.K; ++k) s += ws.seg_ll[k * per + inst];
+      for (int k = 0; k <= k_last; ++k) s += ws.seg_ll[k * per + inst];
       ll[me.i] = s;
     }
     store_states<SPL>(alpha + me.i * M + m0, a);
@@ -267,10 +284,51 @@ smc_forward_kernel_splice(const float* __restrict__ b, const float* __restrict__
   add_count(ws.counts, FIX_SITES, me.active && me.lane == 0 ? ran : 0u);
 }
 
+// Each row's live end (smc_common.cuh), a block a row: every thread finds
+// the last observed site among its 16-site pieces of the row, the block takes
+// the largest; then the row's live periods and its trimmed and whole
+// instance-sites for a launch of B instances a row.
+constexpr int LIVE_THREADS = 256;
+
+__global__ void __launch_bounds__(LIVE_THREADS)
+smc_live_kernel(const int8_t* __restrict__ obs, int L, int B, int* __restrict__ live,
+                unsigned long long* __restrict__ counts) {
+  __shared__ int best;
+  if (threadIdx.x == 0) best = -1;
+  __syncthreads();
+  const int8_t* row = obs + static_cast<size_t>(blockIdx.x) * L;
+  int last = -1;
+  for (int t = threadIdx.x * 16; t < L; t += LIVE_THREADS * 16) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int ob = t + j < L ? row[t + j] : -2;
+      last = ob == 0 || ob == 1 ? t + j : last;
+    }
+  }
+  last = __reduce_max_sync(FULL_MASK, last);
+  if ((threadIdx.x & 31) == 0) atomicMax(&best, last);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int n_live = best < 0 ? 0 : best / NORM_EVERY + 1;
+    live[blockIdx.x] = n_live;
+    const long long past = L - min(n_live * NORM_EVERY, L);
+    atomicAdd(counts + TRIMMED_SITES, static_cast<unsigned long long>(past * B));
+    atomicAdd(counts + ROW_SITES, static_cast<unsigned long long>(static_cast<long long>(L) * B));
+  }
+}
+
+extern "C" int phlash_smc_live_periods(const int8_t* obs, int S, int L, int B, int* live,
+                                       unsigned long long* counts, void* stream) {
+  if (S <= 0 || L <= 0 || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  smc_live_kernel<<<S, LIVE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(obs, L, B, live,
+                                                                              counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int phlash_smc_forward(const float* b, const float* d, const float* u,
                                   const float* vv, const float* e0, const float* e1,
-                                  const float* pi, const int8_t* obs, int B, int S, int L,
-                                  int M, float* ll, float* alpha, float* pstates,
+                                  const float* pi, const int8_t* obs, const int* live, int B,
+                                  int S, int L, int M, float* ll, float* alpha, float* pstates,
                                   void* stream) {
   if (B <= 0 || S <= 0 || S > 65535 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -278,7 +336,7 @@ extern "C" int phlash_smc_forward(const float* b, const float* d, const float* u
 #define PHLASH_FWD(MM, SS)                                                              \
   if (M == MM) {                                                                        \
     smc_forward_kernel<MM, SS><<<grid, Group<MM, SS>::THREADS, 0, st>>>(                \
-        b, d, u, vv, e0, e1, pi, obs, B, S, L, ll, alpha, pstates);                     \
+        b, d, u, vv, e0, e1, pi, obs, live, B, S, L, ll, alpha, pstates);               \
     return static_cast<int>(cudaGetLastError());                                        \
   }
   PHLASH_SMC_INSTANCES(PHLASH_FWD)
@@ -287,14 +345,14 @@ extern "C" int phlash_smc_forward(const float* b, const float* d, const float* u
 }
 
 // The split forward: K >= 2 segments of P periods (the last may be shorter,
-// none empty); exactly one of pstates (B2) and ckpt (B1) is set.
+// none empty on whole rows); exactly one of pstates (B2) and ckpt (B1) is set.
 extern "C" int phlash_smc_forward_split(const float* b, const float* d, const float* u,
                                         const float* vv, const float* e0, const float* e1,
-                                        const float* pi, const int8_t* obs, int B, int S, int L,
-                                        int M, int K, int P, float* ll, float* alpha,
-                                        float* pstates, float* ckpt, float* int_ll,
-                                        float* seg_ll, float* spec_end, float* end,
-                                        unsigned long long* counts, void* stream) {
+                                        const float* pi, const int8_t* obs, const int* live,
+                                        int B, int S, int L, int M, int K, int P, float* ll,
+                                        float* alpha, float* pstates, float* ckpt,
+                                        float* int_ll, float* seg_ll, float* spec_end,
+                                        float* end, unsigned long long* counts, void* stream) {
   const int n_per = L > 0 ? (L + NORM_EVERY - 1) / NORM_EVERY : 0;
   if (B <= 0 || S <= 0 || S > 65535 || L <= 0 || K < 2 || K > 65535 || P <= 0 ||
       P % CHECK_EVERY != 0 || static_cast<long long>(K - 1) * P >= n_per ||
@@ -302,7 +360,7 @@ extern "C" int phlash_smc_forward_split(const float* b, const float* d, const fl
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int gx = (B + INSTANCES_PER_BLOCK - 1) / INSTANCES_PER_BLOCK;
-  const FwdSplit ws{K, P, pstates, ckpt, int_ll, seg_ll, spec_end, end, counts};
+  const FwdSplit ws{K, P, live, pstates, ckpt, int_ll, seg_ll, spec_end, end, counts};
 #define PHLASH_FWD_SPLIT(MM, SS)                                                           \
   if (M == MM) {                                                                           \
     constexpr int T = Group<MM, SS>::THREADS;                                              \
@@ -315,7 +373,7 @@ extern "C" int phlash_smc_forward_split(const float* b, const float* d, const fl
     err = cudaGetLastError();                                                              \
     if (err != cudaSuccess) return static_cast<int>(err);                                  \
     smc_forward_kernel_splice<MM, SS><<<dim3(gx, S), T, 0, st>>>(                          \
-        b, d, u, vv, e0, e1, obs, B, S, L, ws, ll, alpha);                                 \
+        b, d, u, vv, e0, e1, pi, obs, B, S, L, ws, ll, alpha);                             \
     return static_cast<int>(cudaGetLastError());                                           \
   }
   PHLASH_SMC_INSTANCES(PHLASH_FWD_SPLIT)

@@ -101,6 +101,13 @@ class LikelihoodKernel(nn.Module):
     def loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def model_loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
+        """loglik_rows where pp comes from demographic models, as in the fit's
+        density: their transition is row-stochastic, so a kernel may stop
+        each row at its last observed site (ops/kernel_smc.SMCKernel does);
+        the values and the gradients of the models' parameters are the same."""
+        return self.loglik_rows(pp, rows)
+
     def loglik_batched(self, pp: PSMCParams, inds: torch.Tensor) -> torch.Tensor:
         """(B, S) log-likelihoods of chunks `inds` (S,); pp leaves (B, M)
         except pi, (B, S, M): the per-chunk initial distributions."""

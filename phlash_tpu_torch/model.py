@@ -49,7 +49,7 @@ def log_density_rows(
             pis = pp.pi[:, None, :].expand(-1, S, -1)
         else:
             pis = kern.filter_batched(pp, warmup)  # (B, S, M)
-        l_hmm = kern.loglik_rows(pp.replace(pi=pis), rows).sum(1)
+        l_hmm = kern.model_loglik_rows(pp.replace(pi=pis), rows).sum(1)
     if not prior_and_afs:
         return c[1] * l_hmm
 

@@ -71,14 +71,16 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.phlash_smc_forward.argtypes = [P] * 8 + [I] * 4 + [P] * 4
+    lib.phlash_smc_forward.argtypes = [P] * 9 + [I] * 4 + [P] * 4
     lib.phlash_smc_forward.restype = I
-    lib.phlash_smc_backward.argtypes = [P] * 10 + [I] * 4 + [P] * 8
+    lib.phlash_smc_backward.argtypes = [P] * 11 + [I] * 4 + [P] * 8
     lib.phlash_smc_backward.restype = I
-    lib.phlash_smc_forward_split.argtypes = [P] * 8 + [I] * 6 + [P] * 10
+    lib.phlash_smc_forward_split.argtypes = [P] * 9 + [I] * 6 + [P] * 10
     lib.phlash_smc_forward_split.restype = I
-    lib.phlash_smc_backward_split.argtypes = [P] * 10 + [I] * 6 + [P] * 14
+    lib.phlash_smc_backward_split.argtypes = [P] * 11 + [I] * 6 + [P] * 14
     lib.phlash_smc_backward_split.restype = I
+    lib.phlash_smc_live_periods.argtypes = [P] + [I] * 3 + [P] * 3
+    lib.phlash_smc_live_periods.restype = I
     lib.phlash_smc_check_every.argtypes = []
     lib.phlash_smc_check_every.restype = I
     lib.phlash_smc_states_per_lane.argtypes = [I]

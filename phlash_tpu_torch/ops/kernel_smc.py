@@ -10,6 +10,15 @@ Its backward sums each particle's gradients over the chunks;
 chunk.  `SMCKernel` owns the device-resident int8 chunk tensor and exposes
 `loglik_batched` and `filter_batched` as in phlash_tpu, and the
 per-particle entries of kernel_base.py.
+
+The fit's density (`model_loglik_rows`: the step's likelihood and the
+held-out ELPD) takes parameters from demographic models and discards the
+final state, so it runs each row to its live end only (`trim`; ops/smc.py
+says why that is the same likelihood and the same gradient of the model's
+parameters).  The phlash_tpu entries (`loglik_rows`, `loglik_batched`,
+`kern(pp, index, grad)`) take any PSMCParams, whose transition need not be
+row-stochastic, and the warm-up filter reads its final state: they run
+whole rows.
 """
 
 from __future__ import annotations
@@ -23,17 +32,20 @@ from phlash_tpu_torch.params import PSMCParams
 _PARAMS = ("b", "d", "u", "v", "emis0", "emis1")
 
 
-def _forward(leaves, obs, with_residuals: bool):
-    "B1 (B2 with the period residuals): ll (B, S), alpha (B, S, M), pstates from 6 x (B, M), pi."
+def _forward(leaves, obs, with_residuals: bool, trim: bool):
+    """B1 (B2 with the period residuals) from 6 x (B, M), pi: ll (B, S),
+    alpha (B, S, M), pstates, and the rows' live ends where `trim` (each row
+    then runs to its end, and alpha is the state there), else None."""
     *params, pi = (x.contiguous() for x in leaves)
-    return smc.forward(tuple(params), pi, obs, with_residuals)
+    live = smc.live_periods(obs, pi.shape[0]) if trim else None
+    return (*smc.forward(tuple(params), pi, obs, with_residuals, live), live)
 
 
-def _adjoint(params, obs, pstates, g_ll, g_alpha):
+def _adjoint(params, obs, pstates, g_ll, g_alpha, live):
     """B3: the per-instance gradients (6 x (B, S, M), dpi (B, S, M)), which
     SMCOp's backward sums over the chunks and instance_grads keeps."""
     return smc.backward(tuple(x.contiguous() for x in params), obs, pstates,
-                        g_ll.contiguous(), g_alpha.contiguous())
+                        g_ll.contiguous(), g_alpha.contiguous(), live)
 
 
 def _kernel_leaves(pp: PSMCParams, pi: torch.Tensor, obs: torch.Tensor) -> tuple:
@@ -42,32 +54,35 @@ def _kernel_leaves(pp: PSMCParams, pi: torch.Tensor, obs: torch.Tensor) -> tuple
 
 
 class SMCOp(torch.autograd.Function):
-    "(ll (B, S), final state (B, S, M)) from per-particle params and per-instance pi."
+    """(ll (B, S), final state (B, S, M)) from per-particle params and
+    per-instance pi; with `trim` each row runs to its live end, and the
+    state is the one there."""
 
     @staticmethod
-    def forward(ctx, obs, with_residuals, *leaves):
-        ll, alpha, pstates = _forward(leaves, obs, with_residuals)
+    def forward(ctx, obs, with_residuals, trim, *leaves):
+        ll, alpha, pstates, live = _forward(leaves, obs, with_residuals, trim)
         if with_residuals:
-            ctx.save_for_backward(obs, pstates, *leaves[:-1])
+            ctx.save_for_backward(obs, pstates, live, *leaves[:-1])
         return ll, alpha
 
     @staticmethod
     def backward(ctx, g_ll, g_alpha):
         # only reached when forward kept residuals; an unused output's
         # cotangent arrives as zeros (materialized grads)
-        obs, pstates, *params = ctx.saved_tensors
-        dparams, dpi = _adjoint(params, obs, pstates, g_ll, g_alpha)
-        return (None, None, *(x.sum(1) for x in dparams), dpi)
+        obs, pstates, live, *params = ctx.saved_tensors
+        dparams, dpi = _adjoint(params, obs, pstates, g_ll, g_alpha, live)
+        return (None, None, None, *(x.sum(1) for x in dparams), dpi)
 
 
-def smc_op(pp: PSMCParams, pi: torch.Tensor, obs: torch.Tensor):
+def smc_op(pp: PSMCParams, pi: torch.Tensor, obs: torch.Tensor, trim: bool = False):
     """Run the kernel pair: pp leaves (B, M) (pp.pi is ignored), pi (B, S, M),
-    obs (S, L) int8 rows.  Residuals are kept only when autograd will ask.
-    The inputs are cast to the kernels' dtype (autograd casts their
-    gradients back) and the outputs to pi's dtype."""
+    obs (S, L) int8 rows; with `trim` each row to its live end only (the
+    returned state is then the one there).  Residuals are kept only when
+    autograd will ask.  The inputs are cast to the kernels' dtype (autograd
+    casts their gradients back) and the outputs to pi's dtype."""
     leaves = _kernel_leaves(pp, pi, obs)
     with_residuals = torch.is_grad_enabled() and any(x.requires_grad for x in leaves)
-    ll, alpha = SMCOp.apply(obs, with_residuals, *leaves)
+    ll, alpha = SMCOp.apply(obs, with_residuals, trim, *leaves)
     return ll.to(pi.dtype), alpha.to(pi.dtype)
 
 
@@ -78,9 +93,9 @@ def smc_instance_grads(pp: PSMCParams, obs: torch.Tensor):
     autograd, cast as smc_op casts."""
     one = one_particle(pp, obs.shape[0])
     leaves = _kernel_leaves(one, one.pi, obs)
-    ll, _, pstates = _forward(leaves, obs, True)
+    ll, _, pstates, _ = _forward(leaves, obs, True, False)
     dparams, dpi = _adjoint(leaves[:-1], obs, pstates, torch.ones_like(ll),
-                            torch.zeros_like(leaves[-1]))
+                            torch.zeros_like(leaves[-1]), None)
     dtype = pp.pi.dtype
     return ll[0].to(dtype), PSMCParams(*(x[0].to(dtype) for x in (*dparams, dpi)))
 
@@ -106,6 +121,11 @@ class SMCKernel(LikelihoodKernel):
     def loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
         "loglik_batched on the body rows (S, L) themselves (a mesh fetches them, see parallel/)."
         ll, _ = smc_op(pp, pp.pi, rows.contiguous())
+        return ll
+
+    def model_loglik_rows(self, pp: PSMCParams, rows: torch.Tensor) -> torch.Tensor:
+        "loglik_rows with each row run to its live end (pp from demographic models)."
+        ll, _ = smc_op(pp, pp.pi, rows.contiguous(), trim=True)
         return ll
 
     def filter_batched(self, pp: PSMCParams, warmup: torch.Tensor) -> torch.Tensor:

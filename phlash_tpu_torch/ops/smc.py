@@ -21,6 +21,29 @@ Shapes, shared by both versions:
     chunk-major so that the kernels' period stores and loads coalesce
     gradients: six (B, S, M) per instance (the caller sums over S) + dpi
 
+Each row's live end (`live`, (S,) int32 from `live_periods`, or None for
+whole rows): the periods up to and including the one that holds the row's
+last observed site (code 0 or 1), 0 where it has none.  Given it, every
+version runs each row up to its end only: the forward sums log c over
+those periods and stores their states (its alpha is the state there, not
+at the row's end), the adjoint starts at the last live period from abar0.
+Past the row's last observed site every emission factor is 1 and the
+structured transition is row-stochastic, so the tail's rescalings sum to
+log 1 = 0: nothing of ll, and no gradient with respect to the model's
+parameters (the six per-particle rows' own gradients lose the tail's
+terms, which lie across the row-sum constraint, so the assembly's
+Jacobian maps them to zero), and the abar the tail hands back is a
+multiple of ones, which the last live period's rescale takes out.  What
+the tail computed was the rounding of its rescalings and of the
+transition's row sums.  The end is rounded
+up to a whole period, so every state and c before it keeps the whole row's
+bits.  Only the fit's density trims (kernel_smc's `model_loglik_rows`: the
+step's likelihood and the held-out ELPD), whose parameters come from
+demographic models and whose final state nobody reads.  The phlash_tpu
+entries take any PSMCParams, whose rows need not sum to 1, and keep whole
+rows; so does the warm-up filter, which reads its final state (a missing
+run at the end of its prefix moves it).
+
 Dispatch: `forward` / `backward` launch the CUDA kernels for CUDA tensors
 (split as `segment_plan` says) and take the plain version for CPU tensors;
 there is no other path and no fallback.  `forward_segmented` /
@@ -82,6 +105,15 @@ Kernel design note (csrc/smc_common.cuh, smc_forward.cu, smc_backward.cu).
   and sums live in per-call workspace; the four device counters
   (DEVICE_COUNTS) are integer atomics, zeroed and read by the fit's record
   (profiling.py), never by a call.
+* Live ends (csrc/smc_common.cuh): a kernel of one block a row finds them
+  on the card from the rows the launch receives (`live_periods`, before
+  B1 / B2; SMCOp keeps them for B3) and adds the rows' trimmed and whole
+  instance-sites to two more device counters (TRIM_COUNTS).  The unsplit
+  kernels change only their loop bounds (the row is uniform over a block);
+  the split ones end each row's last live segment at its end, skip the
+  segments past it, and take the adjoint's exact start and the splice's
+  walk from the last live segment.  Plans and grids stay those of whole
+  rows.
 * No tensor cores: the transition is the O(M) structured form, not a
   matrix product; a 16-state vector is far below wgmma's 64-row tile; and
   TF32 or bf16 inputs would break the rtol 1e-5 ll gate (docs/DESIGN.md,
@@ -114,11 +146,16 @@ STATES_PER_LANE = {8: 2, 16: 4, 32: 2, 64: 4}
 TARGET_WARPS_PER_SM = {"forward": 16, "adjoint": 8}
 # the split launches' device counters, in csrc's SplitCount order
 DEVICE_COUNTS = ("smc_segments", "smc_segments_resolved", "smc_fix_sites", "smc_split_sites")
+# the live ends' device counters, in csrc's TrimCount order: the instance-sites
+# past the rows' live ends and all instance-sites of the trimming forward launches
+TRIM_COUNTS = ("smc_trimmed_sites", "smc_row_sites")
 tally = profiling.Tally(("forward_cuda", "forward_cuda_residuals", "backward_cuda",
                          "forward_plain", "backward_plain"))
 counts, reset_counts, add_counts = tally.counts, tally.reset, tally.add_counts
 device_tally = split.DeviceCounters(DEVICE_COUNTS)
 device_counts, reset_device_counts = device_tally.counts, device_tally.reset
+trim_tally = split.DeviceCounters(TRIM_COUNTS)
+trim_counts, reset_trim_counts = trim_tally.counts, trim_tally.reset
 
 
 def n_periods(L: int) -> int:
@@ -161,6 +198,38 @@ def _prefix(x: torch.Tensor) -> torch.Tensor:
 def _site(obs: torch.Tensor, t: int) -> torch.Tensor:
     "(1, S, 1) codes of site t, to broadcast against (B, S, M)."
     return obs[:, t].view(1, -1, 1)
+
+
+def live_periods(obs: torch.Tensor, B: int = 1) -> torch.Tensor:
+    """Each row's live end (S,) int32: the periods up to and including the
+    one that holds the row's last observed site (code 0 or 1), 0 where the
+    row has none.  On CUDA a hand kernel (a block a row), which also adds
+    the rows' trimmed and whole instance-sites, B instances a row, to the
+    device counters TRIM_COUNTS; on the CPU plain PyTorch, counting nothing."""
+    S, L = obs.shape
+    if obs.device.type == "cuda":
+        dev = obs.device
+        if obs.dtype != torch.int8 or not obs.is_contiguous() or S * L == 0:
+            raise ValueError("observation rows must be non-empty contiguous int8")
+        live = torch.empty(S, dtype=torch.int32, device=dev)
+        lib = load_library()
+        with torch.cuda.device(dev):
+            err = lib.lib.phlash_smc_live_periods(ptr(obs), S, L, B, ptr(live),
+                                                  ptr(trim_tally.on(dev)), stream(dev))
+        check(lib, err, "smc_live launch")
+        return live
+    if obs.device.type != "cpu":
+        raise ValueError(f"no live ends for device {obs.device}")
+    seen = (obs == 0) | (obs == 1)
+    last = torch.where(seen, torch.arange(L, device=obs.device), -1).amax(1)
+    return torch.where(last >= 0, last // NORM_EVERY + 1, 0).to(torch.int32)
+
+
+def _live_mask(live, obs: torch.Tensor, q: int) -> torch.Tensor:
+    "(1, S, 1): whether period q lies below each row's live end (every row where live is None)."
+    if live is None:
+        return torch.ones(1, obs.shape[0], 1, dtype=torch.bool, device=obs.device)
+    return (q < live.to(obs.device)).view(1, -1, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -221,34 +290,42 @@ def _reverse_period(prm, a: torch.Tensor, obs: torch.Tensor, q: int, ab: torch.T
     return ybar, (db, dd, du, dvv, de0, de1)
 
 
-def forward_structured(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool = True):
-    "Plain forward: (ll (B, S), alpha (B, S, M), pstates (n_per, S, B, M) or None)."
+def forward_structured(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool = True,
+                       live: torch.Tensor | None = None):
+    """Plain forward: (ll (B, S), alpha (B, S, M), pstates (n_per, S, B, M) or
+    None), each row up to its live end (`live`; whole rows where None):
+    alpha is the state there, pstates zero from there on."""
     tally.add("forward_plain")
     prm = _rows(params)
     a = pi
     ll = torch.zeros(pi.shape[:2], dtype=pi.dtype, device=pi.device)
     pst = []
     for q in range(n_periods(obs.shape[1])):
+        on = _live_mask(live, obs, q)
         if with_residuals:
-            pst.append(a)
-        a, c = _forward_period(prm, a, obs, q)
-        ll = ll + torch.log(c)
+            pst.append(torch.where(on, a, 0))
+        a_q, c = _forward_period(prm, a, obs, q)
+        a = torch.where(on, a_q, a)
+        ll = ll + torch.where(on[..., 0], torch.log(c), 0)
     pstates = torch.stack(pst).transpose(1, 2).contiguous() if with_residuals else None
     return ll, a, pstates
 
 
 def backward_structured(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torch.Tensor,
-                        abar0: torch.Tensor):
+                        abar0: torch.Tensor, live: torch.Tensor | None = None):
     """Plain adjoint: gbar (B, S) cotangent of ll, abar0 (B, S, M) cotangent
-    of the final state.  Returns ((db, dd, du, dvv, de0, de1), dpi), each
-    (B, S, M) per instance."""
+    of the final state (the state at each row's live end with `live`).
+    Returns ((db, dd, du, dvv, de0, de1), dpi), each (B, S, M) per instance."""
     tally.add("backward_plain")
     prm = _rows(params)
     acc = (torch.zeros_like(abar0),) * 6
     ab = abar0
     g = gbar[..., None]
     for q in reversed(range(n_periods(obs.shape[1]))):
-        ab, acc = _reverse_period(prm, pstates[q].transpose(0, 1), obs, q, ab, g, acc)
+        on = _live_mask(live, obs, q)
+        ab_q, acc_q = _reverse_period(prm, pstates[q].transpose(0, 1), obs, q, ab, g, acc)
+        ab = torch.where(on, ab_q, ab)
+        acc = tuple(torch.where(on, x, o) for o, x in zip(acc, acc_q))
     return acc, ab
 
 
@@ -258,13 +335,14 @@ def backward_structured(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: 
 
 
 def forward_segmented(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool,
-                      plan: Plan):
+                      plan: Plan, live: torch.Tensor | None = None):
     """The split forward of the CUDA kernels (csrc/smc_forward.cu) in plain
     PyTorch, `plan.K` segments (split.forward_segmented on this pair's
-    period).  Returns forward_structured's (ll, alpha, pstates or None) and
-    the four counts (DEVICE_COUNTS) the kernels add on the card.  pstates
-    and alpha are forward_structured's bit for bit; ll is the same log c's
-    summed by interval, segment and row."""
+    period), each row up to its live end (`live`).  Returns
+    forward_structured's (ll, alpha, pstates or None) and the four counts
+    (DEVICE_COUNTS) the kernels add on the card.  pstates and alpha are
+    forward_structured's bit for bit; ll is the same log c's summed by
+    interval, segment and row."""
     prm = _rows(params)
 
     def period(a, q):
@@ -272,16 +350,16 @@ def forward_segmented(params, pi: torch.Tensor, obs: torch.Tensor, with_residual
         return a, torch.log(c)
 
     ll, alpha, st, c = split.forward_segmented(period, pi, obs.shape[1], NORM_EVERY, plan,
-                                               DEVICE_COUNTS)
+                                               DEVICE_COUNTS, live)
     pstates = torch.stack(st).transpose(1, 2).contiguous() if with_residuals else None
     return ll, alpha, pstates, c
 
 
 def backward_segmented(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torch.Tensor,
-                       abar0: torch.Tensor, plan: Plan):
+                       abar0: torch.Tensor, plan: Plan, live: torch.Tensor | None = None):
     """The split adjoint of the CUDA kernels (csrc/smc_backward.cu) in plain
-    PyTorch (split.backward_segmented: the last segment from abar0, the
-    others from zero).  Returns backward_structured's ((db, dd, du, dvv,
+    PyTorch (split.backward_segmented: each row's last live segment from
+    abar0, the others from zero).  Returns backward_structured's ((db, dd, du, dvv,
     de0, de1), dpi), the same terms summed by interval, segment and row,
     and the four counts."""
     prm = _rows(params)
@@ -291,7 +369,7 @@ def backward_segmented(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: t
         return _reverse_period(prm, pstates[q].transpose(0, 1), obs, q, ab, g, acc)
 
     return split.backward_segmented(reverse, abar0, (torch.zeros_like(abar0),) * 6, obs.shape[1],
-                                    NORM_EVERY, plan, DEVICE_COUNTS)
+                                    NORM_EVERY, plan, DEVICE_COUNTS, live)
 
 
 # ---------------------------------------------------------------------------
@@ -304,31 +382,35 @@ def _check_m(M: int) -> None:
         raise ValueError(f"the CUDA SMC kernels support M in {SUPPORTED_M}, got {M}")
 
 
-def _check_shapes(params, obs, B: int, S: int, M: int, L: int) -> None:
+def _check_shapes(params, obs, B: int, S: int, M: int, L: int, live=None) -> None:
     _check_m(M)
     if B * S == 0 or L == 0:
         raise ValueError(f"empty launch: B={B}, S={S}, L={L}")
     if any(tuple(p.shape) != (B, M) for p in params) or tuple(obs.shape) != (S, L):
         raise ValueError("parameter rows must be (B, M) and observations (S, L)")
+    if live is not None and (live.dtype != torch.int32 or tuple(live.shape) != (S,)
+                             or not live.is_contiguous() or live.device != obs.device):
+        raise ValueError("live ends must be contiguous int32 (S,) on the observations' device")
 
 
-def forward_cuda(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool = True):
+def forward_cuda(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool = True,
+                 live: torch.Tensor | None = None):
     "The forward kernels (B1 without residuals, B2 with); shapes as the plain version."
-    out = forward_launch(params, pi, obs, with_residuals)
+    out = forward_launch(params, pi, obs, with_residuals, live=live)
     tally.add("forward_cuda")
     tally.add("forward_cuda_residuals", int(with_residuals))
     return out
 
 
 def forward_launch(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: bool,
-                   plan: Plan | None = None):
+                   plan: Plan | None = None, live: torch.Tensor | None = None):
     """The forward kernels at `plan` (segment_plan's where None, as
-    forward_cuda runs them; the card's gates also run K = 1 beside it).
-    Counts no launch."""
+    forward_cuda runs them; the card's gates also run K = 1 beside it), each
+    row up to its live end (`live`).  Counts no launch."""
     B, S, M = pi.shape
     L = obs.shape[1]
     dev = require_cuda([*params, pi], [obs])
-    _check_shapes(params, obs, B, S, M, L)
+    _check_shapes(params, obs, B, S, M, L, live)
     plan = plan or segment_plan(B, S, L, M, sm_count(dev))
     lib = load_library()
     f32 = dict(dtype=torch.float32, device=dev)
@@ -340,7 +422,7 @@ def forward_launch(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: 
     with torch.cuda.device(dev):
         if K == 1:
             err = lib.lib.phlash_smc_forward(
-                *map(ptr, params), ptr(pi), ptr(obs), B, S, L, M,
+                *map(ptr, params), ptr(pi), ptr(obs), ptr(live), B, S, L, M,
                 ptr(ll), ptr(alpha), ptr(pstates), stream(dev),
             )
         else:
@@ -349,7 +431,7 @@ def forward_launch(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: 
             work = [torch.empty(n, S, B, **f32) for n in (n_chk, K)]  # interval, segment ll
             ends = [torch.empty(K, S, B, M, **f32) for _ in range(2)]  # speculative, stored
             err = lib.lib.phlash_smc_forward_split(
-                *map(ptr, params), ptr(pi), ptr(obs), B, S, L, M, K, P,
+                *map(ptr, params), ptr(pi), ptr(obs), ptr(live), B, S, L, M, K, P,
                 ptr(ll), ptr(alpha), ptr(pstates), ptr(ckpt), *map(ptr, work), *map(ptr, ends),
                 ptr(device_tally.on(dev)), stream(dev),
             )
@@ -358,20 +440,21 @@ def forward_launch(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: 
 
 
 def backward_cuda(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torch.Tensor,
-                  abar0: torch.Tensor):
+                  abar0: torch.Tensor, live: torch.Tensor | None = None):
     "The adjoint kernels (B3); shapes as the plain version."
-    out = backward_launch(params, obs, pstates, gbar, abar0)
+    out = backward_launch(params, obs, pstates, gbar, abar0, live=live)
     tally.add("backward_cuda")
     return out
 
 
 def backward_launch(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torch.Tensor,
-                    abar0: torch.Tensor, plan: Plan | None = None):
+                    abar0: torch.Tensor, plan: Plan | None = None,
+                    live: torch.Tensor | None = None):
     "The adjoint kernels at `plan` (as forward_launch).  Counts no launch."
     B, S, M = abar0.shape
     L = obs.shape[1]
     dev = require_cuda([*params, pstates, gbar, abar0], [obs])
-    _check_shapes(params, obs, B, S, M, L)
+    _check_shapes(params, obs, B, S, M, L, live)
     plan = plan or segment_plan(B, S, L, M, sm_count(dev), "adjoint")
     n_per = n_periods(L)
     if tuple(pstates.shape) != (n_per, S, B, M) or tuple(gbar.shape) != (B, S):
@@ -386,7 +469,7 @@ def backward_launch(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torc
     with torch.cuda.device(dev):
         if K == 1:
             err = lib.lib.phlash_smc_backward(
-                *map(ptr, params), ptr(obs), ptr(pstates), ptr(gbar), ptr(abar0),
+                *map(ptr, params), ptr(obs), ptr(pstates), ptr(gbar), ptr(abar0), ptr(live),
                 B, S, L, M, *map(ptr, grads), stream(dev),
             )
         else:
@@ -395,7 +478,7 @@ def backward_launch(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torc
                     torch.empty(K, S, B, M, **f32), torch.empty(n_chk, 6, S, B, M, **f32),
                     torch.empty(K, 6, S, B, M, **f32)]  # top, ab_ck, spec_end, int, seg
             err = lib.lib.phlash_smc_backward_split(
-                *map(ptr, params), ptr(obs), ptr(pstates), ptr(gbar), ptr(abar0),
+                *map(ptr, params), ptr(obs), ptr(pstates), ptr(gbar), ptr(abar0), ptr(live),
                 B, S, L, M, K, P, *map(ptr, grads), *map(ptr, work),
                 ptr(device_tally.on(dev)), stream(dev),
             )
@@ -408,19 +491,19 @@ def backward_launch(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torc
 # ---------------------------------------------------------------------------
 
 
-def forward(params, pi, obs, with_residuals: bool):
+def forward(params, pi, obs, with_residuals: bool, live=None):
     "CUDA tensors launch the kernel, CPU tensors take the plain version."
     if obs.device.type == "cuda":
-        return forward_cuda(params, pi, obs, with_residuals)
+        return forward_cuda(params, pi, obs, with_residuals, live)
     if obs.device.type == "cpu":
-        return forward_structured(params, pi, obs, with_residuals)
+        return forward_structured(params, pi, obs, with_residuals, live)
     raise ValueError(f"no SMC forward for device {obs.device}")
 
 
-def backward(params, obs, pstates, gbar, abar0):
+def backward(params, obs, pstates, gbar, abar0, live=None):
     "CUDA tensors launch the kernel, CPU tensors take the plain version."
     if obs.device.type == "cuda":
-        return backward_cuda(params, obs, pstates, gbar, abar0)
+        return backward_cuda(params, obs, pstates, gbar, abar0, live)
     if obs.device.type == "cpu":
-        return backward_structured(params, obs, pstates, gbar, abar0)
+        return backward_structured(params, obs, pstates, gbar, abar0, live)
     raise ValueError(f"no SMC adjoint for device {obs.device}")

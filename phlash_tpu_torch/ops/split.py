@@ -24,6 +24,9 @@ same bits, every later site is the same computation.  So the stored states
 are bitwise the unsplit kernel's, and the sums are the same terms summed by
 interval, segment and then row, in a fixed order.  A row that never forgets
 costs the unsplit time plus the two passes, and never gives another answer.
+A row may end before L (its live end, ops/smc.py): its last live segment
+stops there and takes the adjoint's exact start, and the segments past it
+are empty; plans stay those of whole rows.
 
 This module holds what both pairs share: the rule that picks K
 (`split_count`, `plan`: the launch's warps, the SM count and L only; K = 1
@@ -122,31 +125,70 @@ def _keep(done: torch.Tensor, old, new):
     return torch.where(done.view(*done.shape, *(1,) * (old.dim() - done.dim())), old, new)
 
 
+def _ends(live, n_per: int, P: int, shape, device):
+    """(n_live, k_last), (B, S) int64 each: the periods each instance's row
+    runs (`live` (S,), its live end; every period where None) and its last
+    live segment (-1 where it runs none)."""
+    if live is None:
+        n_live = torch.full(shape, n_per, dtype=torch.int64, device=device)
+    else:
+        n_live = live.to(device=device, dtype=torch.int64).view(1, -1).expand(shape)
+    return n_live, torch.where(n_live > 0, (n_live - 1) // P, -1)
+
+
+def _total(first: int, last: int, sums: dict, upto: torch.Tensor, zero: tuple):
+    """The interval sums `sums[i]` (tuples of (B, S, ...) terms) added up from
+    interval `first` to `last` in that order, each instance's only up to its
+    interval `upto` (B, S)."""
+    step = 1 if last >= first else -1
+    total = zero
+    for i in range(first, last + step, step):
+        if i in sums:
+            total = tuple(t + torch.where((i <= upto).view(*upto.shape, *(1,) * (x.dim() - 2)),
+                                          x, 0)
+                          for t, x in zip(total, sums[i]))
+    return total
+
+
 def forward_segmented(period: Callable, pi: torch.Tensor, L: int, sites: int, plan: Plan,
-                      names: tuple):
+                      names: tuple, live: torch.Tensor | None = None):
     """The split forward of a row of L sites in periods of `sites` sites,
     `plan.K` segments (fewer where the row has too few intervals):
     speculate, fix, splice, with the kernels' checkpoints and sums.
     `period(state, q) -> (state after period q, the period's sum of log c
-    (B, S))` is the backend's unsplit step; pi (B, S, M) the start.
-    Returns (ll (B, S), the final state, the state at the start of every
-    period, and the four device counts under `names`, in csrc's SplitCount
-    order).  The states are the unsplit chain's bit for bit; ll is the same
-    sums by interval, segment and row."""
+    (B, S))` is the backend's unsplit step; pi (B, S, M) the start; `live`
+    (S,) each row's live periods (the kernels' live ends; whole rows where
+    None): a row runs its periods below its end only, and a segment wholly
+    past it is empty.  Returns (ll (B, S), the state at each row's end, the
+    state at the start of every period (zero from a row's end on), and the
+    four device counts under `names`, in csrc's SplitCount order).  The
+    states are the unsplit chain's bit for bit; ll is the same sums by
+    interval, segment and row."""
     n_per = -(-L // sites)
     K, P = segments(n_per, plan.K)
     false = torch.zeros(pi.shape[:2], dtype=torch.bool, device=pi.device)
+    n_live, k_last = _ends(live, n_per, P, false.shape, pi.device)
     st = [None] * n_per  # the stored period states
     int_ll, seg_ll, spec_end, end = {}, [None] * K, [None] * K, [None] * K
     counts = dict.fromkeys(names, 0)
     n_seg, n_resolved, n_fix, n_split = names
 
     def run(k: int, a: torch.Tensor, fix: bool):
-        q0, q1 = k * P, min(k * P + P, n_per)
-        done, met, wrote = false.clone(), false.clone(), false.clone()
+        q0, q_hi = k * P, min(k * P + P, n_per)
+        q1 = n_live.clamp(max=q_hi)  # each instance's end of the segment (<= q0: empty)
+        done, met, wrote = q1 <= q0, false.clone(), false.clone()
         ran = torch.zeros(false.shape, dtype=torch.int64, device=false.device)
         acc = torch.zeros_like(false, dtype=pi.dtype)
-        for q in range(q0, q1):
+        for q in range(q0, q_hi):
+            fin = (q1 == q) & ~done  # rows whose live end is here: their last interval, end
+            if bool(fin.any()):
+                i = (q - 1) // CHECK_PERIODS
+                int_ll[i] = _keep(~fin, int_ll.get(i), acc)
+                end[k] = _keep(~fin, end[k], a)
+                wrote |= fin
+                done = done | fin
+            if bool(done.all()):
+                break
             if q % CHECK_PERIODS == 0:
                 i = q // CHECK_PERIODS
                 if q > q0:
@@ -156,7 +198,7 @@ def forward_segmented(period: Callable, pi: torch.Tensor, L: int, sites: int, pl
                 if fix:
                     same = _same(a, st[q])
                     met |= same & ~done
-                    done |= same
+                    done = done | same
                     if bool(done.all()):
                         break
             st[q] = _keep(done, st[q], a)
@@ -164,46 +206,54 @@ def forward_segmented(period: Callable, pi: torch.Tensor, L: int, sites: int, pl
             acc = acc + lc
             ran += (~done) * (min((q + 1) * sites, L) - q * sites)
         else:
-            i = (q1 - 1) // CHECK_PERIODS
+            i = (q_hi - 1) // CHECK_PERIODS
             int_ll[i] = _keep(done, int_ll.get(i), acc)
             end[k] = _keep(done, end[k], a)
             wrote |= ~done
-        total = torch.zeros_like(acc)
-        for i in range(q0 // CHECK_PERIODS, (q1 - 1) // CHECK_PERIODS + 1):
-            total = total + int_ll[i]
+        sums = {i: (x,) for i, x in int_ll.items()}
+        total, = _total(q0 // CHECK_PERIODS, (q_hi - 1) // CHECK_PERIODS, sums,
+                        (q1 - 1) // CHECK_PERIODS, (torch.zeros_like(acc),))
         seg_ll[k] = _keep(~wrote, seg_ll[k], total)
         return met, ran
 
-    for k in range(K):
+    k_top = int(k_last.max())  # no row runs a segment past it
+    for k in range(k_top + 1):
         _, ran = run(k, pi, False)
         spec_end[k] = end[k]
         counts[n_split] += int(ran.sum())
-    counts[n_seg] += K * false.numel()
-    for k in range(1, K):
+        counts[n_seg] += int((k <= k_last).sum())
+    for k in range(1, k_top + 1):
         met, ran = run(k, spec_end[k - 1], True)
         counts[n_resolved] += int(met.sum())
         counts[n_fix] += int(ran.sum())
-    for k in range(1, K):
+    for k in range(1, k_top + 1):
         _, ran = run(k, end[k - 1], True)
         counts[n_fix] += int(ran.sum())
-    ll = torch.zeros_like(seg_ll[0])
-    for x in seg_ll:
-        ll = ll + x
-    return ll, end[K - 1], st, counts
+    ll = torch.zeros_like(false, dtype=pi.dtype)
+    alpha = pi
+    for k in range(k_top + 1):
+        ll = ll + seg_ll[k]
+        alpha = _keep(k != k_last, alpha, end[k])
+    zero = torch.zeros_like(pi)
+    st = [zero if x is None else _keep(q >= n_live, zero, x) for q, x in enumerate(st)]
+    return ll, alpha, st, counts
 
 
 def backward_segmented(reverse: Callable, last: torch.Tensor, zeros: tuple, L: int, sites: int,
-                       plan: Plan, names: tuple):
-    """The split adjoint, as forward_segmented: speculative sweeps (the last
-    segment from `last`, its true start, the others from zero), fix sweeps
-    from each upper neighbour's speculative abar, the splice.
+                       plan: Plan, names: tuple, live: torch.Tensor | None = None):
+    """The split adjoint, as forward_segmented: speculative sweeps (each
+    row's last live segment from `last`, its true start, the others from
+    zero), fix sweeps from each upper neighbour's speculative abar, the
+    splice; `live` as forward_segmented's (a row's sweep starts at its end).
     `reverse(abar, q, acc) -> (abar at period q's start, acc plus the
     period's gradient terms)` is the backend's unsplit step, `zeros` its
     zero terms.  Returns (the terms summed by interval, segment and row,
-    abar at the row's start, the four device counts under `names`)."""
+    abar at the row's start (`last` where the row runs no period), the four
+    device counts under `names`)."""
     n_per = -(-L // sites)
     K, P = segments(n_per, plan.K)
     false = torch.zeros(last.shape[:2], dtype=torch.bool, device=last.device)
+    n_live, k_last = _ends(live, n_per, P, false.shape, last.device)
     zero = torch.zeros_like(last)
     top, spec_end, seg_grad = [None] * K, [None] * K, [None] * K
     ab_ck, int_grad = {}, {}
@@ -212,56 +262,68 @@ def backward_segmented(reverse: Callable, last: torch.Tensor, zeros: tuple, L: i
     none = (None,) * len(zeros)
 
     def run(k: int, ab: torch.Tensor, fix: bool):
-        q0, q1 = k * P, min(k * P + P, n_per)
-        done, met, wrote = false.clone(), false.clone(), false.clone()
+        q0, q_hi = k * P, min(k * P + P, n_per)
+        q1 = n_live.clamp(max=q_hi)  # each instance's sweep starts at period q1 - 1
+        # the fix and the splice re-run the segments below each row's last live one
+        done = k >= k_last if fix else k > k_last
+        met, wrote = false.clone(), false.clone()
         ran = torch.zeros(false.shape, dtype=torch.int64, device=false.device)
+        if bool(done.all()):
+            return ab, met, ran
         if fix:
             same = _same(ab, top[k])
-            met |= same
-            done |= same
+            met |= same & ~done
+            done = done | same
             if bool(done.all()):
                 return ab, met, ran
         top[k] = _keep(done, top[k], ab)
         acc = zeros
-        for q in reversed(range(q0, q1)):
-            ab, acc = reverse(ab, q, acc)
-            ran += (~done) * (min((q + 1) * sites, L) - q * sites)
+        for q in reversed(range(q0, q_hi)):
+            wait = q >= q1  # rows whose sweep starts below q
+            ab_q, acc_q = reverse(ab, q, acc)
+            ab = _keep(wait, ab, ab_q)
+            acc = tuple(_keep(wait, o, x) for o, x in zip(acc, acc_q))
+            ran += (~done & ~wait) * (min((q + 1) * sites, L) - q * sites)
             if q % CHECK_PERIODS == 0:
                 i = q // CHECK_PERIODS
                 old = int_grad.get(i, none)
-                int_grad[i] = tuple(_keep(done, o, x) for o, x in zip(old, acc))
-                wrote |= ~done
+                int_grad[i] = tuple(_keep(done | wait, o, x) for o, x in zip(old, acc))
+                wrote |= ~done & ~wait
                 acc = zeros
                 if fix:
                     same = _same(ab, ab_ck[i])
                     met |= same & ~done
-                    done |= same
+                    done = done | same
                     if bool(done.all()):
                         break
-                ab_ck[i] = _keep(done, ab_ck.get(i), ab)
-        total = zeros
-        for i in range((q1 - 1) // CHECK_PERIODS, q0 // CHECK_PERIODS - 1, -1):
-            total = tuple(t + x for t, x in zip(total, int_grad[i]))
+                ab_ck[i] = _keep(done | wait, ab_ck.get(i), ab)
+        total = _total((q_hi - 1) // CHECK_PERIODS, q0 // CHECK_PERIODS, int_grad,
+                       (q1 - 1) // CHECK_PERIODS, zeros)
         old = seg_grad[k] or none
         seg_grad[k] = tuple(_keep(~wrote, o, t) for o, t in zip(old, total))
         return ab, met, ran
 
-    for k in range(K):
-        spec_end[k], _, ran = run(k, last if k == K - 1 else zero, False)
+    k_top = int(k_last.max())  # no row runs a segment past it
+    for k in range(k_top + 1):
+        spec_end[k], _, ran = run(k, _keep(k == k_last, last, zero), False)
         counts[n_split] += int(ran.sum())
-    counts[n_seg] += K * false.numel()
-    for k in range(K - 1):
+        counts[n_seg] += int((k <= k_last).sum())
+    for k in range(k_top):
         _, met, ran = run(k, spec_end[k + 1], True)
         counts[n_resolved] += int(met.sum())
         counts[n_fix] += int(ran.sum())
-    ab = ab_ck[(K - 1) * P // CHECK_PERIODS]
-    for k in reversed(range(K - 1)):
+    ab = last  # each row's splice starts from its last live segment's start
+    for k in range(k_top + 1):
+        if bool((k == k_last).any()):
+            ab = _keep(k != k_last, ab, ab_ck[k * P // CHECK_PERIODS])
+    for k in reversed(range(k_top)):
         _, _, ran = run(k, ab, True)
         counts[n_fix] += int(ran.sum())
-        ab = ab_ck[k * P // CHECK_PERIODS]
+        ab = _keep(k >= k_last, ab, ab_ck[k * P // CHECK_PERIODS])
     grads = zeros
     for x in seg_grad:
-        grads = tuple(t + y for t, y in zip(grads, x))
+        if x is not None:
+            grads = tuple(t + y for t, y in zip(grads, x))
     return grads, ab, counts
 
 

@@ -182,6 +182,47 @@ def test_call_with_demographic_model_matches_jax(backend, kernels, jax_call, jdm
     _dm_close(g0, jax.tree.map(lambda a: a[1], want_g))
 
 
+# the chunk whose body ends in a missing run (the data's d[4, 250:])
+TAIL = 4
+
+
+@pytest.fixture(scope="module")
+def jax_tail(jax_kernels, jdm):
+    "jkern(dm, TAIL, grad=True) of the backend's JAX counterpart, jitted, once per counterpart."
+
+    @functools.lru_cache(maxsize=None)
+    def call(counterpart):
+        jkern = jax_kernels[counterpart]
+        return jax.jit(lambda p: jkern(p, TAIL, grad=True))(jdm)
+
+    return lambda backend: call("dense" if backend == "dense" else "scan")
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_model_loglik_rows_on_a_tail_chunk_matches_jax(backend, kernels, jax_tail, jdm):
+    """model_loglik_rows, the fit density's entry (smc runs each row to its
+    live end there), on the chunk whose body ends in a missing run: ll and
+    the gradients of the model's t, c, theta and rho through from_dm against
+    phlash_tpu's kern(dm, 4, grad=True), which runs the whole row; 1e-10,
+    and 1e-8 of each leaf's largest."""
+    from phlash_tpu_torch.size_history import DemographicModel, SizeHistory
+
+    kern = kernels[backend]
+    dm = convert.from_reference_dm(jdm)
+    leaves = [torch.as_tensor(x, dtype=torch.float64).clone().requires_grad_(True)
+              for x in (dm.eta.t, dm.eta.c, dm.theta, dm.rho)]
+    pp = PSMCParams.from_dm(DemographicModel(eta=SizeHistory(t=leaves[0], c=leaves[1]),
+                                             theta=leaves[2], rho=leaves[3]))
+    rows = kern.data[[TAIL]]
+    ll = kern.model_loglik_rows(one_particle(pp, 1), rows)[0, 0]
+    g = torch.autograd.grad(ll, leaves)
+    want_ll, want_g = jax_tail(backend)
+    _close(ll, want_ll, VALUES)
+    _dm_close(DemographicModel(eta=SizeHistory(t=g[0], c=g[1]), theta=g[2], rho=g[3]), want_g)
+    if backend == "smc":  # the row's last periods are trimmed there
+        assert int(smc.live_periods(rows)[0]) * smc.NORM_EVERY < rows.shape[1]
+
+
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_vector_index_equals_batched_entry(backend, kernels, jpp):
     """ROADMAP's check for the per-particle entries: each per-index loglik

@@ -94,7 +94,7 @@ FIT = dict(device="cpu", kernel_backend="smc", num_particles=4, overlap=4, chunk
 CALL_CHILDREN = {"phlash.call.draw", "phlash.call.launch", "phlash.call.finite_check",
                  "phlash.call.elpd_read", "phlash.call.readback", "phlash.call.user_callback"}
 READERS = ("launch_ms_per_call", "readback_ms_per_call", "syncs_per_call", "fit_ingest_s",
-           "upload_s", "capture_s", "hmm_fix_share")
+           "upload_s", "capture_s", "hmm_fix_share", "hmm_trim_share")
 
 
 def _read(name: str):
@@ -283,23 +283,25 @@ def test_the_benchmarks_readers_read_the_record(traced, name):
         assert value == 3.0
     elif name == "capture_s":
         assert value == 0.0  # no CUDA graph on the CPU
-    elif name == "hmm_fix_share":
-        assert value == 0.0  # the plain versions split nothing
+    elif name in ("hmm_fix_share", "hmm_trim_share"):
+        assert value == 0.0  # the plain versions split nothing and count no trim
     else:
         assert value > 0
 
 
 def test_the_record_carries_the_split_kernels_device_counts(untraced, traced, monkeypatch):
     """Each fit's record closes with the four device counts of the SMC'
-    kernels' split launches (zeros on the CPU, where nothing splits), read
-    when the fit ends, also by an exception; reset at each fit's start.
-    Beside them the packed kernels' device counts and work tallies, zeros on
-    this smc fit."""
+    kernels' split launches and the two of their live ends (zeros on the
+    CPU, where nothing splits or trims on a card), read when the fit ends,
+    also by an exception; reset at each fit's start.  Beside them the
+    packed kernels' device counts and work tallies, zeros on this smc fit."""
     from phlash_tpu_torch.ops import packed, smc
 
-    want = dict.fromkeys(smc.DEVICE_COUNTS + packed.DEVICE_COUNTS + packed.WORK_COUNTS, 0)
+    want = dict.fromkeys(smc.DEVICE_COUNTS + smc.TRIM_COUNTS + packed.DEVICE_COUNTS
+                         + packed.WORK_COUNTS, 0)
     assert set(smc.DEVICE_COUNTS) == {"smc_segments", "smc_segments_resolved", "smc_fix_sites",
                                       "smc_split_sites"}
+    assert smc.TRIM_COUNTS == ("smc_trimmed_sites", "smc_row_sites")
     assert untraced[1].counts == want and traced[1].counts == want
     resets = []
     monkeypatch.setattr(smc.device_tally, "reset", lambda: resets.append(1))
@@ -311,6 +313,21 @@ def test_the_record_carries_the_split_kernels_device_counts(untraced, traced, mo
         mcmc.fit([TRAIN], HELD_OUT, callback=stop, **FIT)
     rec = profiling.last_fit()
     assert resets == [1] and rec.closed and rec.counts == want
+
+
+def test_hmm_trim_share_reads_none_without_the_trim_counts(monkeypatch):
+    """benchmark/metrics/hmm_trim_share.py reads None where the newest fit's
+    record holds no live-end counts (a program without them, or no fit),
+    and the share of the rows' instance-sites past their live ends where it
+    does."""
+    for rec in (None, SimpleNamespace(counts={}),
+                SimpleNamespace(counts={"smc_fix_sites": 3, "smc_split_sites": 9})):
+        monkeypatch.setattr(profiling, "last_fit", lambda rec=rec: rec)
+        assert _read("hmm_trim_share") is None
+    for counts, want in (({"smc_trimmed_sites": 3, "smc_row_sites": 12}, 25.0),
+                         ({"smc_trimmed_sites": 0, "smc_row_sites": 0}, 0.0)):
+        monkeypatch.setattr(profiling, "last_fit", lambda c=counts: SimpleNamespace(counts=c))
+        assert _read("hmm_trim_share") == want
 
 
 def test_packed_fix_share_reads_none_without_the_packed_counts(monkeypatch):

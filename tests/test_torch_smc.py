@@ -146,7 +146,7 @@ def test_smc_op_gradcheck():
     "torch.autograd.gradcheck on the autograd.Function (both outputs)."
     params, pi, obs, _, _ = _random_case(2, 2, 13, 8, seed=2)
     leaves = [x.clone().requires_grad_(True) for x in (*params, pi)]
-    assert torch.autograd.gradcheck(lambda *xs: SMCOp.apply(obs, True, *xs), leaves)
+    assert torch.autograd.gradcheck(lambda *xs: SMCOp.apply(obs, True, False, *xs), leaves)
 
 
 def test_grads_match_dense_kernel(sdata):

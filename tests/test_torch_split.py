@@ -165,6 +165,7 @@ def test_a_capture_is_taken_back_and_added_at_each_replay(monkeypatch):
 FIT = dict(device="cpu", num_particles=4, chunk_size=20, minibatch_size=1, progress=False, seed=3,
            niter=2, steps_per_call=1)
 RECORD_KEYS = {"smc_segments", "smc_segments_resolved", "smc_fix_sites", "smc_split_sites",
+               "smc_trimmed_sites", "smc_row_sites",
                "packed_segments", "packed_segments_resolved", "packed_fix_sites",
                "packed_split_sites", "packed_sites", "packed_ckpt_bytes"}
 
@@ -172,8 +173,9 @@ RECORD_KEYS = {"smc_segments", "smc_segments_resolved", "smc_fix_sites", "smc_sp
 @pytest.mark.parametrize("backend,overlap", [("smc", 4), ("packed", 0)])
 def test_a_fits_record_has_the_counter_keys(backend, overlap):
     """FitTrace.counts after a CPU fit: the four device counts of each
-    split pair and the packed work tallies, whatever the backend (zeros
-    where unused: nothing splits on the CPU)."""
+    split pair, the SMC' pair's two live-end counts and the packed work
+    tallies, whatever the backend (zeros where unused: nothing splits or
+    trims on the card from the CPU)."""
     het = np.random.default_rng(0).integers(0, 2, size=(1, 200)).astype(np.int8)
     contig = RawContig(het_matrix=het, afs=np.array([4.0, 2.0, 1.0]), window_size=100)
     mcmc.fit([contig], kernel_backend=backend, overlap=overlap, **FIT)

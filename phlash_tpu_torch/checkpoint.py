@@ -18,6 +18,14 @@ port's state on CUDA is a set of static buffers that the next graph replay
 overwrites in place.  So `save` snapshots every tensor when it is called:
 a copy into pinned host memory on the tensor's stream, with an event that
 the worker waits on before it writes (a clone on the CPU).
+
+The writer's work is part of the fit's record (profiling.py): its counters
+`ckpt_saves` (saves handed off), `ckpt_bytes` (the bytes their snapshots
+copied) and `ckpt_waits` (saves that had to join a write still running)
+belong to every fit's record and go to the fit's innermost recorded open
+span; each write is a span `phlash.checkpoint.write`, stamped on the worker
+thread around the wait for the snapshot and the file's write, and recorded
+in the fit when the training thread joins the worker.
 """
 
 from __future__ import annotations
@@ -25,16 +33,35 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
+from phlash_tpu_torch import profiling
 from phlash_tpu_torch.svgd import SVGDState
 
 logger = logging.getLogger(__name__)
 
 STATE_NAMES = ("particles", "mu", "nu", "nu_max", "count")  # SVGDState.tensors() order
+WRITE_SPAN = "phlash.checkpoint.write"  # a write on the worker thread (profiling.add)
+SAVE_COUNTS = ("ckpt_saves", "ckpt_bytes", "ckpt_waits")
+
+
+class _Saves(profiling.Tally):
+    """The writers' counters (SAVE_COUNTS), in every fit's record; what they
+    add also goes to the fit's innermost recorded open span (profiling.count),
+    so that a call's span holds the saves made in it."""
+
+    __slots__ = ()
+
+    def add(self, key: str, n: int = 1) -> None:
+        super().add(key, n)
+        profiling.count(key, n)
+
+
+tally = _Saves(SAVE_COUNTS, fit_record=True)
 
 # best_state storage modes in the meta record
 _BEST_NONE = 0  # no best state tracked
@@ -104,16 +131,18 @@ def save_checkpoint(path: str, ckpt: TrainCheckpoint, cache: dict) -> None:
     logger.debug("checkpoint saved at step %d -> %s", ckpt.step, path)
 
 
-def _snapshot(ckpt: TrainCheckpoint) -> tuple[TrainCheckpoint, torch.cuda.Event | None]:
-    """A copy of `ckpt` whose tensors nothing later changes, and the event
+def _snapshot(ckpt: TrainCheckpoint) -> tuple[TrainCheckpoint, torch.cuda.Event | None, int]:
+    """A copy of `ckpt` whose tensors nothing later changes, the event
     after which its host copies of CUDA tensors are complete (None if it
-    has none)."""
+    has none), and the bytes copied."""
     cuda = None  # the device of the CUDA tensors copied, if any
+    nbytes = 0
 
     def copy(state: SVGDState) -> SVGDState:
-        nonlocal cuda
+        nonlocal cuda, nbytes
         out = []
         for t in state.tensors():
+            nbytes += t.numel() * t.element_size()
             if t.is_cuda:
                 cuda = t.device
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -131,9 +160,9 @@ def _snapshot(ckpt: TrainCheckpoint) -> tuple[TrainCheckpoint, torch.cuda.Event 
     if cuda is not None:
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(cuda))
-    snap = replace(ckpt, state=state, best_state=best,
-                   rng_states=tuple(s.clone() for s in ckpt.rng_states))
-    return snap, event
+    rng_states = tuple(s.clone() for s in ckpt.rng_states)
+    nbytes += sum(s.numel() * s.element_size() for s in rng_states)
+    return replace(ckpt, state=state, best_state=best, rng_states=rng_states), event, nbytes
 
 
 class AsyncCheckpointWriter:
@@ -147,40 +176,55 @@ class AsyncCheckpointWriter:
     they are `save_every` iterations apart, so an actual wait means disk is
     slower than training and throttling is the right behavior).  A worker
     exception is re-raised on the next save()/wait(), so failures surface on
-    the training thread.
+    the training thread.  Each save and its write are counted and spanned
+    (see the module docstring); the write's span is recorded at the join.
     """
 
     def __init__(self):
         self._thread = None
         self._cache: dict = {}
         self._err: BaseException | None = None
+        self._written: tuple | None = None  # the worker's (start, end, step) of its write
 
-    def _join(self) -> None:
+    def _join(self, raise_error: bool = True) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+            start, end, step = self._written
+            profiling.add(WRITE_SPAN, start, end, step=step)
         if self._err is not None:
             err, self._err = self._err, None
-            raise err
+            if raise_error:
+                raise err
+            logger.error("checkpoint write failed: %r", err, exc_info=err)
 
     def save(self, path: str, ckpt: TrainCheckpoint) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            tally.add("ckpt_waits")
         self._join()
-        snap, ready = _snapshot(ckpt)
+        snap, ready, nbytes = _snapshot(ckpt)
+        tally.add("ckpt_saves")
+        tally.add("ckpt_bytes", nbytes)
 
         def work():
+            start = time.perf_counter_ns()
             try:
                 if ready is not None:
                     ready.synchronize()
                 save_checkpoint(path, snap, self._cache)
             except BaseException as e:  # surfaced on the training thread
                 self._err = e
+            finally:
+                self._written = (start, time.perf_counter_ns(), snap.step)
 
         self._thread = threading.Thread(target=work, name="ckpt-writer", daemon=True)
         self._thread.start()
 
-    def wait(self) -> None:
-        "Block until the in-flight save (if any) is durable."
-        self._join()
+    def wait(self, raise_error: bool = True) -> None:
+        """Block until the in-flight save (if any) is durable.  With
+        raise_error=False a worker's exception is logged, not raised: the
+        caller is already handling one that it must not mask."""
+        self._join(raise_error)
 
 
 def load_checkpoint(path: str, example_state: SVGDState) -> TrainCheckpoint | None:

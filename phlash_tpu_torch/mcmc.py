@@ -279,7 +279,9 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
     `test_data`, the particles of the call with the best held-out ELPD are
     returned unless `return_final=True`.  With `checkpoint_path`, the state
     is saved every `save_every` iterations and at the end, and a run
-    restarted with the same arguments resumes at the saved iteration.
+    restarted with the same arguments resumes at the saved iteration; fit
+    returns or raises only after the last save it handed off is written,
+    also when the callback raises.
 
     Each fit records its spans in a profiling.FitTrace, which
     `profiling.last_fit()` returns and the "fit finished" log record carries
@@ -290,7 +292,8 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
     phlash.start.elpd_setup, phlash.capture) are always recorded; each
     call's (phlash.call and phlash.call.draw, .launch, .finite_check,
     .elpd_read, .checkpoint, .readback, .user_callback, with the counter
-    host_syncs) only while torch's profiler records, e.g. inside
+    host_syncs; on a mesh phlash.mesh.collective) only while torch's
+    profiler records, e.g. inside
     `profiling.trace()`, whose Chrome trace then shows them beside the
     device's work.  See profiling.py.
     """
@@ -397,53 +400,63 @@ def fit(data: list[Contig], test_data: Contig = None, *, device="cuda", seed: in
         next_check = next_elpd = start
         next_save = start + save_every
         last, saved_at = start, None
-    for i in pbar:
-        k = min(spc, niter - i)  # the final call may be partial
-        with profiling.loop_call(k):
-            with profiling.call_span("phlash.call.draw"):
-                inds = torch.randint(prog.N, (k, prog.S), generator=gen, device=dev)
-            want_elpd = elpd is not None and i >= next_elpd
-            state, e_dev = call(state, inds, elpd_inds if want_elpd else None)
-            if i >= next_check or i + k >= niter:
-                next_check = i + check_every
-                _check_finite(state.particles, mesh, i)
-            rec.iterations += k
-            last = i + k
-            stop = False
-            if want_elpd:
-                next_elpd = i + ELPD_EVERY
-                with profiling.call_span("phlash.call.elpd_read"):
-                    e = float(e_dev)
-                    profiling.count("host_syncs")
-                ema = e if ema is None else 0.9 * ema + 0.1 * e
-                if best is None or ema > best[1]:
-                    patience = 0
-                    best = (i, ema, clone_state(state))
-                else:
-                    patience += 1
-                stop = i - best[0] > elpd_cutoff
-                if hasattr(pbar, "set_description"):
-                    pbar.set_description(f"elpd={ema:.2f} patience={patience}")
-            # saved after the call's ELPD, so that the saved ema and best state
-            # go with the saved state (a resume then evaluates at its first call)
-            if ckpt_path and last >= next_save:
-                next_save = last + save_every
-                saved_at = last
-                with profiling.call_span("phlash.call.checkpoint"):
-                    save(last)
-            if stop:
-                logger.info("ELPD has not improved in %d iterations; stopping early", elpd_cutoff)
-                break
-            rec.at_callback()
-            if callback is not None:
-                with profiling.call_span("phlash.call.readback"):
-                    particles = whole(state.particles)
-                    if rank0:
-                        dm = cloud(prog, particles)
+    try:
+        for i in pbar:
+            k = min(spc, niter - i)  # the final call may be partial
+            with profiling.loop_call(k):
+                with profiling.call_span("phlash.call.draw"):
+                    inds = torch.randint(prog.N, (k, prog.S), generator=gen, device=dev)
+                want_elpd = elpd is not None and i >= next_elpd
+                state, e_dev = call(state, inds, elpd_inds if want_elpd else None)
+                if i >= next_check or i + k >= niter:
+                    next_check = i + check_every
+                    _check_finite(state.particles, mesh, i)
+                rec.iterations += k
+                last = i + k
+                stop = False
+                if want_elpd:
+                    next_elpd = i + ELPD_EVERY
+                    with profiling.call_span("phlash.call.elpd_read"):
+                        e = float(e_dev)
                         profiling.count("host_syncs")
-                if rank0:
-                    with profiling.call_span("phlash.call.user_callback"):
-                        callback(dm)
+                    ema = e if ema is None else 0.9 * ema + 0.1 * e
+                    if best is None or ema > best[1]:
+                        patience = 0
+                        best = (i, ema, clone_state(state))
+                    else:
+                        patience += 1
+                    stop = i - best[0] > elpd_cutoff
+                    if hasattr(pbar, "set_description"):
+                        pbar.set_description(f"elpd={ema:.2f} patience={patience}")
+                # saved after the call's ELPD, so that the saved ema and best state
+                # go with the saved state (a resume then evaluates at its first call)
+                if ckpt_path and last >= next_save:
+                    next_save = last + save_every
+                    saved_at = last
+                    with profiling.call_span("phlash.call.checkpoint"):
+                        save(last)
+                if stop:
+                    logger.info("ELPD has not improved in %d iterations; stopping early",
+                                elpd_cutoff)
+                    break
+                rec.at_callback()
+                if callback is not None:
+                    with profiling.call_span("phlash.call.readback"):
+                        particles = whole(state.particles)
+                        if rank0:
+                            dm = cloud(prog, particles)
+                            profiling.count("host_syncs")
+                    if rank0:
+                        with profiling.call_span("phlash.call.user_callback"):
+                            callback(dm)
+    except BaseException:
+        if writer is not None:
+            # leave no write in flight: the caller may next delete the file's
+            # directory or resume from it.  A failed write is logged, so that
+            # it does not mask the exception on its way out; no mesh barrier,
+            # since a raising rank must not wait on the others
+            writer.wait(raise_error=False)
+        raise
     if ckpt_path:
         if last != saved_at and last > start:
             # leave the run's final state on disk, so that a rerun with the

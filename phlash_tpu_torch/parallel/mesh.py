@@ -32,13 +32,19 @@ its calls and bytes by "op/axis/what" in `tally` (`counts`, `reset_counts`,
 `add_counts`, as ops/smc.py counts kernel launches); a CUDA graph replay
 adds what its capture counted (training.Caller).  The tally also adds the
 calls to the fit's counter `collectives` (profiling.count), so that a span
-of the fit counts the collectives made inside it.  NCCL runs the
-collectives on CUDA, gloo on the CPU; nothing falls back from one to the
-other.
+of the fit counts the collectives made inside it.  A collective issued on
+the host outside a CUDA graph's capture (on the CPU every one; on CUDA the
+read-back's and the checkpoint's gathers, the finiteness check, and a
+graph's eager warm-up) is also a call span `phlash.mesh.collective`
+(profiling.call_span: recorded while torch's profiler records), whose host
+time is the call's, which on NCCL is its enqueue.  One a graph captures
+runs inside the graph's replay and has no span.  NCCL runs the collectives
+on CUDA, gloo on the CPU; nothing falls back from one to the other.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
@@ -187,10 +193,18 @@ def _group(mesh: DeviceMesh, axis: str | None):
     return None if axis is None else mesh.get_group(axis)
 
 
+def _span(t: torch.Tensor):
+    "The span of a collective on `t` issued on the host (none while a CUDA graph captures it)."
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        return contextlib.nullcontext()
+    return profiling.call_span("phlash.mesh.collective")
+
+
 def _all_reduce(t: torch.Tensor, mesh: DeviceMesh, axis: str | None, what: str) -> torch.Tensor:
     "Sum in place over `axis` (None: every rank)."
     _count(f"all_reduce/{axis or 'world'}/{what}", t)
-    dist.all_reduce(t, group=_group(mesh, axis))
+    with _span(t):
+        dist.all_reduce(t, group=_group(mesh, axis))
     return t
 
 
@@ -202,7 +216,8 @@ def _all_gather(t: torch.Tensor, mesh: DeviceMesh, axis: str, what: str) -> torc
     _count(f"all_gather/{axis}/{what}", t)
     t = t.contiguous()
     out = t.new_empty((mesh.size(mesh.mesh_dim_names.index(axis)) * t.shape[0], *t.shape[1:]))
-    _gather_into(out, t, group=_group(mesh, axis))
+    with _span(t):
+        _gather_into(out, t, group=_group(mesh, axis))
     return out
 
 

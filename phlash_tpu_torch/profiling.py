@@ -34,10 +34,17 @@ fit is open records nothing.  The spans:
         phlash.call.checkpoint    a checkpoint's hand-off to its writer
         phlash.call.readback      the cloud's gather, copy to the host and to_dm
         phlash.call.user_callback the callback's body
+          phlash.mesh.collective  on a mesh, a collective issued on the host
+                                  (parallel/mesh.py), under whichever span issued it
+      phlash.checkpoint.write     a checkpoint's write on the writer's thread
+                                  (attribute: step), from the worker's stamps,
+                                  recorded when the fit joins the worker
+                                  (checkpoint.py), under the span open then
 
-The start's spans and `phlash.capture` are always recorded: about ten a
-fit and one per contig.  The call's spans (`phlash.call` and
-`phlash.call.*`) are recorded only while torch's profiler records; a site
+The start's spans, `phlash.capture` and `phlash.checkpoint.write` are
+always recorded: about ten a fit, one per contig and one per save.  The
+call's spans (`phlash.call`, `phlash.call.*` and `phlash.mesh.collective`)
+are recorded only while torch's profiler records; a site
 then also opens a profiler range of the span's name, so the span sits in
 the profiler's trace on the same timeline as the device's work (`trace`
 around a fit shows every span).
@@ -62,7 +69,8 @@ packed kernels' four device counts each (ops/smc.DEVICE_COUNTS,
 ops/packed.DEVICE_COUNTS) and the packed kernels' host tallies
 (ops/packed.WORK_COUNTS: packed_sites, the instance-sites B4 and B5 swept,
 and packed_ckpt_bytes, the checkpoint bytes B4 wrote), zeros on a fit of
-another backend.
+another backend, and the checkpoint writer's (checkpoint.SAVE_COUNTS:
+ckpt_saves, ckpt_bytes, ckpt_waits), zeros on a fit without checkpoints.
 """
 
 from __future__ import annotations

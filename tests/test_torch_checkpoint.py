@@ -1,6 +1,7 @@
 """Checkpoint/resume and the fit's record of its loop on the CPU: the
 counterparts of tests/test_checkpoint.py (its StepMeter is the port's
-profiling.FitTrace), plus the writer's snapshot at hand-off."""
+profiling.FitTrace), plus the writer's snapshot at hand-off, its counters
+and write spans, and its join when a fit ends by an exception."""
 
 import pytest
 
@@ -10,6 +11,7 @@ torch.set_num_threads(1)
 import logging
 import os
 import threading
+import time
 
 import numpy as np
 
@@ -239,3 +241,80 @@ def test_async_writer_saves_the_state_at_hand_off(tmp_path, monkeypatch):
     back = load_checkpoint(path, state)
     assert back.step == 5 and _equal(back.state, want_state) and _equal(back.best_state, want_best)
     assert all(torch.equal(a, b - 1) for a, b in zip(back.rng_states, rng))
+
+
+def _slow_writes(monkeypatch, seconds: float) -> None:
+    "Every checkpoint write takes `seconds` longer, on the writer's thread."
+    real_save = ckpt_mod.save_checkpoint
+
+    def slow_save(*a, **k):
+        time.sleep(seconds)
+        real_save(*a, **k)
+
+    monkeypatch.setattr(ckpt_mod, "save_checkpoint", slow_save)
+
+
+def _writers() -> list:
+    return [t for t in threading.enumerate() if t.name == "ckpt-writer" and t.is_alive()]
+
+
+def test_a_checkpointed_fit_counts_and_spans_its_writes(contig, tmp_path, monkeypatch):
+    """A fit of three calls saving after each: the record counts three
+    saves, each snapshot's bytes (the state's tensors and the generator's
+    state), and two waits, since each write takes far longer than a call;
+    each write is a span phlash.checkpoint.write of the worker's stamps,
+    one per save, in order, recorded by the time the fit returns."""
+    delay = 1.0
+    _slow_writes(monkeypatch, delay)
+    path = str(tmp_path / "fit.npz")
+    mcmc.fit([contig], niter=6, steps_per_call=2, checkpoint_path=path, save_every=2, **FIT)
+    rec = profiling.last_fit()
+    per_save = (sum(t.numel() * t.element_size() for t in _fit_state().tensors())
+                + torch.Generator().get_state().numel())
+    assert {k: rec.counts[k] for k in ckpt_mod.SAVE_COUNTS} == {
+        "ckpt_saves": 3, "ckpt_bytes": 3 * per_save, "ckpt_waits": 2}
+    writes = rec.named(ckpt_mod.WRITE_SPAN)
+    assert [w.attrs["step"] for w in writes] == [2, 4, 6]
+    assert all(w.seconds >= delay for w in writes)
+    assert all(a.end <= b.start for a, b in zip(writes, writes[1:]))
+    assert load_checkpoint(path, _fit_state()).step == 6 and not _writers()
+
+
+def test_a_fit_stopped_by_its_callback_leaves_its_checkpoint_written(contig, tmp_path,
+                                                                     monkeypatch):
+    """The callback raises right after the first save, whose write is still
+    running: fit joins the writer before the error leaves it, so no writer
+    thread is left, the file holds that save whole, and a fit resumed from
+    it ends where an uninterrupted one does, bit for bit."""
+    _slow_writes(monkeypatch, 0.5)
+    path = str(tmp_path / "fit.npz")
+    kw = dict(FIT, steps_per_call=2, save_every=2)
+
+    def stop(dm):
+        raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        mcmc.fit([contig], niter=6, checkpoint_path=path, callback=stop, **kw)
+    assert not _writers()
+    assert profiling.last_fit().counts["ckpt_saves"] == 1
+    assert load_checkpoint(path, _fit_state()).step == 2
+    got = mcmc.fit([contig], niter=6, checkpoint_path=path, **kw)
+    assert load_checkpoint(path, _fit_state()).step == 6
+    np.testing.assert_array_equal(_c(got), _c(mcmc.fit([contig], niter=6, **kw)))
+
+
+def test_a_failed_write_does_not_mask_the_error_in_flight(tmp_path, monkeypatch, caplog):
+    """wait(raise_error=False), the join on an exception's way out, logs a
+    worker's error instead of raising it; the writer is clean after."""
+    def boom(*a, **k):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(ckpt_mod, "save_checkpoint", boom)
+    _, rng = _rng_states()
+    w = AsyncCheckpointWriter()
+    w.save(str(tmp_path / "c.npz"), TrainCheckpoint(step=1, state=_state(), rng_states=rng,
+                                                    ema=None, best_step=1))
+    with caplog.at_level(logging.ERROR, logger="phlash_tpu_torch.checkpoint"):
+        w.wait(raise_error=False)
+    assert "disk full" in caplog.text and not _writers()
+    w.wait()

@@ -392,3 +392,61 @@ def test_traced_meshed_fit_counts_its_collectives(world_of_one, tmp_path):
     for name in ("phlash.call.finite_check", "phlash.call.readback"):
         assert tr.named(name) and all(s.counts["collectives"] == 1 for s in tr.named(name))
     assert tr.named("phlash.fit")[0].counts["collectives"] == made()
+
+
+def _reader(name: str):
+    "benchmark/metrics/<name>.py, loaded as the benchmark loads it."
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "benchmark" / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"reader_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def test_traced_meshed_fit_spans_its_collectives(world_of_one, tmp_path):
+    """A traced, checkpointed fit on the world of one: every collective of
+    a call is a phlash.mesh.collective span (nothing is captured on the
+    CPU), and the benchmark's collectives_per_call reads what fit's
+    schedule implies: 3 an iteration (the rows' fetch, the densities' sum,
+    the cloud's gather), 3 an ELPD (the held-out rows' fetch, the ELPD's sum
+    and gather), 1 a finiteness check, 1 a read-back, and at each save a
+    gather of the state's 4 particle-sharded tensors and of the best
+    state's.  The checkpoint and mesh readers read the same record."""
+    from phlash_tpu_torch import profiling
+
+    train, held = _contigs()[:2], _contigs()[2]
+    spc, save_every = FIT["steps_per_call"], 4
+    with profiling.trace(str(tmp_path)):
+        mcmc.fit(train, held, niter=NITER, mesh=world_of_one, callback=lambda dm: None,
+                 checkpoint_path=str(tmp_path / "ckpt.npz"), save_every=save_every, **FIT)
+    tr = profiling.last_fit()
+    calls = tr.calls()
+    want = 0
+    next_elpd = next_check = 0
+    next_save = save_every
+    for i in range(0, NITER, spc):
+        want += 3 * spc + 1  # the iterations' and the read-back's
+        if i >= next_elpd:
+            next_elpd, want = i + mcmc.ELPD_EVERY, want + 3
+        if i >= next_check or i + spc >= NITER:
+            next_check, want = i + mcmc.default_check_every(), want + 1
+        if i + spc >= next_save:
+            next_save, want = i + spc + save_every, want + 2 * 4
+    assert len(calls) == NITER // spc and tr.counts["ckpt_saves"] == NITER // save_every
+    assert _reader("collectives_per_call")(None) == want / len(calls)
+    whole = {id(c) for c in calls}
+
+    def in_a_whole_call(s) -> bool:
+        while s.parent is not None:
+            s = tr.spans[s.parent]
+            if id(s) in whole:
+                return True
+        return False
+
+    spans = [s for s in tr.named("phlash.mesh.collective") if in_a_whole_call(s)]
+    assert len(spans) == sum(c.counts["collectives"] for c in calls) == want
+    assert _reader("mesh_ms_per_call")(None) > 0
+    assert _reader("ckpt_ms_per_save")(None) > 0 and _reader("ckpt_write_ms_per_save")(None) > 0

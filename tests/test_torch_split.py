@@ -167,15 +167,17 @@ FIT = dict(device="cpu", num_particles=4, chunk_size=20, minibatch_size=1, progr
 RECORD_KEYS = {"smc_segments", "smc_segments_resolved", "smc_fix_sites", "smc_split_sites",
                "smc_trimmed_sites", "smc_row_sites",
                "packed_segments", "packed_segments_resolved", "packed_fix_sites",
-               "packed_split_sites", "packed_sites", "packed_ckpt_bytes"}
+               "packed_split_sites", "packed_sites", "packed_ckpt_bytes",
+               "ckpt_saves", "ckpt_bytes", "ckpt_waits"}
 
 
 @pytest.mark.parametrize("backend,overlap", [("smc", 4), ("packed", 0)])
 def test_a_fits_record_has_the_counter_keys(backend, overlap):
     """FitTrace.counts after a CPU fit: the four device counts of each
-    split pair, the SMC' pair's two live-end counts and the packed work
-    tallies, whatever the backend (zeros where unused: nothing splits or
-    trims on the card from the CPU)."""
+    split pair, the SMC' pair's two live-end counts, the packed work
+    tallies and the checkpoint writer's counters, whatever the backend
+    (zeros where unused: nothing splits or trims on the card from the CPU,
+    and this fit saves no checkpoint)."""
     het = np.random.default_rng(0).integers(0, 2, size=(1, 200)).astype(np.int8)
     contig = RawContig(het_matrix=het, afs=np.array([4.0, 2.0, 1.0]), window_size=100)
     mcmc.fit([contig], kernel_backend=backend, overlap=overlap, **FIT)

@@ -166,7 +166,10 @@ Phases, each of which prints its own lines and aborts the run on failure:
    at the validation fit's chunk length (L = 100,000, B = 500, S = 5;
    phase 3's tolerances; wherever ops/smc.segment_plan splits the rows, as
    there and in phase 14, the split kernels are also held to the unsplit
-   ones: pstates and alpha bitwise, the four device counts printed), on
+   ones: pstates and alpha bitwise, the four device counts printed; the
+   split adjoint also at 16 and 33 segments, within phase 3's gate, after
+   its kernels' registers and spill are printed and the warps an SM the
+   library reports them holding are held to their target), on
    whole rows and again with rows cut short (a chromosome's last chunk; ends
    mid-row, on a checkpoint, none, a wholly missing row) and run to their
    live ends as the fit's likelihood runs them, the split there within
@@ -303,7 +306,7 @@ CHECK_SHAPES = ((37, 3, 1000, (8, 16, 32, 64)), (500, 5, 2000, (16,)), (500, 5, 
 
 
 def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs, f32_floor=False,
-             live=None):
+             live=None, adjoint_ks=()):
     """The forward (B2, with residuals) and adjoint (B3) kernels against
     their plain versions in float64 on the card; B1 (no residuals) must give
     B2's ll and alpha;
@@ -319,7 +322,9 @@ def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs, f32_floor=Fa
     psmc_ll's whole rows within 1e-10 of max |ll| (the model's transition is
     row-stochastic, so the tail adds log 1), the period states below each
     end, and the split
-    against trimmed K = 1 (check_trim_split)."""
+    against trimmed K = 1 (check_trim_split).  With `adjoint_ks` (whole
+    rows) also the split adjoint at each of those segment counts
+    (gate_adjoint_plans)."""
     from phlash_tpu_torch.hmm import psmc_ll
     from phlash_tpu_torch.params import PSMCParams
 
@@ -368,6 +373,7 @@ def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs, f32_floor=Fa
     if not (torch.equal(ll_1, ll_k) and torch.equal(a_1, a_k)):
         fail(f"the forward without residuals differs from the one with at {where}")
     if live is None:
+        gate_adjoint_plans(torch, smc, p32, obs, ps_k, g32, ab32, (*g_p, dpi_p), where, adjoint_ks)
         check_split(torch, smc, p32, pi32, obs, g32, ab32, where, ll_k, a_k, ps_k, g_k, dpi_k)
     else:
         check_trim_split(torch, smc, p32, pi32, obs, g32, ab32, live, where, (*g_p, dpi_p))
@@ -375,6 +381,61 @@ def gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs, f32_floor=Fa
     fwd["abs"] = max(fwd["abs"], max_abs(ll_k, ll_p), max_abs(a_k, a_p))
     bwd["grad"] = max(bwd["grad"], worst)
     return float(ps_p[ps_p > 0].min())
+
+
+# the segment counts phase 12 holds the split adjoint to at a genome row: its
+# plans at 8 and at 16 warps an SM at B = 500, S = 1, L = 94,500 (smc.segments
+# rounds each to what a gate's row holds; at S = 1 the first runs the kernels
+# with the period cache in registers, the second those with it in shared memory)
+ADJOINT_GATE_KS = (16, 33)
+# the split adjoint's kernels at M = 16, the period cache in shared memory
+# (true) and in registers (false), whose registers and spill phase 12 prints
+ADJOINT_SPLIT_KERNELS = tuple(f"smc_backward_kernel_{p}<16, 4, {c}>"
+                              for c in ("true", "false") for p in ("speculate", "fix", "splice"))
+
+
+def gate_adjoint_plans(torch, smc, p32, obs, ps, g32, ab32, want, where, ks):
+    """The split adjoint (B3) at each segment count in `ks` (as
+    smc.segments rounds it to the row's checkpoint intervals) on the same
+    float32 inputs, against the plain float64 gradients `want` (the six,
+    then dpi): each within phase 3's gate, 2e-5 of max."""
+    names = ("b", "d", "u", "v", "emis0", "emis1", "pi")
+    n_per = smc.n_periods(obs.shape[1])
+    for K in ks:
+        plan = smc.segments(n_per, K)
+        g_k, dpi_k = smc.backward_launch(p32, obs, ps, g32, ab32, plan)
+        errs = {name: normalized(a, b) for name, a, b in zip(names, (*g_k, dpi_k), want)}
+        print(f"{where}: split adjoint at {tuple(plan)} against the plain float64 adjoint: max "
+              f"normalized err over the 7 gradients {max(errs.values()):.3e}")
+        off = [f"d{k} {v:.3e}" for k, v in errs.items() if not v <= 2e-5]
+        if off:
+            fail(f"the split adjoint at {tuple(plan)} disagrees with the plain version at "
+                 f"{where}: " + ", ".join(off))
+
+
+def check_adjoint_residency(torch, smc, lib) -> int:
+    """The split adjoint's kernels at M = 16: their registers and spill
+    stores from the build's ptxas log (printed; absent where this process
+    reused an earlier build), and the warps an SM the library reports the
+    speculative kernel holds with its cache in shared memory (through
+    smc.kernel_geometry: the adjoint plan's ceiling; fails under
+    TARGET_WARPS_PER_SM["adjoint"]) and in registers (printed).  Returns
+    the first."""
+    report = ptxas_report(lib.ptxas_log)
+    for name in ADJOINT_SPLIT_KERNELS:
+        regs, spill = report.get(name, (None, None))
+        print(f"split adjoint {name}: "
+              + (f"{regs} registers, {spill} bytes spill stores" if regs is not None
+                 else "not in this process's build log"))
+    geo = smc.kernel_geometry(1, 1, 16)
+    resident, registers = geo["adjoint_resident_warps"], geo["adjoint_register_warps"]
+    target = smc.TARGET_WARPS_PER_SM["adjoint"]
+    print(f"split adjoint at M = 16: {resident} warps an SM resident (target {target}); "
+          f"{registers} with the period cache in registers")
+    if resident < target:
+        fail(f"the split adjoint's kernel holds {resident} warps an SM at M = 16, under its "
+             f"target {target}")
+    return resident
 
 
 def check_split(torch, smc, p32, pi32, obs, g32, ab32, where, ll_k, a_k, ps_k, g_k, dpi_k):
@@ -3208,12 +3269,17 @@ VALIDATE_TRIM_LASTS = ((50_131,), (40_000, 16 * 8 * 300 - 1, None, -1, 71_003))
 
 
 def validation_gates(torch, smc, dev, power_line: str) -> dict:
-    """Phase 12, first part: B1-B3 at VALIDATE_GATE_SHAPES, M = 16, against
-    their plain float64 versions (gate_smc at phase 3's tolerances; the split
-    kernels also against the unsplit ones), on whole rows and then on the
+    """Phase 12, first part: the split adjoint's registers and residency
+    (check_adjoint_residency), then B1-B3 at VALIDATE_GATE_SHAPES, M = 16,
+    against their plain float64 versions (gate_smc at phase 3's tolerances;
+    the split kernels also against the unsplit ones, and the split adjoint
+    at ADJOINT_GATE_KS segments), on whole rows and then on the
     same rows cut at VALIDATE_TRIM_LASTS and run to their live ends (the
     card's smc.live_periods, its counters against the host's).  Returns the
     gate errors."""
+    from phlash_tpu_torch.ops import build
+
+    check_adjoint_residency(torch, smc, build.load_library())
     errs = {"forward": {"abs": 0.0, "ll": 0.0, "state": 0.0}, "backward": {"abs": 0.0, "grad": 0.0}}
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     t0 = time.perf_counter()
@@ -3222,7 +3288,8 @@ def validation_gates(torch, smc, dev, power_line: str) -> dict:
         gbar = torch.randn(B, S, generator=gen, device=dev, dtype=torch.float64)
         abar0 = torch.randn(B, S, 16, generator=gen, device=dev, dtype=torch.float64)
         where = f"M=16 B={B} S={S} L={L}"
-        gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs)
+        gate_smc(torch, smc, params, pi, obs, gbar, abar0, where, errs,
+                 adjoint_ks=ADJOINT_GATE_KS)
         obs = trim_rows(torch, obs, lasts)
         live = check_live_ends(torch, smc, obs, B, f"{where} trimmed")
         gate_smc(torch, smc, params, pi, obs, gbar, abar0, f"{where} trimmed", errs, live=live)
@@ -3557,18 +3624,19 @@ def peak_entry(src: str, pk: dict) -> dict:
 
 def ptxas_report(log: str) -> dict:
     """(registers, spill-store bytes) of each kernel instance in a ptxas
-    log, by kernel<template arguments> (numbers, or float / double), or by
-    its name alone where it is no template (the split kernels' suffixes,
-    `_speculate`, `_fix`, `_splice`, kept)."""
+    log, by kernel<template arguments> (numbers, true / false, or float /
+    double), or by its name alone where it is no template (the split
+    kernels' suffixes, `_speculate`, `_fix`, `_splice`, kept)."""
     import re
 
     out, name, spill = {}, None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_Z\d+(\w*?_kernel(?:_[a-z]+)?)"
-                      r"(?:I((?:Li\d+E|[fd])+)E)?", line)
+                      r"(?:I((?:Li\d+E|Lb[01]E|[fd])+)E)?", line)
         if m:
-            args = [n or {"f": "float", "d": "double"}[t]
-                    for n, t in re.findall(r"Li(\d+)E|([fd])", m.group(2) or "")]
+            names = {"f": "float", "d": "double", "b0": "false", "b1": "true"}
+            args = [n or names[t or "b" + b]
+                    for n, b, t in re.findall(r"Li(\d+)E|Lb([01])E|([fd])", m.group(2) or "")]
             name, spill = m.group(1) + (f"<{', '.join(args)}>" if args else ""), 0
             continue
         if name is None:

@@ -27,7 +27,12 @@
 // others from zero), fix sweeps from each upper neighbour's speculative abar
 // up to the first checkpoint where abar equals the stored one bitwise, and a
 // splice down the segments.  The gradients are summed by interval, segment
-// and row, in a fixed order.
+// and row, in a fixed order.  The split kernels keep the 8-site cache in
+// shared memory (smc_common.cuh's PeriodCache: 12 KB a one-warp block at
+// M = 16), so that at most 128 registers a thread hold
+// ADJOINT_WARPS_PER_SM warps an SM; everything else stays in registers.  A
+// launch whose warps the register-cache instances hold (SHARED false) runs
+// those instead: one warp's chain is faster with the cache in registers.
 //
 // With `live` set (smc_common.cuh: each row's live end) both paths sweep
 // each row down from its live end: the unsplit kernel from period
@@ -158,6 +163,27 @@ smc_backward_kernel(const float* __restrict__ b, const float* __restrict__ d,
 // The split path: K segments a row (ops/smc.segment_plan), three launches.
 // ---------------------------------------------------------------------------
 
+// The split adjoint's block shape at (M, SPL): its threads, the blocks an SM
+// its shared-cache kernels are bound to (the register-cache ones to 1: as
+// many registers as a thread may take), and their dynamic shared memory.
+template <int M, int SPL>
+struct AdjointSplit {
+  static constexpr int THREADS = Group<M, SPL>::THREADS;
+  static constexpr int MIN_BLOCKS = ADJOINT_WARPS_PER_SM * 32 / THREADS;
+  static constexpr size_t CACHE_BYTES = PeriodCache<SPL>::bytes(THREADS);
+  static_assert(THREADS % 32 == 0 && MIN_BLOCKS >= 1, "whole warps, at least one block an SM");
+};
+
+extern __shared__ __align__(16) unsigned char adjoint_cache[];
+
+// A split kernel's period cache: the block's shared memory (SHARED) or registers.
+template <int SPL, bool SHARED>
+struct SplitCache : RegisterCache<SPL> {};
+template <int SPL>
+struct SplitCache<SPL, true> : PeriodCache<SPL> {
+  __device__ __forceinline__ SplitCache() : PeriodCache<SPL>(adjoint_cache) {}
+};
+
 struct BwdSplit {
   int K, P;                    // segments a row, periods a segment (P % CHECK_EVERY == 0)
   const int* live;             // (S,) each row's live periods, or nullptr (whole rows)
@@ -177,7 +203,7 @@ struct BwdSplit {
 // down the stored sweep is this chain's), storing its own before.  A group
 // that is done computes on for the shuffles and stores nothing.  Returns the
 // sites the group ran before it was done.
-template <int M, int SPL, bool FIX>
+template <int M, int SPL, bool FIX, bool SHARED>
 __device__ __forceinline__ unsigned backward_segment(float* ab, bool& done, bool& met, int k,
                                                      const GroupLane& me, const Rows<SPL>& w,
                                                      float g, const int8_t* __restrict__ row,
@@ -206,6 +232,7 @@ __device__ __forceinline__ unsigned backward_segment(float* ab, bool& done, bool
   const size_t per_stride = per * M;
   float next[SPL];  // the start state of the period below this one, in flight
   load_states<SPL>(pst + static_cast<size_t>(seg.q1 - 1) * per_stride, next);
+  SplitCache<SPL, SHARED> cache;
   unsigned ran = 0;
   bool wrote = false, stop = false;
   for (int t0 = t_beg + (t_end - t_beg - 1) / OBS_TILE * OBS_TILE; t0 >= t_beg && !stop;
@@ -220,11 +247,9 @@ __device__ __forceinline__ unsigned backward_segment(float* ab, bool& done, bool
 #pragma unroll
       for (int r = 0; r < SPL; ++r) a[r] = next[r];
       load_states<SPL>(pst + static_cast<size_t>(max(q - 1, seg.q0)) * per_stride, next);
-      int obv[NORM_EVERY];
-#pragma unroll
-      for (int j = 0; j < NORM_EVERY; ++j) obv[j] = j0 + j < n ? sh[mis + j0 + j] : -2;
-      reverse_period<G, SPL>(a, obv, ab, g, me.lane, w.b, w.d, w.u, w.v, w.e0, w.e1, gb, gd,
-                             gu, gv, g0, g1);
+      const PeriodCodes codes(sh, mis, j0, n);
+      reverse_period<G, SPL>(a, codes, ab, g, me.lane, cache, w.b, w.d, w.u, w.v, w.e0, w.e1,
+                             gb, gd, gu, gv, g0, g1);
       if (!done) ran += min(NORM_EVERY, n - j0);
       if (q % CHECK_EVERY == 0) {  // abar at checkpoint q: interval q / C is complete
         const size_t i = q / CHECK_EVERY;
@@ -293,8 +318,9 @@ __device__ __forceinline__ unsigned backward_segment(float* ab, bool& done, bool
 // Speculative pass: segment k = blockIdx.z from abar0 (the row's last live
 // segment, exact) or from zero (a guess); a segment past the row's live end
 // is empty.
-template <int M, int SPL>
-__global__ void __launch_bounds__(Group<M, SPL>::THREADS)
+template <int M, int SPL, bool SHARED>
+__global__ void __launch_bounds__(AdjointSplit<M, SPL>::THREADS,
+                                  SHARED ? AdjointSplit<M, SPL>::MIN_BLOCKS : 1)
 smc_backward_kernel_speculate(const float* __restrict__ b, const float* __restrict__ d,
                               const float* __restrict__ u, const float* __restrict__ vv,
                               const float* __restrict__ e0, const float* __restrict__ e1,
@@ -316,7 +342,7 @@ smc_backward_kernel_speculate(const float* __restrict__ b, const float* __restri
     for (int r = 0; r < SPL; ++r) ab[r] = 0.f;
   }
   bool done = !me.active, met = false;
-  const unsigned ran = backward_segment<M, SPL, false>(
+  const unsigned ran = backward_segment<M, SPL, false, SHARED>(
       ab, done, met, k, me, w, gbar[me.i], obs + static_cast<size_t>(me.s) * L, pstates, B, S,
       L, ws, sh);
   if (me.active)
@@ -330,8 +356,9 @@ smc_backward_kernel_speculate(const float* __restrict__ b, const float* __restri
 
 // Fix pass: segment k = blockIdx.z (below the row's last live segment) from
 // segment k + 1's speculative abar at its start.
-template <int M, int SPL>
-__global__ void __launch_bounds__(Group<M, SPL>::THREADS)
+template <int M, int SPL, bool SHARED>
+__global__ void __launch_bounds__(AdjointSplit<M, SPL>::THREADS,
+                                  SHARED ? AdjointSplit<M, SPL>::MIN_BLOCKS : 1)
 smc_backward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d,
                         const float* __restrict__ u, const float* __restrict__ vv,
                         const float* __restrict__ e0, const float* __restrict__ e1,
@@ -348,7 +375,7 @@ smc_backward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d
   float ab[SPL];
   load_states<SPL>(ws.spec_end + ((k + 1) * per + inst) * M + m0, ab);
   bool done = !me.active, met = false;
-  const unsigned ran = backward_segment<M, SPL, true>(
+  const unsigned ran = backward_segment<M, SPL, true, SHARED>(
       ab, done, met, k, me, w, gbar[me.i], obs + static_cast<size_t>(me.s) * L, pstates, B, S,
       L, ws, sh);
   const bool first = me.active && me.lane == 0;
@@ -362,8 +389,9 @@ smc_backward_kernel_fix(const float* __restrict__ b, const float* __restrict__ d
 // start from its upper neighbour's true abar; then the six gradients (the
 // segments' sums, in order) and dpi (abar at site 0; zeros and abar0 on a
 // row with no live period).
-template <int M, int SPL>
-__global__ void __launch_bounds__(Group<M, SPL>::THREADS)
+template <int M, int SPL, bool SHARED>
+__global__ void __launch_bounds__(AdjointSplit<M, SPL>::THREADS,
+                                  SHARED ? AdjointSplit<M, SPL>::MIN_BLOCKS : 1)
 smc_backward_kernel_splice(const float* __restrict__ b, const float* __restrict__ d,
                            const float* __restrict__ u, const float* __restrict__ vv,
                            const float* __restrict__ e0, const float* __restrict__ e1,
@@ -389,7 +417,7 @@ smc_backward_kernel_splice(const float* __restrict__ b, const float* __restrict_
   unsigned ran = 0;
   for (int k = k_last - 1; k >= 0; --k) {
     bool done = !me.active, met = false;
-    ran += backward_segment<M, SPL, true>(ab, done, met, k, me, w, g,
+    ran += backward_segment<M, SPL, true, SHARED>(ab, done, met, k, me, w, g,
                                           obs + static_cast<size_t>(me.s) * L, pstates, B, S, L,
                                           ws, sh);
     load_states<SPL>(ws.ab_ck + (static_cast<size_t>(k * ws.P / CHECK_EVERY) * per + inst) * M + m0, ab);
@@ -436,41 +464,120 @@ extern "C" int phlash_smc_backward(const float* b, const float* d, const float* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The split adjoint: K >= 2 segments of P periods, as the split forward.
+// Let the split adjoint's shared-cache kernels at (M, SPL) take their period
+// cache and prefer the largest shared-memory carveout (ADJOINT_WARPS_PER_SM
+// blocks' caches need it), once a device: at the first split launch or
+// occupancy query on it (the first split launch is eager, so a CUDA graph's
+// capture makes no such call).
+template <int M, int SPL>
+int prepare_adjoint_split() {
+  static bool ready[64] = {false};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (ready[dev]) return 0;
+  using A = AdjointSplit<M, SPL>;
+  const void* kernels[3] = {
+      reinterpret_cast<const void*>(smc_backward_kernel_speculate<M, SPL, true>),
+      reinterpret_cast<const void*>(smc_backward_kernel_fix<M, SPL, true>),
+      reinterpret_cast<const void*>(smc_backward_kernel_splice<M, SPL, true>)};
+  for (const void* k : kernels) {
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(A::CACHE_BYTES));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             static_cast<int>(cudaSharedmemCarveoutMaxShared));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  ready[dev] = true;
+  return 0;
+}
+
+// The three split launches with the period cache in shared memory (SHARED) or
+// in registers.
+template <int M, int SPL, bool SHARED>
+int backward_split(const float* b, const float* d, const float* u, const float* vv,
+                   const float* e0, const float* e1, const int8_t* obs, const float* pstates,
+                   const float* gbar, const float* abar0, int B, int S, int L, int K,
+                   const BwdSplit& ws, float* db, float* dd, float* du, float* dvv, float* de0,
+                   float* de1, float* dpi, cudaStream_t st) {
+  constexpr int T = AdjointSplit<M, SPL>::THREADS;
+  constexpr size_t C = SHARED ? AdjointSplit<M, SPL>::CACHE_BYTES : 0;
+  if constexpr (SHARED) {
+    const int ready = prepare_adjoint_split<M, SPL>();
+    if (ready != 0) return ready;
+  }
+  const int gx = (B + INSTANCES_PER_BLOCK - 1) / INSTANCES_PER_BLOCK;
+  smc_backward_kernel_speculate<M, SPL, SHARED><<<dim3(gx, S, K), T, C, st>>>(
+      b, d, u, vv, e0, e1, obs, pstates, gbar, abar0, B, S, L, ws);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  smc_backward_kernel_fix<M, SPL, SHARED><<<dim3(gx, S, K - 1), T, C, st>>>(
+      b, d, u, vv, e0, e1, obs, pstates, gbar, B, S, L, ws);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  smc_backward_kernel_splice<M, SPL, SHARED><<<dim3(gx, S), T, C, st>>>(
+      b, d, u, vv, e0, e1, obs, pstates, gbar, abar0, B, S, L, ws, db, dd, du, dvv, de0, de1,
+      dpi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split adjoint: K >= 2 segments of P periods, as the split forward; the
+// period cache in shared memory where `shared` is set, else in registers.
 extern "C" int phlash_smc_backward_split(const float* b, const float* d, const float* u,
                                          const float* vv, const float* e0, const float* e1,
                                          const int8_t* obs, const float* pstates,
                                          const float* gbar, const float* abar0, const int* live,
-                                         int B, int S, int L, int M, int K, int P, float* db,
-                                         float* dd, float* du, float* dvv, float* de0,
-                                         float* de1, float* dpi, float* top, float* ab_ck,
-                                         float* spec_end, float* int_grad, float* seg_grad,
-                                         unsigned long long* counts, void* stream) {
+                                         int B, int S, int L, int M, int K, int P, int shared,
+                                         float* db, float* dd, float* du, float* dvv,
+                                         float* de0, float* de1, float* dpi, float* top,
+                                         float* ab_ck, float* spec_end, float* int_grad,
+                                         float* seg_grad, unsigned long long* counts,
+                                         void* stream) {
   const int n_per = L > 0 ? (L + NORM_EVERY - 1) / NORM_EVERY : 0;
   if (B <= 0 || S <= 0 || S > 65535 || L <= 0 || K < 2 || K > 65535 || P <= 0 ||
       P % CHECK_EVERY != 0 || static_cast<long long>(K - 1) * P >= n_per ||
       static_cast<long long>(K) * P < n_per)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int gx = (B + INSTANCES_PER_BLOCK - 1) / INSTANCES_PER_BLOCK;
   const BwdSplit ws{K, P, live, top, ab_ck, spec_end, int_grad, seg_grad, counts};
-#define PHLASH_BWD_SPLIT(MM, SS)                                                           \
-  if (M == MM) {                                                                           \
-    constexpr int T = Group<MM, SS>::THREADS;                                              \
-    smc_backward_kernel_speculate<MM, SS><<<dim3(gx, S, K), T, 0, st>>>(                   \
-        b, d, u, vv, e0, e1, obs, pstates, gbar, abar0, B, S, L, ws);                      \
-    cudaError_t err = cudaGetLastError();                                                  \
-    if (err != cudaSuccess) return static_cast<int>(err);                                  \
-    smc_backward_kernel_fix<MM, SS><<<dim3(gx, S, K - 1), T, 0, st>>>(                     \
-        b, d, u, vv, e0, e1, obs, pstates, gbar, B, S, L, ws);                             \
-    err = cudaGetLastError();                                                              \
-    if (err != cudaSuccess) return static_cast<int>(err);                                  \
-    smc_backward_kernel_splice<MM, SS><<<dim3(gx, S), T, 0, st>>>(                         \
-        b, d, u, vv, e0, e1, obs, pstates, gbar, abar0, B, S, L, ws, db, dd, du, dvv, de0, \
-        de1, dpi);                                                                         \
-    return static_cast<int>(cudaGetLastError());                                           \
-  }
+#define PHLASH_BWD_SPLIT(MM, SS)                                                            \
+  if (M == MM)                                                                              \
+    return shared ? backward_split<MM, SS, true>(b, d, u, vv, e0, e1, obs, pstates, gbar,   \
+                                                 abar0, B, S, L, K, ws, db, dd, du, dvv,    \
+                                                 de0, de1, dpi, st)                         \
+                  : backward_split<MM, SS, false>(b, d, u, vv, e0, e1, obs, pstates, gbar,  \
+                                                  abar0, B, S, L, K, ws, db, dd, du, dvv,   \
+                                                  de0, de1, dpi, st);
   PHLASH_SMC_INSTANCES(PHLASH_BWD_SPLIT)
 #undef PHLASH_BWD_SPLIT
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The blocks an SM of the split adjoint's speculative kernel at M on the
+// current device, its cache in shared memory (`shared`) or in registers, as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor counts them (ops/smc.
+// resident_warps); minus the CUDA error where the query fails,
+// -cudaErrorInvalidValue where no kernel is built for M.
+extern "C" int phlash_smc_adjoint_split_blocks_per_sm(int M, int shared) {
+  int n = 0;
+  cudaError_t err = cudaSuccess;
+#define PHLASH_BWD_OCC(MM, SS)                                                                \
+  if (M == MM) {                                                                              \
+    if (shared) {                                                                             \
+      const int ready = prepare_adjoint_split<MM, SS>();                                      \
+      if (ready != 0) return -ready;                                                          \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                    \
+          &n, smc_backward_kernel_speculate<MM, SS, true>, AdjointSplit<MM, SS>::THREADS,     \
+          AdjointSplit<MM, SS>::CACHE_BYTES);                                                 \
+    } else {                                                                                  \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                    \
+          &n, smc_backward_kernel_speculate<MM, SS, false>, AdjointSplit<MM, SS>::THREADS, 0); \
+    }                                                                                         \
+    return err == cudaSuccess ? n : -static_cast<int>(err);                                   \
+  }
+  PHLASH_SMC_INSTANCES(PHLASH_BWD_OCC)
+#undef PHLASH_BWD_OCC
+  return -static_cast<int>(cudaErrorInvalidValue);
 }

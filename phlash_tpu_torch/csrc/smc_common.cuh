@@ -36,6 +36,10 @@
 // and the splice (a group an instance walks the segments in order and
 // re-runs any whose start was wrong).  What each stores stays one chain's
 // trajectory over the segment, so a later re-run may stop at any match.
+// The adjoint's three kernels keep each period's rebuild in shared memory
+// (PeriodCache, dynamic, sized at launch) and are bound to
+// ADJOINT_WARPS_PER_SM warps an SM, or, where a launch puts fewer warps on
+// the card than register-cache kernels hold, in registers (RegisterCache).
 //
 // Each row's live end (`live`, (S,) int32, or nullptr for whole rows): the
 // periods up to and including the one that holds the row's last observed
@@ -301,22 +305,120 @@ __device__ __forceinline__ float forward_period(float* a, const int8_t* sh, int 
   return c;
 }
 
-// One period of the adjoint: rebuild the period's sites from its start state
-// a (overwritten), then sweep them in reverse from abar (ab, in and out) with
-// the ll cotangent g, adding to the six gradient accumulators.
-template <int G, int SPL>
-__device__ __forceinline__ void reverse_period(float* a, const int* obv, float* ab, float g,
-                                               int lane, const float* rb, const float* rd,
+// The split adjoint's residency: the warps an SM its three kernels are built
+// to hold (__launch_bounds__: at M = 16, 16 one-warp blocks of at most 128
+// registers a thread), ops/smc.TARGET_WARPS_PER_SM["adjoint"].  They fit
+// because the period cache below lives in shared memory, not in registers.
+constexpr int ADJOINT_WARPS_PER_SM = 16;
+
+// The arrays of the split adjoint's period cache, a site's x, S(x), P(u x).
+enum CacheArray { CACHE_X = 0, CACHE_SX = 1, CACHE_PV = 2, CACHE_ARRAYS = 3 };
+
+// The split adjoint's period cache: the rebuild's x, S(x) and P(u x) at each
+// of a period's NORM_EVERY sites (3 x 8 x SPL floats a lane: 96 at M = 16,
+// which in registers would hold the kernels to 8 warps an SM), in the
+// block's dynamic shared memory, a slice a warp laid out [site][array][lane]
+// as SPL-float vectors: a warp's access is 32 consecutive vectors (512 bytes
+// at SPL = 4), without bank conflicts.  A lane reads back only what it wrote,
+// so no barrier is needed.  The accesses are PTX of their own (asm volatile):
+// the compiler keeps them where they are written, so it can neither forward
+// a stored value to its load (which would hold it in a register again) nor
+// move a load above its store.
+template <int SPL>
+struct PeriodCache {
+  static_assert(SPL == 2 || SPL == 4, "a lane's states are one 8- or 16-byte access");
+  static constexpr int VEC = SPL * 4;                                     // bytes a lane's vector
+  static constexpr int WARP_BYTES = NORM_EVERY * CACHE_ARRAYS * 32 * VEC;  // a warp's slice
+  // the cache of a block of `threads` threads (a multiple of 32)
+  static constexpr size_t bytes(int threads) {
+    return static_cast<size_t>(threads / 32) * WARP_BYTES;
+  }
+  unsigned lane;  // shared-window address of this lane's vector at (site 0, X)
+  __device__ __forceinline__ explicit PeriodCache(void* smem)
+      : lane(static_cast<unsigned>(__cvta_generic_to_shared(smem)) +
+             threadIdx.x / 32 * WARP_BYTES + threadIdx.x % 32 * VEC) {}
+  __device__ __forceinline__ unsigned at(int j, int k) const {
+    return lane + (j * CACHE_ARRAYS + k) * 32 * VEC;
+  }
+  __device__ __forceinline__ void put(int j, int k, const float* x) const {
+    if constexpr (SPL == 4) {
+      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(at(j, k)), "f"(x[0]),
+                   "f"(x[1]), "f"(x[2]), "f"(x[3]));
+    } else {
+      asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(at(j, k)), "f"(x[0]), "f"(x[1]));
+    }
+  }
+  __device__ __forceinline__ void get(int j, int k, float* x) const {
+    if constexpr (SPL == 4) {
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                   : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
+                   : "r"(at(j, k)));
+    } else {
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(x[0]), "=f"(x[1]) : "r"(at(j, k)));
+    }
+  }
+};
+
+// The same cache in registers (its arrays indexed by unrolled counters only):
+// no shared memory and no loads, but 3 x 8 x SPL registers a lane, which hold
+// the kernels to 8 warps an SM at M = 16; the faster of the two where a launch
+// puts no more warps than that on the card (ops/smc.backward_launch).
+template <int SPL>
+struct RegisterCache {
+  float v[NORM_EVERY][CACHE_ARRAYS][SPL];
+  __device__ __forceinline__ void put(int j, int k, const float* x) {
+#pragma unroll
+    for (int r = 0; r < SPL; ++r) v[j][k][r] = x[r];
+  }
+  __device__ __forceinline__ void get(int j, int k, float* x) const {
+#pragma unroll
+    for (int r = 0; r < SPL; ++r) x[r] = v[j][k][r];
+  }
+};
+
+// A period's NORM_EVERY observation codes, four to a word (a byte each), so
+// that the split adjoint holds them in two registers, not eight.
+struct PeriodCodes {
+  unsigned w[2];
+  // codes of sites j0 .. j0 + 7 of a tile staged at sh[mis] (past n: padding)
+  __device__ __forceinline__ PeriodCodes(const int8_t* sh, int mis, int j0, int n) {
+    w[0] = w[1] = 0u;
+#pragma unroll
+    for (int j = 0; j < NORM_EVERY; ++j) {
+      const int ob = j0 + j < n ? sh[mis + j0 + j] : -2;
+      w[j >> 2] |= (static_cast<unsigned>(ob) & 0xffu) << (8 * (j & 3));
+    }
+  }
+  __device__ __forceinline__ int operator[](int j) const {
+    return static_cast<int>(static_cast<int8_t>((w[j >> 2] >> (8 * (j & 3))) & 0xffu));
+  }
+};
+
+// One period of the split adjoint: rebuild the period's sites from its start
+// state a (overwritten) into `cache` (a PeriodCache or a RegisterCache), then
+// sweep them in reverse from abar
+// (ab, in and out) with the ll cotangent g, adding to the six gradient
+// accumulators.  No step of the abar chain (y -> vbar -> scan_pair -> xbar)
+// reads the cache, only the accumulators and v do: a site's cache is loaded
+// after its scan, so that it holds no register through the shuffles.  A
+// site's code is the block's (one row a block), so the emission terms' adds
+// are predicated on it, not selected: a select's + 0.f on another code leaves
+// an accumulator that starts at +0 as it was.
+template <int G, int SPL, class Cache>
+__device__ __forceinline__ void reverse_period(float* a, const PeriodCodes& codes, float* ab,
+                                               float g, int lane, Cache& cache,
+                                               const float* rb, const float* rd,
                                                const float* ru, const float* rv,
                                                const float* r0, const float* r1, float* gb,
                                                float* gd, float* gu, float* gv, float* g0,
                                                float* g1) {
-  float xs[NORM_EVERY][SPL], svs[NORM_EVERY][SPL], pvs[NORM_EVERY][SPL];
 #pragma unroll
   for (int j = 0; j < NORM_EVERY; ++j) {
-#pragma unroll
-    for (int r = 0; r < SPL; ++r) xs[j][r] = a[r];
-    advance<G, SPL>(a, obv[j], lane, rb, rd, ru, rv, r0, r1, svs[j], pvs[j]);
+    float sv[SPL], pv[SPL];
+    cache.put(j, CACHE_X, a);
+    advance<G, SPL>(a, codes[j], lane, rb, rd, ru, rv, r0, r1, sv, pv);
+    cache.put(j, CACHE_SX, sv);
+    cache.put(j, CACHE_PV, pv);
   }
   const float c = fmaxf(group_sum<G, SPL>(a), TINY_NORM);
   float y[SPL];
@@ -328,27 +430,31 @@ __device__ __forceinline__ void reverse_period(float* a, const int* obv, float* 
 
 #pragma unroll
   for (int j = NORM_EVERY - 1; j >= 0; --j) {
-    const int ob = obv[j];
+    const int ob = codes[j];
     const bool live = ob != -2;
     float vbar[SPL], wv[SPL], wb[SPL], t1[SPL], pb[SPL];
 #pragma unroll
     for (int r = 0; r < SPL; ++r) {
-      const float yb = live ? y[r] : 0.f;
-      const float v = rb[r] * svs[j][r] + rd[r] * xs[j][r] + rv[r] * pvs[j][r];
-      const float dfull = v * yb;
-      g0[r] += ob == 0 ? dfull : 0.f;
-      g1[r] += ob == 1 ? dfull : 0.f;
-      vbar[r] = emis_factor(ob, r0[r], r1[r]) * yb;
-      gb[r] += svs[j][r] * vbar[r];
-      gd[r] += xs[j][r] * vbar[r];
-      gv[r] += pvs[j][r] * vbar[r];
+      vbar[r] = emis_factor(ob, r0[r], r1[r]) * (live ? y[r] : 0.f);
       wv[r] = rv[r] * vbar[r];
       wb[r] = rb[r] * vbar[r];
     }
     scan_pair<G, SPL>(wv, wb, lane, t1, pb);  // S(vv vbar), P(b vbar)
+    float xs[SPL], svs[SPL], pvs[SPL];  // site j's x, S(x), P(u x)
+    cache.get(j, CACHE_X, xs);
+    cache.get(j, CACHE_SX, svs);
+    cache.get(j, CACHE_PV, pvs);
 #pragma unroll
     for (int r = 0; r < SPL; ++r) {
-      gu[r] += xs[j][r] * t1[r];
+      // the emission term's product rounded on its own (__fmul_rn: not fused
+      // into the add), as the select's operand was
+      const float v = rb[r] * svs[r] + rd[r] * xs[r] + rv[r] * pvs[r];
+      if (ob == 0) g0[r] += __fmul_rn(v, y[r]);
+      if (ob == 1) g1[r] += __fmul_rn(v, y[r]);
+      gb[r] += svs[r] * vbar[r];
+      gd[r] += xs[r] * vbar[r];
+      gv[r] += pvs[r] * vbar[r];
+      gu[r] += xs[r] * t1[r];
       const float xbar = pb[r] + rd[r] * vbar[r] + ru[r] * t1[r];
       y[r] = live ? xbar : y[r];
     }

@@ -77,7 +77,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_smc_backward.restype = I
     lib.phlash_smc_forward_split.argtypes = [P] * 9 + [I] * 6 + [P] * 10
     lib.phlash_smc_forward_split.restype = I
-    lib.phlash_smc_backward_split.argtypes = [P] * 11 + [I] * 6 + [P] * 14
+    lib.phlash_smc_backward_split.argtypes = [P] * 11 + [I] * 7 + [P] * 14
     lib.phlash_smc_backward_split.restype = I
     lib.phlash_smc_live_periods.argtypes = [P] + [I] * 3 + [P] * 3
     lib.phlash_smc_live_periods.restype = I
@@ -87,6 +87,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.phlash_smc_states_per_lane.restype = I
     lib.phlash_smc_instances_per_block.argtypes = []
     lib.phlash_smc_instances_per_block.restype = I
+    lib.phlash_smc_adjoint_split_blocks_per_sm.argtypes = [I, I]
+    lib.phlash_smc_adjoint_split_blocks_per_sm.restype = I
     lib.phlash_packed_forward.argtypes = [P] * 5 + [I] * 3 + [P] * 3
     lib.phlash_packed_forward.restype = I
     lib.phlash_packed_backward.argtypes = [P] * 6 + [I] * 3 + [P] * 5

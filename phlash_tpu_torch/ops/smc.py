@@ -87,13 +87,23 @@ Kernel design note (csrc/smc_common.cuh, smc_forward.cu, smc_backward.cu).
   - the adjoint keeps each lane's 8-site cache (x, S(x), P(u x)) and its six
     gradient accumulators in registers, and loads the previous period's
     boundary state before the current period's work (a register double
-    buffer), so that load's latency leaves the chain;
+    buffer), so that load's latency leaves the chain; its split kernels
+    keep the cache in shared memory instead (a slice a warp, each site's
+    read after its scan, off the abar chain), so that they fit in 128
+    registers and hold as many warps an SM as the forward's
+    (`resident_warps` reports what the built kernel holds; the plan never
+    asks for more), except where a split launch puts no more warps on the
+    card than kernels with the cache in registers hold, whose chains are
+    faster one warp at a time (`shared_cache`; B3 on an H100 at B = 32,
+    S = 1, L = 5,000, K = 2: 1.04 against 1.19 ms; at B = 500, S = 1,
+    L = 94,000, K = 16: 2.45 against 2.72);
   - gradients are written per instance and summed over chunks in PyTorch:
     deterministic, no atomics.
 * Segments along the row, where the instances leave the card nearly empty
   (ops/split.py: speculate, fix, splice; `segment_plan` takes K from the
   launch's warps, the SM count and L only, with a target of warps for
-  each direction; K = 1 runs the unsplit kernels above).  Each row is cut
+  each direction, the adjoint's capped by what its kernel holds on the
+  card; K = 1 runs the unsplit kernels above).  Each row is cut
   into K segments of P periods (P a multiple of CHECK_PERIODS, so each
   rescales where the unsplit kernel does), and each direction runs three
   launches on grid (ceil(B / 8), S, K).  The forward's guess is pi, its
@@ -124,6 +134,8 @@ Kernel design note (csrc/smc_common.cuh, smc_forward.cu, smc_backward.cu).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from phlash_tpu_torch import profiling
@@ -141,9 +153,11 @@ SUPPORTED_M = (8, 16, 32, 64)  # template instances of the CUDA kernels
 STATES_PER_LANE = {8: 2, 16: 4, 32: 2, 64: 4}
 # the warps a split launch aims for on each SM, by direction (set by the K
 # sweeps, PERF.md §6): the forward's kernels hold 32 one-warp blocks an SM,
-# the adjoint's 8 (255 registers a thread), and a second wave of the
-# adjoint only lengthens it
-TARGET_WARPS_PER_SM = {"forward": 16, "adjoint": 8}
+# the adjoint's 16 (csrc/smc_common.cuh's ADJOINT_WARPS_PER_SM: its period
+# cache in shared memory, at most 128 registers a thread), and a second wave
+# of the adjoint only lengthens it, so its target is also capped by what the
+# built kernel holds (resident_warps)
+TARGET_WARPS_PER_SM = {"forward": 16, "adjoint": 16}
 # the split launches' device counters, in csrc's SplitCount order
 DEVICE_COUNTS = ("smc_segments", "smc_segments_resolved", "smc_fix_sites", "smc_split_sites")
 # the live ends' device counters, in csrc's TrimCount order: the instance-sites
@@ -156,6 +170,11 @@ device_tally = split.DeviceCounters(DEVICE_COUNTS)
 device_counts, reset_device_counts = device_tally.counts, device_tally.reset
 trim_tally = split.DeviceCounters(TRIM_COUNTS)
 trim_counts, reset_trim_counts = trim_tally.counts, trim_tally.reset
+# the split adjoint's host tallies in the fit's record: its launches, and the
+# warps they put on the card (K x the unsplit grid's warps, a launch): their
+# ratio over the SM count is the warps an SM the adjoint's plan asked for
+SPLIT_COUNTS = ("smc_adjoint_split_launches", "smc_adjoint_split_warps")
+split_tally = profiling.Tally(SPLIT_COUNTS, fit_record=True)
 
 
 def n_periods(L: int) -> int:
@@ -163,24 +182,64 @@ def n_periods(L: int) -> int:
 
 
 def segment_plan(B: int, S: int, L: int, M: int, sms: int | None = None,
-                 direction: str = "forward") -> Plan:
+                 direction: str = "forward", resident: int | None = None) -> Plan:
     """How the CUDA kernels of `direction` ("forward": B1 / B2, "adjoint":
     B3) split a launch's rows: split.plan's K, where the unsplit grid's
     warps times K reach TARGET_WARPS_PER_SM[direction] on each of the
     device's `sms` SMs (the current CUDA device's when None), and no
-    segment is shorter than MIN_SEGMENT_SITES sites.  K = 1 wherever the
-    instances already fill the card or the rows are short."""
+    segment is shorter than MIN_SEGMENT_SITES sites.  The adjoint's target
+    never exceeds `resident`, the warps an SM its split kernel holds
+    (resident_warps on the current CUDA device when None; the forward
+    ignores it).  K = 1 wherever the instances already fill the card or the
+    rows are short."""
     warps = launch_geometry(B, S, M, STATES_PER_LANE[M], INSTANCES_PER_BLOCK)["warps"]
-    return split.plan(warps, TARGET_WARPS_PER_SM[direction], L, n_periods(L), sms)
+    target = TARGET_WARPS_PER_SM[direction]
+    if direction == "adjoint":
+        if resident is None:
+            resident = resident_warps(M, torch.cuda.current_device())
+        target = min(target, resident)
+    return split.plan(warps, target, L, n_periods(L), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_warps(M: int, device: int, shared: bool = True) -> int:
+    """The warps an SM the split adjoint's speculative kernel at M holds on
+    CUDA device `device` (its index), its period cache in shared memory
+    (`shared`: the adjoint plan's ceiling) or in registers, as the library's
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor counts its blocks.  Asked
+    once a device."""
+    _check_m(M)
+    lib = load_library()
+    with torch.cuda.device(device):
+        blocks = lib.lib.phlash_smc_adjoint_split_blocks_per_sm(M, int(shared))
+    if blocks < 0:
+        check(lib, -blocks, "smc adjoint occupancy query")
+    threads = launch_geometry(1, 1, M, STATES_PER_LANE[M], INSTANCES_PER_BLOCK)["threads_per_block"]
+    return blocks * -(-threads // 32)
+
+
+def shared_cache(B: int, S: int, M: int, K: int, sms: int, register_warps: int) -> bool:
+    """Whether the split adjoint at K segments keeps its period cache in
+    shared memory: where its warps exceed what its register-cache kernels
+    hold on `sms` SMs at `register_warps` an SM (resident_warps(...,
+    shared=False))."""
+    warps = launch_geometry(B, S, M, STATES_PER_LANE[M], INSTANCES_PER_BLOCK)["warps"]
+    return K * warps > register_warps * sms
 
 
 def kernel_geometry(B: int, S: int, M: int) -> dict:
     """launch_geometry of the CUDA kernels at M, from the mapping the built
-    library reports (csrc/smc_common.cuh owns it)."""
+    library reports (csrc/smc_common.cuh owns it), and the warps an SM the
+    split adjoint holds on the current device with its period cache in
+    shared memory and in registers (`adjoint_resident_warps`,
+    `adjoint_register_warps`)."""
     _check_m(M)
     lib = load_library().lib
-    return launch_geometry(B, S, M, lib.phlash_smc_states_per_lane(M),
-                           lib.phlash_smc_instances_per_block())
+    geo = launch_geometry(B, S, M, lib.phlash_smc_states_per_lane(M),
+                          lib.phlash_smc_instances_per_block())
+    index = torch.cuda.current_device()
+    return dict(geo, adjoint_resident_warps=resident_warps(M, index),
+                adjoint_register_warps=resident_warps(M, index, False))
 
 
 def _suffix(x: torch.Tensor) -> torch.Tensor:
@@ -441,21 +500,36 @@ def forward_launch(params, pi: torch.Tensor, obs: torch.Tensor, with_residuals: 
 
 def backward_cuda(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torch.Tensor,
                   abar0: torch.Tensor, live: torch.Tensor | None = None):
-    "The adjoint kernels (B3); shapes as the plain version."
-    out = backward_launch(params, obs, pstates, gbar, abar0, live=live)
+    """The adjoint kernels (B3); shapes as the plain version.  A split launch
+    also adds to SPLIT_COUNTS."""
+    B, S, M = abar0.shape
+    dev = require_cuda([abar0], [obs])
+    _check_m(M)
+    plan = _adjoint_plan(B, S, obs.shape[1], M, dev)
+    out = backward_launch(params, obs, pstates, gbar, abar0, plan, live)
     tally.add("backward_cuda")
+    if plan.K > 1:
+        warps = launch_geometry(B, S, M, STATES_PER_LANE[M], INSTANCES_PER_BLOCK)["warps"]
+        split_tally.add("smc_adjoint_split_launches")
+        split_tally.add("smc_adjoint_split_warps", plan.K * warps)
     return out
+
+
+def _adjoint_plan(B: int, S: int, L: int, M: int, dev: torch.device) -> Plan:
+    return segment_plan(B, S, L, M, sm_count(dev), "adjoint", resident_warps(M, dev.index))
 
 
 def backward_launch(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torch.Tensor,
                     abar0: torch.Tensor, plan: Plan | None = None,
                     live: torch.Tensor | None = None):
-    "The adjoint kernels at `plan` (as forward_launch).  Counts no launch."
+    """The adjoint kernels at `plan` (as forward_launch), a split one with its
+    period cache in registers where its warps fit what those kernels hold on
+    the card, else in shared memory.  Counts no launch."""
     B, S, M = abar0.shape
     L = obs.shape[1]
     dev = require_cuda([*params, pstates, gbar, abar0], [obs])
     _check_shapes(params, obs, B, S, M, L, live)
-    plan = plan or segment_plan(B, S, L, M, sm_count(dev), "adjoint")
+    plan = plan or _adjoint_plan(B, S, L, M, dev)
     n_per = n_periods(L)
     if tuple(pstates.shape) != (n_per, S, B, M) or tuple(gbar.shape) != (B, S):
         raise ValueError("pstates must be (n_per, S, B, M) and gbar (B, S)")
@@ -477,9 +551,10 @@ def backward_launch(params, obs: torch.Tensor, pstates: torch.Tensor, gbar: torc
             work = [torch.empty(K, S, B, M, **f32), torch.empty(n_chk, S, B, M, **f32),
                     torch.empty(K, S, B, M, **f32), torch.empty(n_chk, 6, S, B, M, **f32),
                     torch.empty(K, 6, S, B, M, **f32)]  # top, ab_ck, spec_end, int, seg
+            shared = shared_cache(B, S, M, K, sm_count(dev), resident_warps(M, dev.index, False))
             err = lib.lib.phlash_smc_backward_split(
                 *map(ptr, params), ptr(obs), ptr(pstates), ptr(gbar), ptr(abar0), ptr(live),
-                B, S, L, M, K, P, *map(ptr, grads), *map(ptr, work),
+                B, S, L, M, K, P, int(shared), *map(ptr, grads), *map(ptr, work),
                 ptr(device_tally.on(dev)), stream(dev),
             )
     check(lib, err, "smc_backward launch")

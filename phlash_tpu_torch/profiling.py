@@ -66,7 +66,11 @@ zeroes them when a fit opens and reads them into `FitTrace.counts` when
 its record closes (the device's once, so no call syncs for them; zeros
 where nothing split, as on the CPU).  These are the SMC' kernels' and the
 packed kernels' four device counts each (ops/smc.DEVICE_COUNTS,
-ops/packed.DEVICE_COUNTS) and the packed kernels' host tallies
+ops/packed.DEVICE_COUNTS), the SMC' split adjoint's host tallies
+(ops/smc.SPLIT_COUNTS: smc_adjoint_split_launches, and
+smc_adjoint_split_warps, K times the unsplit grid's warps a launch; their
+ratio over the SM count is the warps an SM its plans asked for) and the
+packed kernels' host tallies
 (ops/packed.WORK_COUNTS: packed_sites, the instance-sites B4 and B5 swept,
 and packed_ckpt_bytes, the checkpoint bytes B4 wrote), zeros on a fit of
 another backend, and the checkpoint writer's (checkpoint.SAVE_COUNTS:

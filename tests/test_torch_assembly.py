@@ -680,7 +680,8 @@ def test_phase_3c_ulp_resolution_is_its_definition():
 def test_phase_2_ptxas_report_reads_each_kernel_instance():
     """chip_smoke.ptxas_report: each kernel instance's registers and spill
     stores from a ptxas -v log (phase 2, and phase 5's assembly geometry
-    line), by kernel<template arguments>, numbers and float / double."""
+    line), by kernel<template arguments>, numbers, true / false and float /
+    double."""
     import chip_smoke
 
     log = "\n".join([
@@ -699,6 +700,10 @@ def test_phase_2_ptxas_report_reads_each_kernel_instance():
         "ptxas info    : Compiling entry function '_Z28smc_forward_kernel_speculateILi16ELi4EEvPKf"
         "' for 'sm_90a'",
         "ptxas info    : Used 128 registers",
+        "ptxas info    : Compiling entry function '_Z29smc_backward_kernel_speculateILi16ELi4ELb1EEv"
+        "PKf' for 'sm_90a'",
+        "    40 bytes stack frame, 14 bytes spill stores, 52 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 1040 bytes smem",
         "ptxas info    : Compiling entry function '_Z29packed_backward_kernel_splicePKfS0_' for "
         "'sm_90a'",
         "ptxas info    : Used 168 registers",
@@ -709,6 +714,7 @@ def test_phase_2_ptxas_report_reads_each_kernel_instance():
                                             "assembly_backward_kernel<double>": (222, 16),
                                             "smc_forward_kernel<16, 4>": (90, 0),
                                             "smc_forward_kernel_speculate<16, 4>": (128, 0),
+                                            "smc_backward_kernel_speculate<16, 4, true>": (128, 14),
                                             "packed_backward_kernel_splice": (168, 0)}
 
 

@@ -291,16 +291,18 @@ def test_the_benchmarks_readers_read_the_record(traced, name):
 
 def test_the_record_carries_the_split_kernels_device_counts(untraced, traced, monkeypatch):
     """Each fit's record closes with the four device counts of the SMC'
-    kernels' split launches and the two of their live ends (zeros on the
-    CPU, where nothing splits or trims on a card), read when the fit ends,
+    kernels' split launches, the two of their live ends and the split
+    adjoint's two host tallies (zeros on the CPU, where nothing splits or
+    trims on a card), read when the fit ends,
     also by an exception; reset at each fit's start.  Beside them the
     packed kernels' device counts and work tallies, zeros on this smc fit,
     and the checkpoint writer's counters, zeros on a fit without checkpoints."""
     from phlash_tpu_torch import checkpoint
     from phlash_tpu_torch.ops import packed, smc
 
-    want = dict.fromkeys(smc.DEVICE_COUNTS + smc.TRIM_COUNTS + packed.DEVICE_COUNTS
-                         + packed.WORK_COUNTS + checkpoint.SAVE_COUNTS, 0)
+    want = dict.fromkeys(smc.DEVICE_COUNTS + smc.TRIM_COUNTS + smc.SPLIT_COUNTS
+                         + packed.DEVICE_COUNTS + packed.WORK_COUNTS + checkpoint.SAVE_COUNTS, 0)
+    assert smc.SPLIT_COUNTS == ("smc_adjoint_split_launches", "smc_adjoint_split_warps")
     assert set(smc.DEVICE_COUNTS) == {"smc_segments", "smc_segments_resolved", "smc_fix_sites",
                                       "smc_split_sites"}
     assert smc.TRIM_COUNTS == ("smc_trimmed_sites", "smc_row_sites")

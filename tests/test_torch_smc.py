@@ -279,6 +279,45 @@ def test_states_per_lane_and_geometry():
         smc.kernel_geometry(500, 5, 24)
 
 
+def test_split_adjoint_cache_fits_its_residency():
+    """The split adjoint's shared memory as csrc states it: a block's period
+    cache (x, S(x) and P(u x) at each of a period's sites, SPL floats a lane,
+    a slice a warp) beside the observation tile, plus the 1 KB the card
+    reserves a block, times the blocks ADJOINT_WARPS_PER_SM asks for, fits
+    the H100's 227 KB at every PHLASH_SMC_INSTANCES entry (12 KB a one-warp
+    block at M = 16); the three split kernels' shared-cache instances are
+    bound to that many blocks, their register-cache ones and the unsplit
+    kernel are not; and the plan's target is the header's."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(smc.__file__).parents[1] / "csrc"
+    header, source = (csrc / "smc_common.cuh").read_text(), (csrc / "smc_backward.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", header).group(1))
+
+    mapping = re.search(r"#define PHLASH_SMC_INSTANCES\(X\) (.*)", header).group(1)
+    spl = {int(m): int(s) for m, s in re.findall(r"X\((\d+), (\d+)\)", mapping)}
+    arrays = int(re.search(r"enum CacheArray \{[^}]*CACHE_ARRAYS = (\d+) \}", header).group(1))
+    tile = re.search(r"__shared__ __align__\(16\) int8_t sh\[OBS_TILE \+ (\d+)\]", source)
+    warps, per_block = const("ADJOINT_WARPS_PER_SM"), const("INSTANCES_PER_BLOCK")
+    assert warps == smc.TARGET_WARPS_PER_SM["adjoint"] and arrays == 3
+    for M, s in spl.items():
+        threads = per_block * M // s
+        cache = threads // 32 * const("NORM_EVERY") * arrays * 32 * s * 4
+        blocks = warps * 32 // threads
+        assert blocks * (cache + const("OBS_TILE") + int(tile.group(1)) + 1024) <= 227 * 1024, M
+        if M == 16:
+            assert threads == 32 and cache == 12 * 1024 and blocks == 16
+    assert re.search(r"MIN_BLOCKS = ADJOINT_WARPS_PER_SM \* 32 / THREADS;", source)
+    for kind in ("speculate", "fix", "splice"):
+        assert re.search(r"template <int M, int SPL, bool SHARED>\n__global__ void __launch_bounds__"
+                         r"\(AdjointSplit<M, SPL>::THREADS,\s+SHARED \? AdjointSplit<M, SPL>::"
+                         rf"MIN_BLOCKS : 1\)\nsmc_backward_kernel_{kind}\(", source), kind
+    assert "__launch_bounds__(Group<M, SPL>::THREADS)\nsmc_backward_kernel(" in source
+
+
 def test_dispatch_by_device():
     "CPU tensors take the plain versions and count as such; nothing launches."
     params, pi, obs, gbar, abar0 = _random_case(2, 2, 20, 8, seed=4)
@@ -377,19 +416,19 @@ def test_segment_plan(direction):
     genome's rows, as many as fill the direction's TARGET_WARPS_PER_SM a SM;
     segments of whole checkpoint intervals, none empty and none under
     MIN_SEGMENT_SITES sites (but the last)."""
-    sms = 132
+    sms, resident = 132, 16  # the H100's SMs, the warps an SM its split adjoint holds
     target = smc.TARGET_WARPS_PER_SM[direction]
     for B, S, L in ((500, 5, 600), (500, 5, 100), (500, 5, 500), (500, 40, 94_000),
                     (500, 5, 2000), (1, 1, smc.MIN_SEGMENT_SITES * 2 - 1)):
-        assert smc.segment_plan(B, S, L, 16, sms, direction).K == 1, (B, S, L)
+        assert smc.segment_plan(B, S, L, 16, sms, direction, resident).K == 1, (B, S, L)
     for B, S, L in ((500, 1, 94_000), (500, 5, 94_000), (500, 4, 94_000), (32, 1, 5_000),
                     (500, 1, 93_999), (1, 1, 10**6)):
         n_per = smc.n_periods(L)
-        K, P = smc.segment_plan(B, S, L, 16, sms, direction)
+        K, P = smc.segment_plan(B, S, L, 16, sms, direction, resident)
         assert K >= 2 and P % smc.CHECK_PERIODS == 0 and (K - 1) * P < n_per <= K * P
         assert P * smc.NORM_EVERY >= smc.MIN_SEGMENT_SITES
         warps = smc.launch_geometry(B, S, 16, smc.STATES_PER_LANE[16], smc.INSTANCES_PER_BLOCK)
         assert K * warps["warps"] <= target * sms
-    want = {"forward": smc.Plan(32, 368), "adjoint": smc.Plan(16, 736)}[direction]
-    assert smc.segment_plan(500, 1, 94_000, 16, sms, direction) == want
+    want = {"forward": smc.Plan(32, 368), "adjoint": smc.Plan(32, 368)}[direction]
+    assert smc.segment_plan(500, 1, 94_000, 16, sms, direction, resident) == want
     assert smc.segments(100, 1) == smc.Plan(1, 100) and smc.segments(20, 8) == smc.Plan(2, 16)

@@ -29,9 +29,13 @@ from phlash_tpu_torch.svgd import median_bandwidth  # noqa: E402
 
 PKG = Path(__file__).resolve().parent.parent / "phlash_tpu_torch"
 SMS = 132  # the H100 SXM's SMs
+# the warps an SM the split SMC' adjoint's kernels hold on the H100 at every M
+# (smc.resident_warps, the library's occupancy figure)
+RESIDENT = 16
 
-# (backend, direction, (B, S, L), (K, P)) at 132 SMs and M = 16; the packed
-# rows' L is the kernel's padded row (a multiple of 8)
+# (backend, direction, (B, S, L), (K, P)) at 132 SMs and M = 16, the SMC'
+# adjoint at RESIDENT warps an SM; the packed rows' L is the kernel's padded
+# row (a multiple of 8)
 GOLDEN = [
     ("smc", "forward", (500, 1, 94_500), (33, 368)),
     ("smc", "forward", (500, 5, 94_500), (6, 1984)),
@@ -39,11 +43,11 @@ GOLDEN = [
     ("smc", "forward", (500, 5, 600), (1, 75)),
     ("smc", "forward", (2500, 1, 94_000), (6, 1968)),
     ("smc", "forward", (1, 1, 1_000_000), (460, 272)),
-    ("smc", "adjoint", (500, 1, 94_500), (16, 752)),
-    ("smc", "adjoint", (500, 5, 94_500), (3, 3952)),
-    ("smc", "adjoint", (500, 5, 20_000), (3, 848)),
+    ("smc", "adjoint", (500, 1, 94_500), (33, 368)),
+    ("smc", "adjoint", (500, 5, 94_500), (6, 1984)),
+    ("smc", "adjoint", (500, 5, 20_000), (6, 432)),
     ("smc", "adjoint", (500, 5, 600), (1, 75)),
-    ("smc", "adjoint", (2500, 1, 94_000), (3, 3920)),
+    ("smc", "adjoint", (2500, 1, 94_000), (6, 1968)),
     ("packed", "forward", (500, 1, 94_000), (16, 736)),
     ("packed", "forward", (500, 4, 94_000), (4, 2944)),
     ("packed", "forward", (500, 5, 2_000), (1, 250)),
@@ -60,17 +64,83 @@ GOLDEN = [
 def test_segment_plan_golden_table(backend, direction, shape, want):
     "Each backend's segment_plan gives the pinned Plan; the split module's Plan is both's."
     if backend == "smc":
-        got = smc.segment_plan(*shape, 16, SMS, direction)
+        got = smc.segment_plan(*shape, 16, SMS, direction, RESIDENT)
     else:
         got = packed.segment_plan(*shape, SMS, direction)
     assert got == split.Plan(*want) and smc.Plan is packed.Plan is split.Plan
 
 
 @pytest.mark.parametrize("M,direction,want", [(32, "forward", (8, 1488)),
-                                              (64, "adjoint", (4, 2960))])
+                                              (64, "adjoint", (8, 1488))])
 def test_segment_plan_follows_the_states_per_lane(M, direction, want):
     "The SMC' plan at M = 32 / 64 (2 / 4 states a lane) on one genome's row."
-    assert smc.segment_plan(500, 1, 94_500, M, SMS, direction) == split.Plan(*want)
+    assert smc.segment_plan(500, 1, 94_500, M, SMS, direction, RESIDENT) == split.Plan(*want)
+
+
+# the SMC' adjoint's plans at 8 warps an SM, the residency of kernels that
+# keep their period cache in registers (255 registers a thread)
+AT_8_WARPS = {(500, 1, 94_500, 16): (16, 752), (500, 5, 94_500, 16): (3, 3952),
+              (500, 5, 20_000, 16): (3, 848), (500, 5, 600, 16): (1, 75),
+              (2500, 1, 94_000, 16): (3, 3920), (500, 1, 94_500, 64): (4, 2960)}
+
+
+@pytest.mark.parametrize("resident", [4, 8, 12, 16, 24])
+def test_the_adjoint_plan_never_exceeds_the_resident_warps(resident):
+    """The adjoint's K brings the unsplit grid to at most as many warps an SM
+    as its kernel holds (`resident`) and as its target; at 8 warps an SM the
+    plans are those of kernels held to 8, at 16 or more those of the target
+    alone.  The forward's plan ignores the figure."""
+    target = smc.TARGET_WARPS_PER_SM["adjoint"]
+    for (B, S, L, M), at8 in AT_8_WARPS.items():
+        plan = smc.segment_plan(B, S, L, M, SMS, "adjoint", resident)
+        warps = smc.launch_geometry(B, S, M, smc.STATES_PER_LANE[M], smc.INSTANCES_PER_BLOCK)
+        assert plan.K == 1 or plan.K * warps["warps"] <= min(target, resident) * SMS
+        if resident == 8:
+            assert plan == split.Plan(*at8), (B, S, L, M)
+        if resident >= target:
+            assert plan == smc.segment_plan(B, S, L, M, SMS, "adjoint", target)
+        assert (smc.segment_plan(B, S, L, M, SMS, "forward", resident)
+                == smc.segment_plan(B, S, L, M, SMS, "forward"))
+
+
+@pytest.mark.parametrize("B,S,L,shared", [(500, 1, 94_000, True), (500, 5, 94_000, True),
+                                           (32, 1, 5_000, False), (500, 1, 30_000, False)])
+def test_the_split_adjoint_keeps_its_cache_in_registers_where_they_hold_its_warps(B, S, L,
+                                                                               shared):
+    """At segment_plan's K, the split adjoint keeps its period cache in
+    shared memory where its warps exceed what the register-cache kernels
+    hold (8 warps an SM at M = 16 on the H100): one genome's rows and the
+    cohort's (K = 32, 6); in registers at the walkthrough's B = 32 (K = 2)
+    and at shorter rows that split less (K = 14 of 63 warps)."""
+    K = smc.segment_plan(B, S, L, 16, SMS, "adjoint", RESIDENT).K
+    assert K > 1 and smc.shared_cache(B, S, 16, K, SMS, 8) is shared
+
+
+def test_the_split_adjoint_tallies_its_launches_and_warps(monkeypatch):
+    """backward_cuda adds each split launch and its warps (K x the unsplit
+    grid's) to the fit-record tallies SPLIT_COUNTS, and nothing for an
+    unsplit launch: at one diploid's rows on 132 SMs, K = 32 of 63 warps,
+    15.3 warps an SM.  The card is stood in for: its checks, SM count,
+    residency and launch."""
+    monkeypatch.setattr(smc, "require_cuda", lambda floats, ints8=(): torch.device("cpu"))
+    monkeypatch.setattr(smc, "sm_count", lambda dev: SMS)
+    monkeypatch.setattr(smc, "resident_warps", lambda M, dev, shared=True: RESIDENT)
+    plans = []
+    monkeypatch.setattr(smc, "backward_launch",
+                        lambda params, obs, pst, gbar, abar0, plan, live=None:
+                        plans.append(plan) or ((abar0,) * 6, abar0))
+    smc.split_tally.reset()
+    smc.reset_counts()
+    for S, L in ((1, 93_999), (5, 600)):
+        abar0 = torch.zeros(500, S, 16)
+        smc.backward_cuda(None, torch.zeros(S, L, dtype=torch.int8), None, None, abar0)
+    assert [p.K for p in plans] == [32, 1] and smc.counts()["backward_cuda"] == 2
+    got = smc.split_tally.counts()
+    assert got == {"smc_adjoint_split_launches": 1, "smc_adjoint_split_warps": 32 * 63}
+    assert abs(got["smc_adjoint_split_warps"] / got["smc_adjoint_split_launches"] / SMS
+               - 15.27) < 0.01
+    smc.split_tally.reset()
+    smc.reset_counts()
 
 
 COUNT_KEYS = {
@@ -165,7 +235,8 @@ def test_a_capture_is_taken_back_and_added_at_each_replay(monkeypatch):
 FIT = dict(device="cpu", num_particles=4, chunk_size=20, minibatch_size=1, progress=False, seed=3,
            niter=2, steps_per_call=1)
 RECORD_KEYS = {"smc_segments", "smc_segments_resolved", "smc_fix_sites", "smc_split_sites",
-               "smc_trimmed_sites", "smc_row_sites",
+               "smc_trimmed_sites", "smc_row_sites", "smc_adjoint_split_launches",
+               "smc_adjoint_split_warps",
                "packed_segments", "packed_segments_resolved", "packed_fix_sites",
                "packed_split_sites", "packed_sites", "packed_ckpt_bytes",
                "ckpt_saves", "ckpt_bytes", "ckpt_waits"}
@@ -174,8 +245,9 @@ RECORD_KEYS = {"smc_segments", "smc_segments_resolved", "smc_fix_sites", "smc_sp
 @pytest.mark.parametrize("backend,overlap", [("smc", 4), ("packed", 0)])
 def test_a_fits_record_has_the_counter_keys(backend, overlap):
     """FitTrace.counts after a CPU fit: the four device counts of each
-    split pair, the SMC' pair's two live-end counts, the packed work
-    tallies and the checkpoint writer's counters, whatever the backend
+    split pair, the SMC' pair's two live-end counts and its split adjoint's
+    two tallies, the packed work tallies and the checkpoint writer's
+    counters, whatever the backend
     (zeros where unused: nothing splits or trims on the card from the CPU,
     and this fit saves no checkpoint)."""
     het = np.random.default_rng(0).integers(0, 2, size=(1, 200)).astype(np.int8)
